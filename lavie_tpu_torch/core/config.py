@@ -1,0 +1,171 @@
+"""Configuration dataclasses for the PyTorch port (a copy of lavie_tpu.core.config,
+which the port must not import).
+
+This slice of the port covers base text-to-video, so the configs carry the
+base stage's fields only. Public config surface mirrors the reference's OmegaConf YAML files
+(reference: base/configs/sample.yaml, interpolation/configs/sample.yaml,
+vsr/configs/sample.yaml).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    """Spatio-temporal UNet of base text-to-video: the SD-1.4 UNet inflated
+    to video (reference: base/models/unet.py:101-295 and the SD-1.4 unet
+    config.json). Spatial self-attention, RoPE + relative-position-bias
+    temporal attention, FF after temporal. The TSR/VSR variants of the JAX
+    package's config are not ported yet."""
+
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    down_block_types: Tuple[str, ...] = (
+        "CrossAttnDownBlock3D",
+        "CrossAttnDownBlock3D",
+        "CrossAttnDownBlock3D",
+        "DownBlock3D",
+    )
+    up_block_types: Tuple[str, ...] = (
+        "UpBlock3D",
+        "CrossAttnUpBlock3D",
+        "CrossAttnUpBlock3D",
+        "CrossAttnUpBlock3D",
+    )
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    # Number of attention heads per block. The reference inherits diffusers'
+    # misnamed `attention_head_dim=8`, which for SD-1.4 actually means 8 heads
+    # (reference: base/models/unet_blocks.py:289-291 divides channels by it).
+    num_attention_heads: int = 8
+    norm_num_groups: int = 32
+    norm_eps: float = 1e-5
+    flip_sin_to_cos: bool = True
+    freq_shift: int = 0
+    mid_block_scale_factor: float = 1.0
+    rope_dim: int = 32
+    relpos_num_buckets: int = 32
+    relpos_max_distance: int = 32
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+    @classmethod
+    def base_t2v(cls) -> "UNetConfig":
+        return cls()
+
+    def tiny(self, **overrides: Any) -> "UNetConfig":
+        """A scaled-down config with the same topology, for tests."""
+        small = dataclasses.replace(
+            self,
+            block_out_channels=tuple(32 for _ in self.block_out_channels),
+            layers_per_block=1,
+            num_attention_heads=2,
+            norm_num_groups=8,
+            # matches CLIPTextConfig.tiny().hidden_size so tiny pipelines wire up
+            cross_attention_dim=32,
+            rope_dim=4,
+        )
+        return dataclasses.replace(small, **overrides)
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    """AutoencoderKL: the SD-1.4 f8 VAE."""
+
+    in_channels: int = 3
+    out_channels: int = 3
+    latent_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
+    layers_per_block: int = 2
+    norm_num_groups: int = 32
+    scaling_factor: float = 0.18215
+    mid_block_attention: bool = True
+
+    @property
+    def downscale_factor(self) -> int:
+        return 2 ** (len(self.block_out_channels) - 1)
+
+    @classmethod
+    def sd(cls) -> "VAEConfig":
+        return cls()
+
+    def tiny(self) -> "VAEConfig":
+        return dataclasses.replace(
+            self,
+            block_out_channels=tuple(16 for _ in self.block_out_channels),
+            layers_per_block=1,
+            norm_num_groups=4,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    """CLIP text encoder. Defaults are ViT-L/14 (SD-1.4 text encoder,
+    reference: base/models/clip.py:32-58 wraps transformers CLIPTextModel)."""
+
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+
+    @classmethod
+    def vit_l(cls) -> "CLIPTextConfig":
+        return cls()
+
+    def tiny(self) -> "CLIPTextConfig":
+        return dataclasses.replace(
+            self,
+            vocab_size=128,
+            hidden_size=32,
+            num_layers=2,
+            num_heads=2,
+            intermediate_size=64,
+            max_position_embeddings=16,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingConfig:
+    """Sampling recipe. Defaults match the reference base stage
+    (reference: base/configs/sample.yaml:23-40)."""
+
+    video_length: int = 16
+    height: int = 320
+    width: int = 512
+    num_inference_steps: int = 50
+    guidance_scale: float = 7.5
+    sample_method: str = "ddpm"  # ddpm | ddim | eulerdiscrete
+    beta_start: float = 1e-4
+    beta_end: float = 0.02
+    beta_schedule: str = "linear"
+    num_train_timesteps: int = 1000
+    steps_offset: int = 1
+    prediction_type: str = "epsilon"  # epsilon | v_prediction
+    eta: float = 0.0
+    fps: int = 8
+    # The reference builds DDPM/DDIM via from_pretrained on the SD-1.4
+    # scheduler config (base/pipelines/sample.py:44-60): that config has no
+    # clip_sample key, so diffusers' default clip_sample=True applies, and it
+    # sets set_alpha_to_one=false (DDIM's terminal previous-alpha is ᾱ₀, not
+    # 1). The VSR stage overrides both from the x4-upscaler config
+    # (clip_sample=false there).
+    clip_sample: bool = True
+    set_alpha_to_one: bool = False
+
+
+def load_yaml_config(path: str) -> dict:
+    """Load an OmegaConf-style YAML config file (reference CLI surface:
+    base/pipelines/sample.py:95-100)."""
+    import yaml  # not installed everywhere the port runs; only the CLI needs it
+
+    with open(path, "r") as f:
+        return yaml.safe_load(f)

@@ -1,0 +1,111 @@
+"""Attention modules for the spatio-temporal transformer blocks (port of
+lavie_tpu.nn.attention):
+
+  - Attention: spatial self-attention / text cross-attention
+  - RelativePositionBias: learned bucketed bias for the temporal scores
+  - TemporalAttention: frame-axis attention over (B, F, S, C), variant
+    "rope_relbias" (partial RoPE on q/k + relative-position bias), computed
+    by the fused temporal kernel (kernels/temporal_fused.py)
+
+Projection names follow diffusers (to_q/to_k/to_v/to_out.0).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from lavie_tpu_torch.kernels.attention import dot_product_attention
+from lavie_tpu_torch.kernels.temporal_fused import temporal_attention
+from lavie_tpu_torch.nn.embeddings import relative_position_buckets, rope_half_frequencies
+
+
+class Attention(nn.Module):
+    """Multi-head attention; `cross_attention_dim` None → self-attention."""
+
+    def __init__(self, query_dim: int, heads: int = 8, head_dim: int = 64,
+                 cross_attention_dim: Optional[int] = None):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        kv_dim = cross_attention_dim or query_dim
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(kv_dim, inner, bias=False)
+        self.to_v = nn.Linear(kv_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, hidden_states: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """hidden_states (B, S, C); encoder_hidden_states (B, L, D) or None."""
+        context = hidden_states if encoder_hidden_states is None else encoder_hidden_states
+        b, s, _ = hidden_states.shape
+        sk = context.shape[1]
+        q = self.to_q(hidden_states).view(b, s, self.heads, self.head_dim)
+        k = self.to_k(context).view(b, sk, self.heads, self.head_dim)
+        v = self.to_v(context).view(b, sk, self.heads, self.head_dim)
+        out = dot_product_attention(q, k, v).reshape(b, s, self.heads * self.head_dim)
+        return self.to_out[0](out)
+
+
+class RelativePositionBias(nn.Module):
+    """Learned bucketed relative-position bias, (heads, n, n)."""
+
+    def __init__(self, heads: int, num_buckets: int = 32, max_distance: int = 32):
+        super().__init__()
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.relative_attention_bias = nn.Embedding(num_buckets, heads)
+
+    def forward(self, buckets: torch.Tensor) -> torch.Tensor:
+        """buckets: (n, n) int64 from relative_position_buckets."""
+        return self.relative_attention_bias(buckets).permute(2, 0, 1)
+
+
+class TemporalAttention(nn.Module):
+    """Attention over the frame axis of (B, F, S, C) tokens, variant
+    "rope_relbias". q/k channels live in the half-split RoPE basis (weights
+    trained with interleaved RoPE are permuted into it by io.convert). The
+    out-projection is zero-initialised like the reference's, so a fresh
+    module is a no-op residual until its weights are set."""
+
+    def __init__(self, query_dim: int, heads: int = 8, head_dim: int = 64,
+                 rope_dim: int = 32, num_buckets: int = 32, max_distance: int = 32):
+        super().__init__()
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        self.rope_dim = min(rope_dim, head_dim)
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(query_dim, inner, bias=False)
+        self.to_v = nn.Linear(query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        nn.init.zeros_(self.to_out[0].weight)
+        nn.init.zeros_(self.to_out[0].bias)
+        self.time_rel_pos_bias = RelativePositionBias(heads, num_buckets, max_distance)
+        # per (frames, device): RoPE tables and bias buckets, made once so the
+        # forward issues no host→device copies
+        self._tables: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, ...]] = {}
+
+    def _frame_tables(self, f: int, device: torch.device):
+        key = (f, device)
+        if key not in self._tables:
+            cos, sin = rope_half_frequencies(f, self.rope_dim)
+            rpb = self.time_rel_pos_bias
+            buckets = relative_position_buckets(f, rpb.num_buckets, rpb.max_distance)
+            self._tables[key] = (
+                torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device),
+                torch.from_numpy(buckets.astype("int64")).to(device),
+            )
+        return self._tables[key]
+
+    def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        """hidden_states (B, F, S, C) → (B, F, S, C)."""
+        f = hidden_states.shape[1]
+        cos, sin, buckets = self._frame_tables(f, hidden_states.device)
+        bias = self.time_rel_pos_bias(buckets).float().contiguous()  # (H, F, F)
+        out = temporal_attention(
+            self.to_q(hidden_states), self.to_k(hidden_states), self.to_v(hidden_states),
+            bias, cos, sin, scale=self.head_dim ** -0.5, rope_dim=self.rope_dim,
+            heads=self.heads,
+        )
+        return self.to_out[0](out)

@@ -1,0 +1,68 @@
+"""Residual blocks and spatial up/downsampling for the video UNet (port of
+lavie_tpu.nn.resnet). Convolutions are per-frame 2D (InflatedConv)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv
+
+
+class ResnetBlock3D(nn.Module):
+    """GN→SiLU→conv→(+temb)→GN→SiLU→conv with shortcut. The GroupNorms take
+    their statistics over all frames of a video, (F, H, W)."""
+
+    def __init__(self, in_channels: int, out_channels: Optional[int] = None,
+                 temb_channels: Optional[int] = 1280, groups: int = 32, eps: float = 1e-6,
+                 output_scale_factor: float = 1.0):
+        super().__init__()
+        out_ch = out_channels or in_channels
+        self.output_scale_factor = output_scale_factor
+        self.norm1 = GroupNorm(groups, in_channels, eps)
+        self.conv1 = InflatedConv(in_channels, out_ch, 3, padding=1)
+        self.time_emb_proj = nn.Linear(temb_channels, out_ch) if temb_channels else None
+        self.norm2 = GroupNorm(groups, out_ch, eps)
+        self.conv2 = InflatedConv(out_ch, out_ch, 3, padding=1)
+        self.conv_shortcut = (
+            InflatedConv(in_channels, out_ch, 1) if in_channels != out_ch else None
+        )
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
+        """x (B, F, H, W, C); temb (B, temb_channels)."""
+        h = self.conv1(F.silu(self.norm1(x)))
+        if temb is not None and self.time_emb_proj is not None:
+            h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
+        h = self.conv2(F.silu(self.norm2(h)))
+        if self.conv_shortcut is not None:
+            x = self.conv_shortcut(x)
+        out = x + h
+        if self.output_scale_factor != 1.0:
+            out = out / self.output_scale_factor
+        return out
+
+
+class Upsample3D(nn.Module):
+    """Nearest-neighbour ×2 spatial upsample + conv; frames untouched."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = InflatedConv(channels, channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.repeat_interleave(2, dim=-3).repeat_interleave(2, dim=-2)
+        return self.conv(x)
+
+
+class Downsample3D(nn.Module):
+    """Stride-2 spatial conv downsample."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = InflatedConv(channels, channels, 3, stride=2, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x)

@@ -1,0 +1,186 @@
+"""The spatio-temporal UNet of base text-to-video (port of
+lavie_tpu.nn.unet, the blocks `UNetConfig.base_t2v()` uses).
+
+Layout: (B, F, H, W, C) channels-last video tensors throughout.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from lavie_tpu_torch.core.config import UNetConfig
+from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv, TimestepEmbedding
+from lavie_tpu_torch.nn.resnet import Downsample3D, ResnetBlock3D, Upsample3D
+from lavie_tpu_torch.nn.transformer import Transformer3D
+
+
+def _transformer(cfg: UNetConfig, channels: int) -> Transformer3D:
+    heads = cfg.num_attention_heads
+    return Transformer3D(
+        channels, heads, channels // heads, num_layers=1,
+        cross_attention_dim=cfg.cross_attention_dim, norm_num_groups=cfg.norm_num_groups,
+        rope_dim=cfg.rope_dim, relpos_num_buckets=cfg.relpos_num_buckets,
+        relpos_max_distance=cfg.relpos_max_distance,
+    )
+
+
+def _resnet(cfg: UNetConfig, cin: int, cout: int, scale: float = 1.0) -> ResnetBlock3D:
+    return ResnetBlock3D(cin, cout, cfg.time_embed_dim, cfg.norm_num_groups, cfg.norm_eps, scale)
+
+
+class CrossAttnDownBlock3D(nn.Module):
+    """(resnet → Transformer3D) × layers + optional downsample."""
+
+    def __init__(self, cfg: UNetConfig, cin: int, cout: int, num_layers: int, add_downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [_resnet(cfg, cin if i == 0 else cout, cout) for i in range(num_layers)]
+        )
+        self.attentions = nn.ModuleList([_transformer(cfg, cout) for _ in range(num_layers)])
+        self.downsamplers = nn.ModuleList([Downsample3D(cout)]) if add_downsample else None
+
+    def forward(self, x, temb, ehs):
+        out = []
+        for resnet, attn in zip(self.resnets, self.attentions):
+            x = attn(resnet(x, temb), ehs)
+            out.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+            out.append(x)
+        return x, out
+
+
+class DownBlock3D(nn.Module):
+    """resnet × layers + optional downsample."""
+
+    def __init__(self, cfg: UNetConfig, cin: int, cout: int, num_layers: int, add_downsample: bool):
+        super().__init__()
+        self.resnets = nn.ModuleList(
+            [_resnet(cfg, cin if i == 0 else cout, cout) for i in range(num_layers)]
+        )
+        self.downsamplers = nn.ModuleList([Downsample3D(cout)]) if add_downsample else None
+
+    def forward(self, x, temb, ehs=None):
+        out = []
+        for resnet in self.resnets:
+            x = resnet(x, temb)
+            out.append(x)
+        if self.downsamplers is not None:
+            x = self.downsamplers[0](x)
+            out.append(x)
+        return x, out
+
+
+class UNetMidBlock3DCrossAttn(nn.Module):
+    """resnet → (Transformer3D → resnet) × layers."""
+
+    def __init__(self, cfg: UNetConfig, channels: int, num_layers: int = 1):
+        super().__init__()
+        scale = cfg.mid_block_scale_factor
+        self.resnets = nn.ModuleList(
+            [_resnet(cfg, channels, channels, scale) for _ in range(num_layers + 1)]
+        )
+        self.attentions = nn.ModuleList([_transformer(cfg, channels) for _ in range(num_layers)])
+
+    def forward(self, x, temb, ehs):
+        x = self.resnets[0](x, temb)
+        for attn, resnet in zip(self.attentions, self.resnets[1:]):
+            x = resnet(attn(x, ehs), temb)
+        return x
+
+
+class CrossAttnUpBlock3D(nn.Module):
+    """(skip-concat → resnet → Transformer3D) × layers + optional upsample."""
+
+    has_attention = True
+
+    def __init__(self, cfg: UNetConfig, cin: int, prev: int, cout: int, num_layers: int,
+                 add_upsample: bool):
+        super().__init__()
+        resnets = []
+        for i in range(num_layers):
+            skip = cin if i == num_layers - 1 else cout
+            res_in = prev if i == 0 else cout
+            resnets.append(_resnet(cfg, res_in + skip, cout))
+        self.resnets = nn.ModuleList(resnets)
+        if self.has_attention:
+            self.attentions = nn.ModuleList([_transformer(cfg, cout) for _ in range(num_layers)])
+        self.upsamplers = nn.ModuleList([Upsample3D(cout)]) if add_upsample else None
+
+    def forward(self, x, skips: List[torch.Tensor], temb, ehs):
+        for i, resnet in enumerate(self.resnets):
+            x = resnet(torch.cat([x, skips.pop()], dim=-1), temb)
+            if self.has_attention:
+                x = self.attentions[i](x, ehs)
+        if self.upsamplers is not None:
+            x = self.upsamplers[0](x)
+        return x
+
+
+class UpBlock3D(CrossAttnUpBlock3D):
+    """(skip-concat → resnet) × layers + optional upsample."""
+
+    has_attention = False
+
+
+class UNet3D(nn.Module):
+    """forward(sample (B,F,H,W,Cin), timesteps (B,), encoder_hidden_states
+    (B,L,D)) → (B,F,H,W,Cout) prediction."""
+
+    def __init__(self, config: UNetConfig):
+        super().__init__()
+        cfg = self.config = config
+        boc = cfg.block_out_channels
+        self.conv_in = InflatedConv(cfg.in_channels, boc[0], 3, padding=1)
+        self.time_embedding = TimestepEmbedding(
+            boc[0], cfg.time_embed_dim, cfg.flip_sin_to_cos, cfg.freq_shift
+        )
+
+        blocks = {"CrossAttnDownBlock3D": CrossAttnDownBlock3D, "DownBlock3D": DownBlock3D}
+        self.down_blocks = nn.ModuleList()
+        cout = boc[0]
+        for i, block_type in enumerate(cfg.down_block_types):
+            cin, cout = cout, boc[i]
+            self.down_blocks.append(
+                blocks[block_type](cfg, cin, cout, cfg.layers_per_block, i < len(boc) - 1)
+            )
+
+        self.mid_block = UNetMidBlock3DCrossAttn(cfg, boc[-1])
+
+        blocks = {"CrossAttnUpBlock3D": CrossAttnUpBlock3D, "UpBlock3D": UpBlock3D}
+        rev = list(reversed(boc))
+        self.up_blocks = nn.ModuleList()
+        cout = rev[0]
+        for i, block_type in enumerate(cfg.up_block_types):
+            prev, cout = cout, rev[i]
+            cin = rev[min(i + 1, len(boc) - 1)]
+            self.up_blocks.append(
+                blocks[block_type](cfg, cin, prev, cout, cfg.layers_per_block + 1, i < len(boc) - 1)
+            )
+
+        self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
+        self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if timesteps.ndim == 0:
+            timesteps = timesteps.expand(sample.shape[0])
+        dtype = self.conv_in.weight.dtype
+        emb = self.time_embedding(timesteps)
+        if encoder_hidden_states is not None:
+            encoder_hidden_states = encoder_hidden_states.to(dtype)
+        x = self.conv_in(sample.to(dtype))
+        skips = [x]
+        for block in self.down_blocks:
+            x, res = block(x, emb, encoder_hidden_states)
+            skips.extend(res)
+        x = self.mid_block(x, emb, encoder_hidden_states)
+        for block in self.up_blocks:
+            n = len(block.resnets)
+            res, skips = skips[-n:], skips[:-n]
+            x = block(x, res, emb, encoder_hidden_states)
+        return self.conv_out(F.silu(self.conv_norm_out(x)))

@@ -1,0 +1,226 @@
+"""Base text-to-video pipeline (port of lavie_tpu.pipelines.t2v).
+
+    pipe = TextToVideoPipeline.init_random(seed=0)          # or load weights
+    video = pipe("a teddy bear walking on the street").video  # (1,16,320,512,3) uint8
+
+The prompt batch is doubled as [uncond; cond] for classifier-free guidance,
+the UNet runs the DDPM (or DDIM / Euler) loop in Python, and the SD VAE
+decodes every frame to uint8.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from lavie_tpu_torch.core.config import CLIPTextConfig, SamplingConfig, UNetConfig, VAEConfig
+from lavie_tpu_torch.diffusion.samplers import (
+    classifier_free_guidance,
+    ddim_step,
+    ddim_timesteps,
+    ddpm_step,
+    ddpm_timesteps,
+    euler_sigmas,
+    euler_step,
+    prev_timesteps,
+)
+from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
+from lavie_tpu_torch.io.from_jax import load_jax_params
+from lavie_tpu_torch.io.tokenizer import CLIPTokenizer
+from lavie_tpu_torch.nn.clip import CLIPTextModel
+from lavie_tpu_torch.nn.unet import UNet3D
+from lavie_tpu_torch.nn.vae import AutoencoderKL
+
+
+@dataclasses.dataclass
+class PipelineOutput:
+    video: np.ndarray  # (B, F, H, W, 3) uint8
+    latents: torch.Tensor  # (B, F, h, w, 4) fp32 final latents, before decode
+
+
+def random_init_(module: nn.Module, seed: int) -> None:
+    """Fill every parameter of `module` with seeded random values, on the
+    module's own device: weights (≥ 2 dims) ~ N(0, 1/fan_in), 1-D `weight`s
+    (norm scales) ~ 1 + N(0, 0.1²), biases and raw vectors ~ N(0, 0.02²).
+    Unlike the reference's init, nothing is zero — the temporal
+    out-projections included, so every kernel affects the output."""
+    params = list(module.parameters())
+    if not params:
+        return
+    gen = torch.Generator(device=params[0].device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            noise = torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32)
+            if p.ndim >= 2:
+                p.copy_(noise / math.sqrt(p[0].numel()))
+            elif name.endswith("weight"):
+                p.copy_(1.0 + 0.1 * noise)
+            else:
+                p.copy_(0.02 * noise)
+
+
+class TextToVideoPipeline:
+    """Owns the text encoder, UNet and VAE on one device, in one dtype."""
+
+    def __init__(
+        self,
+        unet_config: UNetConfig = UNetConfig.base_t2v(),
+        vae_config: VAEConfig = VAEConfig.sd(),
+        text_config: CLIPTextConfig = CLIPTextConfig.vit_l(),
+        sampling: SamplingConfig = SamplingConfig(),
+        tokenizer: Optional[CLIPTokenizer] = None,
+        dtype: torch.dtype = torch.bfloat16,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        self.unet_config, self.vae_config, self.text_config = unet_config, vae_config, text_config
+        self.sampling = sampling
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.tokenizer = tokenizer or CLIPTokenizer(
+            max_length=text_config.max_position_embeddings, vocab_size=text_config.vocab_size
+        )
+        with torch.device(self.device):
+            self.unet = UNet3D(unet_config).to(dtype).eval()
+            self.vae = AutoencoderKL(vae_config).to(dtype).eval()
+            self.text_encoder = CLIPTextModel(text_config).to(dtype).eval()
+        self.schedule = NoiseSchedule.create(
+            sampling.beta_schedule, sampling.num_train_timesteps, sampling.beta_start,
+            sampling.beta_end,
+        )
+
+    @classmethod
+    def init_random(
+        cls,
+        seed: int = 0,
+        unet_config: UNetConfig = UNetConfig.base_t2v(),
+        vae_config: VAEConfig = VAEConfig.sd(),
+        text_config: CLIPTextConfig = CLIPTextConfig.vit_l(),
+        sampling: SamplingConfig = SamplingConfig(),
+        dtype: torch.dtype = torch.bfloat16,
+        device: Union[str, torch.device] = "cuda",
+    ) -> "TextToVideoPipeline":
+        """A pipeline with seeded random weights (random_init_), made
+        directly on `device`: for benchmarking and weight-free testing."""
+        pipe = cls(unet_config, vae_config, text_config, sampling, dtype=dtype, device=device)
+        for i, m in enumerate((pipe.unet, pipe.vae, pipe.text_encoder)):
+            random_init_(m, seed * 3 + i)
+        return pipe
+
+    def load_jax_params(self, params: Mapping[str, Any]) -> None:
+        """Load the JAX pipeline's param dict ({"unet", "vae",
+        "text_encoder"} flax trees) strictly, keeping this pipeline's dtype
+        and device."""
+        for name in ("unet", "vae", "text_encoder"):
+            module = getattr(self, name)
+            load_jax_params(module, params[name])
+            module.to(device=self.device, dtype=self.dtype)
+
+    @torch.no_grad()
+    def encode_prompts(self, prompts: Sequence[str], negative_prompt: str = "") -> torch.Tensor:
+        """(2B, L, D) text states, [uncond; cond]."""
+        ids = np.concatenate(
+            [self.tokenizer([negative_prompt] * len(prompts)), self.tokenizer(list(prompts))], axis=0
+        )
+        ids = torch.from_numpy(ids.astype(np.int64)).to(self.device)
+        return self.text_encoder(ids).to(self.dtype)
+
+    @torch.no_grad()
+    def decode(self, latents: torch.Tensor, decode_chunk: int = 0) -> np.ndarray:
+        """(B, F, h, w, 4) latents → (B, F, H, W, 3) uint8, frames folded
+        into the VAE batch, `decode_chunk` frames at a time (0 = all)."""
+        b, f, h, w, c = latents.shape
+        z = (latents / self.vae_config.scaling_factor).to(self.dtype).reshape(b * f, h, w, c)
+        n = b * f
+        step = decode_chunk if decode_chunk and decode_chunk < n else n
+        rgb = torch.cat([self.vae.decode(z[i : i + step]) for i in range(0, n, step)], dim=0)
+        video = rgb.float().reshape(b, f, rgb.shape[1], rgb.shape[2], 3)
+        video = torch.clamp(video / 2.0 + 0.5, 0.0, 1.0)
+        return torch.round(video * 255.0).to(torch.uint8).cpu().numpy()
+
+    @torch.no_grad()
+    def __call__(
+        self,
+        prompt: Union[str, Sequence[str]],
+        video_length: Optional[int] = None,
+        height: Optional[int] = None,
+        width: Optional[int] = None,
+        num_inference_steps: Optional[int] = None,
+        guidance_scale: Optional[float] = None,
+        negative_prompt: str = "",
+        sample_method: Optional[str] = None,
+        seed: Optional[int] = 0,
+        latents: Optional[np.ndarray] = None,
+        decode_chunk: int = 0,
+        text_states: Optional[np.ndarray] = None,
+    ) -> PipelineOutput:
+        """`latents` (B, F, h, w, 4) replace the seeded initial noise;
+        `text_states` (2B, L, D) [uncond; cond] replace the text encoder."""
+        cfg = self.sampling
+        f8 = self.vae_config.downscale_factor
+        if latents is not None and video_length is None:
+            lat = np.asarray(latents)
+            video_length = lat.shape[1]
+            height = height or lat.shape[2] * f8
+            width = width or lat.shape[3] * f8
+        video_length = video_length or cfg.video_length
+        height, width = height or cfg.height, width or cfg.width
+        steps = num_inference_steps or cfg.num_inference_steps
+        guidance = guidance_scale if guidance_scale is not None else cfg.guidance_scale
+        method = sample_method or cfg.sample_method
+
+        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+        if text_states is not None:
+            states = torch.as_tensor(np.asarray(text_states), device=self.device).to(self.dtype)
+            batch = states.shape[0] // 2
+        else:
+            states = self.encode_prompts(prompts, negative_prompt)
+            batch = len(prompts)
+
+        gen = torch.Generator(device=self.device).manual_seed(seed if seed is not None else 0)
+        shape = (batch, video_length, height // f8, width // f8, self.unet_config.in_channels)
+        if latents is None:
+            x = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+        else:
+            x = torch.as_tensor(np.asarray(latents, np.float32), device=self.device).reshape(shape)
+
+        def eps(x: torch.Tensor, t: float, scale_in: float = 1.0) -> torch.Tensor:
+            xin = torch.cat([x, x]).to(self.dtype)
+            if scale_in != 1.0:
+                xin = xin * scale_in
+            tt = torch.full((2 * batch,), t, device=self.device, dtype=torch.float32)
+            pred = self.unet(xin, tt, states).float()
+            return classifier_free_guidance(pred, guidance)
+
+        if method in ("ddpm", "ddim"):
+            if method == "ddpm":
+                ts = ddpm_timesteps(steps, cfg.num_train_timesteps)
+            else:
+                ts = ddim_timesteps(steps, cfg.num_train_timesteps, cfg.steps_offset)
+            pts = prev_timesteps(ts, cfg.num_train_timesteps)
+            final_ab = None if cfg.set_alpha_to_one else float(self.schedule.alphas_cumprod[0])
+            for t, pt in zip(ts.tolist(), pts.tolist()):
+                e = eps(x, t)
+                if method == "ddpm":
+                    noise = torch.randn(x.shape, generator=gen, device=self.device, dtype=torch.float32)
+                    x = ddpm_step(self.schedule, x, e, t, pt, noise,
+                                  prediction_type=cfg.prediction_type, clip_sample=cfg.clip_sample)
+                else:
+                    x = ddim_step(self.schedule, x, e, t, pt, prediction_type=cfg.prediction_type,
+                                  clip_sample=cfg.clip_sample, final_alpha_bar=final_ab)
+        elif method == "eulerdiscrete":
+            ts_f, sigmas, init_sigma = euler_sigmas(self.schedule.alphas_cumprod, steps,
+                                                    cfg.num_train_timesteps)
+            x = x * init_sigma
+            for i, t in enumerate(ts_f.tolist()):
+                scale_in = float(1.0 / np.sqrt(np.float32(sigmas[i]) ** 2 + np.float32(1.0)))
+                x = euler_step(x, eps(x, t, scale_in), sigmas[i], sigmas[i + 1],
+                               prediction_type=cfg.prediction_type)
+        else:
+            raise NotImplementedError(f"sample_method {method}")
+
+        return PipelineOutput(video=self.decode(x, decode_chunk), latents=x)
