@@ -1,8 +1,9 @@
 """Configuration dataclasses for the PyTorch port (a copy of lavie_tpu.core.config,
 which the port must not import).
 
-This slice of the port covers base text-to-video, so the configs carry the
-base stage's fields only. Public config surface mirrors the reference's OmegaConf YAML files
+The port covers base text-to-video and temporal interpolation (TSR), so the
+configs carry those stages' fields; the VSR fields come with its slice.
+Public config surface mirrors the reference's OmegaConf YAML files
 (reference: base/configs/sample.yaml, interpolation/configs/sample.yaml,
 vsr/configs/sample.yaml).
 """
@@ -15,11 +16,9 @@ from typing import Any, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """Spatio-temporal UNet of base text-to-video: the SD-1.4 UNet inflated
-    to video (reference: base/models/unet.py:101-295 and the SD-1.4 unet
-    config.json). Spatial self-attention, RoPE + relative-position-bias
-    temporal attention, FF after temporal. The TSR/VSR variants of the JAX
-    package's config are not ported yet."""
+    """Spatio-temporal UNet. Defaults reproduce base text-to-video: the
+    SD-1.4 UNet inflated to video (reference: base/models/unet.py:101-295
+    and the SD-1.4 unet config.json); `interpolation()` is the TSR UNet."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -47,6 +46,16 @@ class UNetConfig:
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     mid_block_scale_factor: float = 1.0
+    # "self": spatial self-attention (base); "sparse_causal": each frame's
+    # k/v are frames {0, i-1} (interpolation; reference
+    # interpolation/models/attention.py:609-665)
+    spatial_attention: str = "self"
+    # "rope_relbias": RoPE on q/k + bucketed relative-position bias (base);
+    # "plain": bare frame-axis attention (interpolation)
+    temporal_attention: str = "rope_relbias"
+    # the interpolation block runs its FF before temporal attention
+    # (reference: interpolation/models/attention.py:570-607)
+    ff_before_temporal: bool = False
     rope_dim: int = 32
     relpos_num_buckets: int = 32
     relpos_max_distance: int = 32
@@ -58,6 +67,19 @@ class UNetConfig:
     @classmethod
     def base_t2v(cls) -> "UNetConfig":
         return cls()
+
+    @classmethod
+    def interpolation(cls, use_mask: bool = False) -> "UNetConfig":
+        """TSR UNet: 8 input channels (4 noise + 4 copied-video latents), or 9
+        with a mask channel (reference: interpolation/models/unet.py:503-508);
+        sparse-causal spatial attention, plain temporal attention, FF before
+        temporal."""
+        return cls(
+            in_channels=9 if use_mask else 8,
+            spatial_attention="sparse_causal",
+            temporal_attention="plain",
+            ff_before_temporal=True,
+        )
 
     def tiny(self, **overrides: Any) -> "UNetConfig":
         """A scaled-down config with the same topology, for tests."""
@@ -160,6 +182,14 @@ class SamplingConfig:
     # (clip_sample=false there).
     clip_sample: bool = True
     set_alpha_to_one: bool = False
+
+    @classmethod
+    def interpolation(cls) -> "SamplingConfig":
+        """The TSR stage: 61 frames, 50 DDIM steps on OpenAI's spaced chain,
+        CFG 4.0, no x0 clipping (reference: interpolation/sample.py:118-126
+        samples with clip_denoised=False)."""
+        return cls(video_length=61, num_inference_steps=50, guidance_scale=4.0,
+                   sample_method="ddim", clip_sample=False)
 
 
 def load_yaml_config(path: str) -> dict:

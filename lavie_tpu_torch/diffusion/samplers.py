@@ -1,6 +1,7 @@
 """Diffusion steppers (port of lavie_tpu.diffusion.samplers), numerics of
 diffusers 0.16: DDPM (fixed_small/fixed_large), DDIM (eta = 0, epsilon and
-v-prediction), Euler (sigma formulation) and classifier-free guidance.
+v-prediction), Euler (sigma formulation) and classifier-free guidance; the
+timestep tables of diffusers and of OpenAI's spaced chain (interpolation).
 
 Timesteps are host integers; every schedule coefficient is an fp32 numpy
 scalar computed on the host, so a step is a few elementwise device ops on
@@ -37,6 +38,24 @@ def prev_timesteps(timesteps: np.ndarray, num_train_timesteps: int = 1000) -> np
     """t_prev = t - T/n; the last entry goes negative (ᾱ = 1)."""
     step_ratio = num_train_timesteps // len(timesteps)
     return (timesteps - step_ratio).astype(np.int32)
+
+
+def spaced_timesteps(num_inference_steps: int,
+                     num_train_timesteps: int = 1000) -> Tuple[np.ndarray, np.ndarray]:
+    """OpenAI `space_timesteps` fractional striding (one section), as the
+    interpolation stage's SpacedDiffusion uses it (reference:
+    interpolation/diffusion/respace.py:65-116): kept steps round(k·(T-1)/(n-1))
+    with the reference's float accumulation and Python round(). Returns
+    (timesteps, prev_timesteps), descending; the last prev is -1 (ᾱ = 1), so
+    a stepper indexing the full schedule at these pairs equals the respaced
+    chain."""
+    frac = 1.0 if num_inference_steps <= 1 else (num_train_timesteps - 1) / (num_inference_steps - 1)
+    kept, cur = set(), 0.0
+    for _ in range(num_inference_steps):
+        kept.add(int(round(cur)))
+        cur += frac
+    asc = np.array(sorted(kept), dtype=np.int64)
+    return asc[::-1].astype(np.int32), np.concatenate([asc[:-1][::-1], [-1]]).astype(np.int32)
 
 
 def euler_sigmas(schedule_alphas_cumprod: np.ndarray, num_inference_steps: int,

@@ -12,6 +12,8 @@ The reference UNet is diffusers-keyed and was trained with interleaved RoPE
   - the RoPE re-basis: every temporal attention's to_q/to_k output rows are
     permuted from the interleaved basis into the half-split basis the port
     computes in. Scores are invariant to a permutation shared by q and k.
+    The interpolation (TSR) UNet has no RoPE: its checkpoints load with
+    rot_dim=0, which permutes nothing.
 """
 
 from __future__ import annotations

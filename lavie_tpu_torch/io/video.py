@@ -1,8 +1,10 @@
-"""Host-side video writing (port of lavie_tpu.io.video.write_video).
+"""Host-side video reading and writing (port of lavie_tpu.io.video's
+read_video and write_video).
 
-mp4 through imageio/ffmpeg where installed, else an animated GIF through
-PIL, else a .npy next to the requested path. Both libraries are imported
-only when a video is written."""
+Writing: mp4 through imageio/ffmpeg where installed, else an animated GIF
+through PIL, else a .npy next to the requested path. Reading: .npy always,
+other formats through imageio. Both libraries are imported only when a
+video is read or written."""
 
 from __future__ import annotations
 
@@ -34,3 +36,16 @@ def write_video(path: str, frames: np.ndarray, fps: int = 8, quality: int = 9) -
         alt = os.path.splitext(path)[0] + ".npy"
         np.save(alt, frames)
         return alt
+
+
+def read_video(path: str) -> np.ndarray:
+    """(F, H, W, 3) uint8 from a .npy, or from any format imageio reads."""
+    if path.endswith(".npy"):
+        return np.load(path).astype(np.uint8)
+    import imageio.v2 as imageio
+
+    reader = imageio.get_reader(path)
+    try:
+        return np.stack(list(reader)).astype(np.uint8)
+    finally:
+        reader.close()

@@ -1,0 +1,146 @@
+"""Flash attention over (rows, S, C) tensors with heads contiguous in C, the
+layout nn.Linear writes, so no transpose runs on either side.
+
+Port of lavie_tpu.kernels.flash_attention's channel-major entries:
+
+  flash_sparse_causal            flash_cmajor_sparse: each frame row's keys
+                                 and values are concat(frame 0, frame i-1)
+                                 of its video (frame 0: itself twice), never
+                                 materialised. The CUDA kernel
+                                 (csrc/flash_attention.cu) for a CUDA tensor,
+                                 the plain version for a CPU tensor
+  flash_attention_kv             flash_cmajor: the same loop over explicit
+                                 (B, Sk, C) keys and values
+  flash_sparse_causal_reference  the plain PyTorch versions: materialise the
+  flash_attention_kv_reference   kv, then fp32 scores, softmax and probs·v
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from lavie_tpu_torch.kernels import _build
+
+MAX_HEAD_DIM = 160
+# the plain versions take this many bytes of fp32 scores at a time
+_SCORE_BYTES = 4 << 30
+
+
+def sparse_causal_kv(x: torch.Tensor, frames: int, start: int = 0,
+                     stop: Optional[int] = None) -> torch.Tensor:
+    """Rows start..stop of the materialised sparse-causal kv of x (B·F, S, C):
+    row r's keys are concat(frame 0 of its video, frame i-1), frame 0 taking
+    itself twice; (stop - start, 2S, C)."""
+    r = torch.arange(start, x.shape[0] if stop is None else stop, device=x.device)
+    i = r % frames
+    return torch.cat([x[r - i], x[r - (i > 0).long()]], dim=1)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+            scale: float) -> torch.Tensor:
+    """fp32 softmax(q·kᵀ·scale)·v over (R, Sq, C) / (R, Sk, C)."""
+    r, sq, c = q.shape
+    d = c // heads
+    qh = q.float().view(r, sq, heads, d)
+    kh = k.float().view(r, -1, heads, d)
+    vh = v.float().view(r, -1, heads, d)
+    probs = torch.softmax(torch.einsum("rihd,rjhd->rhij", qh, kh) * scale, dim=-1)
+    return torch.einsum("rhij,rjhd->rihd", probs, vh).reshape(r, sq, c).to(q.dtype)
+
+
+def _chunk_rows(heads: int, sq: int, sk: int) -> int:
+    return max(1, _SCORE_BYTES // (heads * sq * sk * 4))
+
+
+def flash_attention_kv_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 heads: int, scale: float) -> torch.Tensor:
+    """q (B, Sq, C), k/v (B, Sk, C) → (B, Sq, C); fp32 scores and softmax,
+    a bounded number of rows at a time."""
+    n = _chunk_rows(heads, q.shape[1], k.shape[1])
+    return torch.cat([_attend(q[i:i + n], k[i:i + n], v[i:i + n], heads, scale)
+                      for i in range(0, q.shape[0], n)])
+
+
+def flash_sparse_causal_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  frames: int, heads: int, scale: float) -> torch.Tensor:
+    """q/k/v (B·F, S, C) → (B·F, S, C). The kv is materialised for a bounded
+    number of frame rows at a time, so the fp32 scores stay near 4 GB or
+    less."""
+    bf, s, _ = q.shape
+    n = _chunk_rows(heads, s, 2 * s)
+    return torch.cat([
+        _attend(q[i:i + n], sparse_causal_kv(k, frames, i, min(i + n, bf)),
+                sparse_causal_kv(v, frames, i, min(i + n, bf)), heads, scale)
+        for i in range(0, bf, n)
+    ])
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> int:
+    """Raise for what the kernel does not take; return the head dim."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
+        raise TypeError(f"{name} kernel takes bf16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if any(x.device != q.device for x in (k, v)):
+        raise ValueError(f"{name}: q, k, v on different devices")
+    if q.ndim != 3 or k.ndim != 3 or k.shape != v.shape or (k.shape[0], k.shape[2]) != (
+            q.shape[0], q.shape[2]):
+        raise ValueError(f"{name}: shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    c = q.shape[2]
+    d = c // heads
+    if c != heads * d or d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"{name} kernel: C={c}, heads={heads}: head dim must be a multiple "
+                         f"of 8 and at most {MAX_HEAD_DIM}")
+    if any(not x.is_contiguous() or x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned q/k/v")
+    return d
+
+
+def _launch(entry: str, q, k, v, ints, scale: float) -> torch.Tensor:
+    fn = getattr(_build.load("flash_attention"), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ints, float(scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, entry)
+    return out
+
+
+def flash_sparse_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, frames: int,
+                        heads: int, scale: float) -> torch.Tensor:
+    """Sparse-causal attention over (B·F, S, C) frame rows. On a CUDA tensor
+    this launches the kernel, or raises for what it does not take (dtype
+    other than bf16, head dim not a multiple of 8 or above 160, C != H·d,
+    non-contiguous or misaligned tensors, rows not a multiple of frames)."""
+    if q.device.type == "cpu":
+        return flash_sparse_causal_reference(q, k, v, frames, heads, scale)
+    d = _check("flash_sparse_causal", q, k, v, heads)
+    bf, s, _ = q.shape
+    if k.shape != q.shape or bf % frames:
+        raise ValueError(f"flash_sparse_causal: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"frames={frames}")
+    out = _launch("flash_sparse_causal_bf16", q, k, v, (bf, frames, s, heads, d), scale)
+    flash_sparse_causal.launches += 1
+    return out
+
+
+def flash_attention_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                       scale: float) -> torch.Tensor:
+    """Attention of q (B, Sq, C) over k/v (B, Sk, C). On a CUDA tensor this
+    launches the kernel, or raises for what it does not take (as
+    flash_sparse_causal)."""
+    if q.device.type == "cpu":
+        return flash_attention_kv_reference(q, k, v, heads, scale)
+    d = _check("flash_attention_kv", q, k, v, heads)
+    b, sq, _ = q.shape
+    out = _launch("flash_attention_kv_bf16", q, k, v, (b, sq, k.shape[1], heads, d), scale)
+    flash_attention_kv.launches += 1
+    return out
+
+
+flash_sparse_causal.launches = 0
+flash_attention_kv.launches = 0

@@ -4,8 +4,12 @@ lavie_tpu.nn.attention):
   - Attention: spatial self-attention / text cross-attention
   - RelativePositionBias: learned bucketed bias for the temporal scores
   - TemporalAttention: frame-axis attention over (B, F, S, C), variant
-    "rope_relbias" (partial RoPE on q/k + relative-position bias), computed
-    by the fused temporal kernel (kernels/temporal_fused.py)
+    "rope_relbias" (partial RoPE on q/k + relative-position bias, base) or
+    "plain" (interpolation), computed by the fused temporal kernel
+    (kernels/temporal_fused.py)
+  - SparseCausalAttention: each frame attends to frames {0, i-1} of its
+    video (interpolation), computed by the sparse-causal flash kernel
+    (kernels/flash_attention.py)
 
 Projection names follow diffusers (to_q/to_k/to_v/to_out.0).
 """
@@ -18,6 +22,7 @@ import torch
 from torch import nn
 
 from lavie_tpu_torch.kernels.attention import dot_product_attention
+from lavie_tpu_torch.kernels.flash_attention import flash_sparse_causal
 from lavie_tpu_torch.kernels.temporal_fused import temporal_attention
 from lavie_tpu_torch.nn.embeddings import relative_position_buckets, rope_half_frequencies
 
@@ -62,26 +67,56 @@ class RelativePositionBias(nn.Module):
         return self.relative_attention_bias(buckets).permute(2, 0, 1)
 
 
-class TemporalAttention(nn.Module):
-    """Attention over the frame axis of (B, F, S, C) tokens, variant
-    "rope_relbias". q/k channels live in the half-split RoPE basis (weights
-    trained with interleaved RoPE are permuted into it by io.convert). The
-    out-projection is zero-initialised like the reference's, so a fresh
-    module is a no-op residual until its weights are set."""
+class SparseCausalAttention(nn.Module):
+    """First-frame-anchored cross-frame attention over (B·F, S, C) tokens:
+    frame i's keys and values are concat(frame 0, frame i-1) of its video
+    (frame 0 attends to itself twice). The projections feed the kernel as
+    they are; the concatenated kv is never materialised."""
 
-    def __init__(self, query_dim: int, heads: int = 8, head_dim: int = 64,
-                 rope_dim: int = 32, num_buckets: int = 32, max_distance: int = 32):
+    def __init__(self, query_dim: int, heads: int = 8, head_dim: int = 64):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.head_dim = heads, head_dim
-        self.rope_dim = min(rope_dim, head_dim)
+        self.to_q = nn.Linear(query_dim, inner, bias=False)
+        self.to_k = nn.Linear(query_dim, inner, bias=False)
+        self.to_v = nn.Linear(query_dim, inner, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+
+    def forward(self, hidden_states: torch.Tensor, video_length: int) -> torch.Tensor:
+        out = flash_sparse_causal(
+            self.to_q(hidden_states), self.to_k(hidden_states), self.to_v(hidden_states),
+            frames=video_length, heads=self.heads, scale=self.head_dim ** -0.5,
+        )
+        return self.to_out[0](out)
+
+
+class TemporalAttention(nn.Module):
+    """Attention over the frame axis of (B, F, S, C) tokens. Variant
+    "rope_relbias": q/k channels live in the half-split RoPE basis (weights
+    trained with interleaved RoPE are permuted into it by io.convert) and a
+    bucketed bias is added to the scores. Variant "plain": neither, and no
+    bias parameter. The out-projection is zero-initialised like the
+    reference's, so a fresh module is a no-op residual until its weights are
+    set."""
+
+    def __init__(self, query_dim: int, heads: int = 8, head_dim: int = 64,
+                 rope_dim: int = 32, num_buckets: int = 32, max_distance: int = 32,
+                 variant: str = "rope_relbias"):
+        super().__init__()
+        if variant not in ("rope_relbias", "plain"):
+            raise ValueError(f"unknown temporal attention variant: {variant}")
+        inner = heads * head_dim
+        self.heads, self.head_dim = heads, head_dim
+        self.variant = variant
+        self.rope_dim = min(rope_dim, head_dim) if variant == "rope_relbias" else 0
         self.to_q = nn.Linear(query_dim, inner, bias=False)
         self.to_k = nn.Linear(query_dim, inner, bias=False)
         self.to_v = nn.Linear(query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
         nn.init.zeros_(self.to_out[0].weight)
         nn.init.zeros_(self.to_out[0].bias)
-        self.time_rel_pos_bias = RelativePositionBias(heads, num_buckets, max_distance)
+        if variant == "rope_relbias":
+            self.time_rel_pos_bias = RelativePositionBias(heads, num_buckets, max_distance)
         # per (frames, device): RoPE tables and bias buckets, made once so the
         # forward issues no host→device copies
         self._tables: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, ...]] = {}
@@ -100,9 +135,10 @@ class TemporalAttention(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         """hidden_states (B, F, S, C) → (B, F, S, C)."""
-        f = hidden_states.shape[1]
-        cos, sin, buckets = self._frame_tables(f, hidden_states.device)
-        bias = self.time_rel_pos_bias(buckets).float().contiguous()  # (H, F, F)
+        cos = sin = bias = None
+        if self.variant == "rope_relbias":
+            cos, sin, buckets = self._frame_tables(hidden_states.shape[1], hidden_states.device)
+            bias = self.time_rel_pos_bias(buckets).float().contiguous()  # (H, F, F)
         out = temporal_attention(
             self.to_q(hidden_states), self.to_k(hidden_states), self.to_v(hidden_states),
             bias, cos, sin, scale=self.head_dim ** -0.5, rope_dim=self.rope_dim,

@@ -1,5 +1,6 @@
-"""The spatio-temporal UNet of base text-to-video (port of
-lavie_tpu.nn.unet, the blocks `UNetConfig.base_t2v()` uses).
+"""The spatio-temporal UNet of base text-to-video and interpolation (port
+of lavie_tpu.nn.unet, the blocks `UNetConfig.base_t2v()` and
+`UNetConfig.interpolation()` use).
 
 Layout: (B, F, H, W, C) channels-last video tensors throughout.
 """
@@ -24,7 +25,8 @@ def _transformer(cfg: UNetConfig, channels: int) -> Transformer3D:
         channels, heads, channels // heads, num_layers=1,
         cross_attention_dim=cfg.cross_attention_dim, norm_num_groups=cfg.norm_num_groups,
         rope_dim=cfg.rope_dim, relpos_num_buckets=cfg.relpos_num_buckets,
-        relpos_max_distance=cfg.relpos_max_distance,
+        relpos_max_distance=cfg.relpos_max_distance, spatial_attention=cfg.spatial_attention,
+        temporal_attention=cfg.temporal_attention, ff_before_temporal=cfg.ff_before_temporal,
     )
 
 

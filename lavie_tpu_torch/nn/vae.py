@@ -1,12 +1,13 @@
 """AutoencoderKL, the SD f8 VAE (port of lavie_tpu.nn.vae for
-`VAEConfig.sd()`): encode to (mean, logvar), decode latents to RGB.
+`VAEConfig.sd()`): encode to (mean, logvar), sample the posterior,
+decode latents to RGB.
 Images are channels-last (N, H, W, C); a video is decoded with its frames
 folded into N. Module names follow diffusers' nesting with the classic
 mid-block attention names (query/key/value/proj_attn)."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -171,3 +172,14 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))
+
+    @staticmethod
+    def sample_posterior(mean: torch.Tensor, logvar: torch.Tensor,
+                         noise: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """z = mean + exp(logvar/2)·ε, in mean's dtype; ε is the caller's
+        `noise` or drawn from `generator`."""
+        if noise is None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                                dtype=torch.float32)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)

@@ -45,16 +45,20 @@ def test_device_parameters_default_to_cuda():
                 seen += 1
                 kw = {k.arg: k.value for k in node.keywords}
                 assert getattr(kw.get("default"), "value", None) == "cuda"
-    assert seen >= 4  # pipeline __init__/init_random, CLI build_pipeline and --device
+    # per pipeline: __init__/init_random, its CLI's build_pipeline and --device
+    assert seen >= 8
 
 
 def test_entry_points_default_to_cuda():
     import inspect
 
-    from lavie_tpu_torch.cli.sample import build_pipeline
+    from lavie_tpu_torch.cli import interpolate, sample
+    from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
     from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
 
-    for fn in (TextToVideoPipeline.__init__, TextToVideoPipeline.init_random, build_pipeline):
+    for fn in (TextToVideoPipeline.__init__, TextToVideoPipeline.init_random, sample.build_pipeline,
+               VideoInterpolationPipeline.__init__, VideoInterpolationPipeline.init_random,
+               interpolate.build_pipeline):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
