@@ -1,8 +1,8 @@
 """Configuration dataclasses for the PyTorch port (a copy of lavie_tpu.core.config,
 which the port must not import).
 
-The port covers base text-to-video and temporal interpolation (TSR), so the
-configs carry those stages' fields; the VSR fields come with its slice.
+The port covers base text-to-video, temporal interpolation (TSR) and video
+super-resolution (VSR), so the configs carry those three stages' fields.
 Public config surface mirrors the reference's OmegaConf YAML files
 (reference: base/configs/sample.yaml, interpolation/configs/sample.yaml,
 vsr/configs/sample.yaml).
@@ -11,7 +11,7 @@ vsr/configs/sample.yaml).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,9 +60,36 @@ class UNetConfig:
     relpos_num_buckets: int = 32
     relpos_max_distance: int = 32
 
+    # VSR variants (reference: vsr/configs/unet_3d_config.json)
+    # only-cross blocks: attn1 attends to the text too; one flag or one per
+    # down block (mirrored on the way up)
+    only_cross_attention: Union[bool, Tuple[bool, ...]] = False
+    # (the reference's use_linear_projection has no counterpart: proj_in and
+    # proj_out are nn.Linear over channels-last tokens in every config)
+    # None | "num_embeds": learned noise-level embedding added to the time
+    # embedding (reference: vsr/models/unet.py:179-186)
+    class_embed_type: Optional[str] = None
+    num_class_embeds: Optional[int] = None
+    # a TemporalModule3D after every down/mid/up block
+    use_temporal_modules: bool = False
+    # every Transformer3D starts with a ResnetBlock3DCNN(k=3) inside its residual
+    transformer_temporal_resblock: bool = False
+    # branches of the temporal module that the shipped config switches off;
+    # the port raises NotImplementedError when one is switched on
+    temporal_module_attention_types: Tuple[str, str] = ("", "")
+    temporal_module_use_dcn_warpping: bool = False
+    temporal_module_use_deformable_conv: bool = False
+
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    @property
+    def only_cross_attention_per_block(self) -> Tuple[bool, ...]:
+        oca = self.only_cross_attention
+        if isinstance(oca, bool):
+            return (oca,) * len(self.down_block_types)
+        return tuple(oca)
 
     @classmethod
     def base_t2v(cls) -> "UNetConfig":
@@ -79,6 +106,28 @@ class UNetConfig:
             spatial_attention="sparse_causal",
             temporal_attention="plain",
             ff_before_temporal=True,
+        )
+
+    @classmethod
+    def vsr(cls) -> "UNetConfig":
+        """The x4-upscaler UNet inflated to video: 7 input channels (4 latent
+        + 3 low-res RGB), widths 256/512/512/1024, only-cross blocks at the
+        three upper levels, a noise-level class embedding, temporal modules
+        after every block and a temporal resblock in every transformer
+        (reference: vsr/configs/unet_3d_config.json, vsr/models/unet.py)."""
+        return cls(
+            in_channels=7,
+            block_out_channels=(256, 512, 512, 1024),
+            down_block_types=("DownBlock3D", "CrossAttnDownBlock3D", "CrossAttnDownBlock3D",
+                              "CrossAttnDownBlock3D"),
+            up_block_types=("CrossAttnUpBlock3D", "CrossAttnUpBlock3D", "CrossAttnUpBlock3D",
+                            "UpBlock3D"),
+            cross_attention_dim=1024,
+            only_cross_attention=(True, True, True, False),
+            class_embed_type="num_embeds",
+            num_class_embeds=1000,
+            use_temporal_modules=True,
+            transformer_temporal_resblock=True,
         )
 
     def tiny(self, **overrides: Any) -> "UNetConfig":
@@ -117,6 +166,11 @@ class VAEConfig:
     def sd(cls) -> "VAEConfig":
         return cls()
 
+    @classmethod
+    def vsr(cls) -> "VAEConfig":
+        """The x4-upscaler's f4 VAE (reference: vsr/configs/vae_config.json)."""
+        return cls(block_out_channels=(128, 256, 512), scaling_factor=0.08333)
+
     def tiny(self) -> "VAEConfig":
         return dataclasses.replace(
             self,
@@ -138,10 +192,19 @@ class CLIPTextConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
+    # the MLP's activation: "quick_gelu" (the OpenAI ViT-L towers) or "gelu"
+    # (erf-exact; the x4-upscaler's OpenCLIP-H text tower)
+    hidden_act: str = "quick_gelu"
 
     @classmethod
     def vit_l(cls) -> "CLIPTextConfig":
         return cls()
+
+    @classmethod
+    def open_clip_h(cls) -> "CLIPTextConfig":
+        """OpenCLIP ViT-H/14's text tower, the VSR stage's text states."""
+        return cls(hidden_size=1024, num_layers=23, num_heads=16, intermediate_size=4096,
+                   hidden_act="gelu")
 
     def tiny(self) -> "CLIPTextConfig":
         return dataclasses.replace(
@@ -190,6 +253,14 @@ class SamplingConfig:
         samples with clip_denoised=False)."""
         return cls(video_length=61, num_inference_steps=50, guidance_scale=4.0,
                    sample_method="ddim", clip_sample=False)
+
+    @classmethod
+    def vsr(cls) -> "SamplingConfig":
+        """The VSR stage: 50 v-prediction DDIM steps, CFG 5.0, no x0
+        clipping (the x4-upscaler scheduler config; reference:
+        vsr/sample.py:49-53)."""
+        return cls(num_inference_steps=50, guidance_scale=5.0, sample_method="ddim",
+                   prediction_type="v_prediction", clip_sample=False)
 
 
 def load_yaml_config(path: str) -> dict:

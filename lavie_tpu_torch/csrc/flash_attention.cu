@@ -1,13 +1,19 @@
 // Flash attention over (rows, S, H*d) bf16 tensors with heads contiguous in
 // the channel axis: the sparse-causal attention of the interpolation UNet
 // (each frame's keys and values are concat(frame 0, frame i-1) of its video)
-// and the same loop over an explicit key/value tensor.
+// and the same loop over an explicit key/value tensor, for head dims up to
+// 160 and for the f4 VAE's single head of 512.
 //
 // Replaces: lavie_tpu/kernels/flash_attention.py
 //   flash_cmajor_sparse (_flash_cmajor_sparse_call, the kv index map
 //     kv_index synthesising the concat)       -> flash_sparse_causal_bf16
 //   flash_cmajor (_flash_cmajor_call)          -> flash_attention_kv_bf16
 // Both Pallas entries run one body, _flash_cmajor_kernel; so do these two.
+//   flash_attention (_flash_bhsd, body _flash_kernel) over (B, S, H, d):
+//     d <= 160 (the VSR UNet's L3 self-attention, d = 128)
+//                                              -> flash_attention_kv_bf16
+//     d = 512 (the f4 VAE's mid attention)     -> flash_attention_d512_bf16
+//   (the d = 512 kernel is described above its definition below)
 //
 // What it computes, per query row r, head h and query position i:
 //   out[r, i, h] = softmax_j(q[r, i, h] . K_r[j, h] * scale) V_r[j, h]
@@ -324,7 +330,204 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
   }
 }
 
+// ----------------------------------------------------------------------------
+// d = 512: the f4 VAE decoder's mid attention, one head over all 163,840
+// latent positions of a 320x512 frame (4*S^2*d = 5.5e13 flops per frame,
+// 56 ms at 989 TFLOP/s; the fp32 scores would be 107 GB per frame). A
+// 16 x 512 fp32 output tile is 256 registers a thread, above the limit, so
+// the output columns are split: a block of 8 warps owns 64 queries; warps
+// w and w^4 share 16 of them and each keeps the output for its half of d
+// (16 x 256 fp32, 128 registers). Each computes Q.K^T over its half of d
+// for the 32-key tile; the two partial score tiles are summed through
+// shared memory (in the same order on both sides, so both hold the same
+// scores and take identical online-softmax steps); then each multiplies
+// P by its half of V. Q (64 x 512) stays in shared memory; K and V tiles
+// of 32 keys are double-buffered by cp.async (216 KB in all).
+// ----------------------------------------------------------------------------
+
+constexpr int WBM = 64, WBN = 32, WD = 512, WLDS = WD + 8, WTHREADS = 256;
+constexpr size_t WSMEM = (size_t)(WBM + 4 * WBN) * WLDS * 2 + 8 * 32 * 16 * 4;
+
+__global__ void __launch_bounds__(WTHREADS, 1) flash_wide_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
+    float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [WBM][WLDS]
+  __nv_bfloat16* ks = qs + WBM * WLDS;                             // [2][WBN][WLDS]
+  __nv_bfloat16* vs = ks + 2 * WBN * WLDS;                         // [2][WBN][WLDS]
+  float* xch = reinterpret_cast<float*>(vs + 2 * WBN * WLDS);      // [8 warps][32 lanes][16]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int rg = warp & 3, hf = warp >> 2;  // query rows rg*16.., channels hf*256..
+  const int r = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WBM;
+  const size_t C = (size_t)H * WD;
+  constexpr int NC = WD / 8;  // 16-byte chunks per row
+
+  {
+    const __nv_bfloat16* qb = q + (size_t)r * Sq * C + (size_t)h * WD;
+    for (int idx = tid; idx < WBM * NC; idx += WTHREADS) {
+      const int row = idx / NC, c8 = idx - row * NC;
+      const bool ok = q0 + row < Sq;
+      cp_async16(qs + row * WLDS + c8 * 8, ok ? qb + (size_t)(q0 + row) * C + c8 * 8 : qb, ok);
+    }
+  }
+  const size_t kvbase = (size_t)r * Sk * C + (size_t)h * WD;
+  auto load_tile = [&](int t, int stage) {
+    const int k0 = t * WBN;
+    for (int idx = tid; idx < WBN * NC; idx += WTHREADS) {
+      const int row = idx / NC, c8 = idx - row * NC;
+      const bool ok = k0 + row < Sk;
+      const size_t off = ok ? kvbase + (size_t)(k0 + row) * C + c8 * 8 : kvbase;
+      cp_async16(ks + (stage * WBN + row) * WLDS + c8 * 8, k + off, ok);
+      cp_async16(vs + (stage * WBN + row) * WLDS + c8 * 8, v + off, ok);
+    }
+  };
+  const int ntiles = (Sk + WBN - 1) / WBN;
+  load_tile(0, 0);
+  cp_async_commit();
+
+  float o[WD / 2 / 8][4];
+#pragma unroll
+  for (int n = 0; n < WD / 2 / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  const __nv_bfloat16* qw = qs + (rg * 16) * WLDS + hf * (WD / 2);
+  float* mine = xch + (warp * 32 + lane) * 16;
+  const float* theirs = xch + ((warp ^ 4) * 32 + lane) * 16;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < ntiles) {
+      load_tile(t + 1, stage ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* kt = ks + stage * WBN * WLDS + hf * (WD / 2);
+    const __nv_bfloat16* vt = vs + stage * WBN * WLDS + hf * (WD / 2);
+
+    float s[WBN / 8][4];
+#pragma unroll
+    for (int n = 0; n < WBN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < WD / 2 / 16; ++kk) {
+      uint32_t a0, a1, a2, a3;
+      ldsm_x4(a0, a1, a2, a3, qw + (lane & 15) * WLDS + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < WBN / 16; ++np) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4(b0, b1, b2, b3,
+                kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * WLDS + kk * 16 +
+                    ((lane >> 3) & 1) * 8);
+        mma16816(s[2 * np], a0, a1, a2, a3, b0, b1);
+        mma16816(s[2 * np + 1], a0, a1, a2, a3, b2, b3);
+      }
+    }
+    // sum the two halves of d through shared memory
+#pragma unroll
+    for (int n = 0; n < WBN / 8; ++n)
+      *reinterpret_cast<float4*>(mine + n * 4) = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+    __syncthreads();
+    const int kbase = t * WBN;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < WBN / 8; ++n) {
+      const float4 p = *reinterpret_cast<const float4*>(theirs + n * 4);
+      const float pe[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = kbase + n * 8 + tig * 2 + (e & 1);
+        const float x = col < Sk ? (s[n][e] + pe[e]) * scale_log2 : -INFINITY;
+        s[n][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float corr[2];
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      const float m_new = fmaxf(m_run[hr], mx[hr]);
+      corr[hr] = exp2f(m_run[hr] - m_new);
+      m_run[hr] = m_new;
+      l_run[hr] *= corr[hr];
+    }
+#pragma unroll
+    for (int n = 0; n < WBN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(s[n][e] - m_run[e >> 1]);
+        s[n][e] = p;
+        l_run[e >> 1] += p;
+      }
+#pragma unroll
+    for (int n = 0; n < WD / 2 / 8; ++n) {
+      o[n][0] *= corr[0];
+      o[n][1] *= corr[0];
+      o[n][2] *= corr[1];
+      o[n][3] *= corr[1];
+    }
+#pragma unroll
+    for (int j = 0; j < WBN / 16; ++j) {
+      const uint32_t a0 = pack_bf16(s[2 * j][0], s[2 * j][1]);
+      const uint32_t a1 = pack_bf16(s[2 * j][2], s[2 * j][3]);
+      const uint32_t a2 = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
+      const uint32_t a3 = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
+#pragma unroll
+      for (int np = 0; np < WD / 2 / 16; ++np) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_t(b0, b1, b2, b3,
+                  vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * WLDS + np * 16 +
+                      (lane >> 4) * 8);
+        mma16816(o[2 * np], a0, a1, a2, a3, b0, b1);
+        mma16816(o[2 * np + 1], a0, a1, a2, a3, b2, b3);
+      }
+    }
+    __syncthreads();  // the stage and the exchange slots are reused next
+  }
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
+    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
+  }
+  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
+  const int row0 = q0 + rg * 16 + g, row1 = row0 + 8;
+  __nv_bfloat16* ob = out + (size_t)r * Sq * C + (size_t)h * WD + hf * (WD / 2);
+#pragma unroll
+  for (int n = 0; n < WD / 2 / 8; ++n) {
+    const int col = n * 8 + tig * 2;
+    if (row0 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + col) =
+          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+    if (row1 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + col) =
+          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
 }  // namespace
+
+// q, out: (B, Sq, H*512); k, v: (B, Sk, H*512); bf16, contiguous, 16-byte
+// aligned; d must be 512. Returns cudaGetLastError().
+extern "C" int flash_attention_d512_bf16(const void* q, const void* k, const void* v, void* out,
+                                         int B, int Sq, int Sk, int H, int d, float scale,
+                                         void* stream) {
+  if (d != WD || B < 1 || B > 65535 || Sq < 1 || Sk < 1 || H < 1 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(flash_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WSMEM);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Sq + WBM - 1) / WBM, H, B);
+  flash_wide_kernel<<<grid, WTHREADS, WSMEM, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H,
+      scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
 
 // q, k, v, out: (BF, S, H*d) bf16, contiguous, 16-byte aligned; BF a
 // multiple of F. Keys/values of row r: concat(row r - r%F, row r-1 or r).

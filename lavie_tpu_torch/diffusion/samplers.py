@@ -1,7 +1,8 @@
 """Diffusion steppers (port of lavie_tpu.diffusion.samplers), numerics of
 diffusers 0.16: DDPM (fixed_small/fixed_large), DDIM (eta = 0, epsilon and
 v-prediction), Euler (sigma formulation) and classifier-free guidance; the
-timestep tables of diffusers and of OpenAI's spaced chain (interpolation).
+timestep tables of diffusers, of the VSR stage's vendored DDIM and of
+OpenAI's spaced chain (interpolation); forward noising and the v target.
 
 Timesteps are host integers; every schedule coefficient is an fp32 numpy
 scalar computed on the host, so a step is a few elementwise device ops on
@@ -10,7 +11,7 @@ the latents and issues no host↔device copy.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,6 +33,17 @@ def ddim_timesteps(num_inference_steps: int, num_train_timesteps: int = 1000,
     step_ratio = num_train_timesteps // num_inference_steps
     ts = (np.arange(0, num_inference_steps) * step_ratio).round()[::-1].astype(np.int64)
     return (ts + steps_offset).astype(np.int32)
+
+
+def vsr_ddim_timesteps(num_inference_steps: int, num_train_timesteps: int = 1000,
+                       steps_offset: int = 1) -> np.ndarray:
+    """Linspace spacing of the VSR stage's vendored DDIM (reference:
+    vsr/diffusion/scheduling_ddim.py:268-291), read as the clamped
+    [999 … 0] grid. Both VSR entry points replace that scheduler with stock
+    DDIM (`ddim_timesteps`), so the pipeline does not use this; it is the
+    documented variant."""
+    ts = np.linspace(steps_offset, num_train_timesteps, num_inference_steps).round()[::-1]
+    return (ts.astype(np.int64) - 1).astype(np.int32)
 
 
 def prev_timesteps(timesteps: np.ndarray, num_train_timesteps: int = 1000) -> np.ndarray:
@@ -68,6 +80,31 @@ def euler_sigmas(schedule_alphas_cumprod: np.ndarray, num_inference_steps: int,
     sigmas = np.interp(timesteps, np.arange(0, len(full_sigmas)), full_sigmas)
     sigmas = np.concatenate([sigmas, [0.0]]).astype(np.float32)
     return timesteps.astype(np.float32), sigmas, float(sigmas.max())
+
+
+def _coeffs(schedule: NoiseSchedule, t: Union[int, Sequence[int], torch.Tensor],
+            like: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(√ᾱ_t, √(1-ᾱ_t)) as fp32 tensors broadcasting over `like`'s batch axis."""
+    idx = np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t, dtype=np.int64).reshape(-1)
+    shape = (-1,) + (1,) * (like.ndim - 1)
+    a, s = (torch.as_tensor(tab[idx], device=like.device).reshape(shape)
+            for tab in (schedule.sqrt_alphas_cumprod, schedule.sqrt_one_minus_alphas_cumprod))
+    return a, s
+
+
+def add_noise(schedule: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor,
+              t: Union[int, Sequence[int], torch.Tensor]) -> torch.Tensor:
+    """q(x_t | x_0) = √ᾱ_t·x0 + √(1-ᾱ_t)·ε, one t or one per batch row."""
+    a, s = _coeffs(schedule, t, x0)
+    return a * x0 + s * noise
+
+
+def get_velocity(schedule: NoiseSchedule, x0: torch.Tensor, noise: torch.Tensor,
+                 t: Union[int, Sequence[int], torch.Tensor]) -> torch.Tensor:
+    """The v-prediction target √ᾱ_t·ε − √(1-ᾱ_t)·x0 (reference:
+    vsr/diffusion/gaussian_diffusion.py:247)."""
+    a, s = _coeffs(schedule, t, x0)
+    return a * noise - s * x0
 
 
 def predict_x0(sample: torch.Tensor, model_output: torch.Tensor, alpha_bar_t: np.float32,

@@ -9,6 +9,8 @@ The reference UNet is diffusers-keyed and was trained with interleaved RoPE
     mid-attention names (to_q/to_k/to_v/to_out.0) mapped to the classic
     query/key/value/proj_attn;
   - 1×1 conv weights (O, I, 1, 1) of proj_in/proj_out squeezed onto Linear;
+  - the VSR temporal Conv3d weights (O, I, k, 1, 1) squeezed onto
+    TemporalConv's (O, I, k, 1);
   - the RoPE re-basis: every temporal attention's to_q/to_k output rows are
     permuted from the interleaved basis into the half-split basis the port
     computes in. Scores are invariant to a permutation shared by q and k.
@@ -65,6 +67,8 @@ def load_reference_state_dict(module: nn.Module, sd: Mapping[str, np.ndarray], *
         target = want.get(k)
         if target is not None and v.ndim == 4 and target.ndim == 2:
             v = v[:, :, 0, 0]
+        elif target is not None and v.ndim == 5 and target.ndim == 4:
+            v = v[..., 0]
         if qk.search(k):
             hd = v.shape[0] // heads
             perm = rope_channel_permutation(hd, min(rot_dim, hd))

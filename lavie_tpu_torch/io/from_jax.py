@@ -8,7 +8,9 @@ half-split RoPE basis, so this is a key map plus transposes:
   flax path ('down_blocks_0', 'attentions_0', ..., 'to_out_0', 'kernel')
     → 'down_blocks.0.attentions.0.....to_out.0.weight'
   Dense kernel (I, O) → Linear weight (O, I)
-  Conv kernel (kh, kw, I, O) → Conv2d weight (O, I, kh, kw)
+  Conv kernel (kh, kw, I, O) → Conv2d weight (O, I, kh, kw); the VSR
+    temporal convs' (k, 1, I, O) kernels land on TemporalConv's (O, I, k, 1)
+    by the same transpose
   scale/bias/embedding/raw params → copied
 
 The key map is the one lavie_tpu.io.convert applies to torch checkpoints,

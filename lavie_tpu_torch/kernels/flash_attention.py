@@ -11,8 +11,13 @@ Port of lavie_tpu.kernels.flash_attention's channel-major entries:
                                  the plain version for a CPU tensor
   flash_attention_kv             flash_cmajor: the same loop over explicit
                                  (B, Sk, C) keys and values
+  flash_attention                flash_attention: (B, S, H, d) self-attention,
+                                 the VSR UNet's L3 (d=128, the explicit-kv
+                                 entry) and the f4 VAE's mid attention (d=512,
+                                 entry flash_attention_d512_bf16)
   flash_sparse_causal_reference  the plain PyTorch versions: materialise the
-  flash_attention_kv_reference   kv, then fp32 scores, softmax and probs·v
+  flash_attention_kv_reference   kv, then fp32 scores, softmax and probs·v,
+  flash_attention_reference      a bounded block of rows and queries at a time
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from lavie_tpu_torch.kernels import _build
 
 MAX_HEAD_DIM = 160
+WIDE_HEAD_DIM = 512  # the d=512 entry (one VAE head)
 # the plain versions take this many bytes of fp32 scores at a time
 _SCORE_BYTES = 4 << 30
 
@@ -57,11 +63,27 @@ def _chunk_rows(heads: int, sq: int, sk: int) -> int:
 
 def flash_attention_kv_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  heads: int, scale: float) -> torch.Tensor:
-    """q (B, Sq, C), k/v (B, Sk, C) → (B, Sq, C); fp32 scores and softmax,
-    a bounded number of rows at a time."""
-    n = _chunk_rows(heads, q.shape[1], k.shape[1])
-    return torch.cat([_attend(q[i:i + n], k[i:i + n], v[i:i + n], heads, scale)
-                      for i in range(0, q.shape[0], n)])
+    """q (B, Sq, C), k/v (B, Sk, C) → (B, Sq, C); fp32 scores and softmax
+    over a bounded block of rows and queries at a time, so the scores stay
+    near 4 GB or less even for one row of 163,840² (the f4 VAE's mid block)."""
+    b, sq, _ = q.shape
+    sk = k.shape[1]
+    qc = min(sq, max(1, _SCORE_BYTES // (heads * sk * 4)))
+    n = _chunk_rows(heads, qc, sk)
+    return torch.cat([
+        torch.cat([_attend(q[i:i + n, j:j + qc], k[i:i + n], v[i:i + n], heads, scale)
+                   for j in range(0, sq, qc)], dim=1)
+        for i in range(0, b, n)
+    ])
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """q (B, Sq, H, d), k/v (B, Sk, H, d) → (B, Sq, H, d)."""
+    b, sq, h, d = q.shape
+    out = flash_attention_kv_reference(q.reshape(b, sq, h * d), k.reshape(b, k.shape[1], h * d),
+                                       v.reshape(b, v.shape[1], h * d), h, scale)
+    return out.view(b, sq, h, d)
 
 
 def flash_sparse_causal_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,8 +100,10 @@ def flash_sparse_causal_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     ])
 
 
-def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> int:
-    """Raise for what the kernel does not take; return the head dim."""
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+           wide: bool = False) -> int:
+    """Raise for what the kernel does not take; return the head dim. `wide`
+    also admits d = 512."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if any(x.dtype != torch.bfloat16 for x in (q, k, v)):
@@ -91,9 +115,9 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: 
         raise ValueError(f"{name}: shapes {tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
     c = q.shape[2]
     d = c // heads
-    if c != heads * d or d % 8 or d > MAX_HEAD_DIM:
+    if c != heads * d or not ((d % 8 == 0 and d <= MAX_HEAD_DIM) or (wide and d == WIDE_HEAD_DIM)):
         raise ValueError(f"{name} kernel: C={c}, heads={heads}: head dim must be a multiple "
-                         f"of 8 and at most {MAX_HEAD_DIM}")
+                         f"of 8 and at most {MAX_HEAD_DIM}" + (f", or {WIDE_HEAD_DIM}" if wide else ""))
     if any(not x.is_contiguous() or x.data_ptr() % 16 for x in (q, k, v)):
         raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned q/k/v")
     return d
@@ -142,5 +166,26 @@ def flash_attention_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads:
     return out
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Attention over (B, S, H, d) tensors (heads contiguous in the channel
+    axis, the memory of (B, S, H·d)). On a CUDA tensor this launches the
+    explicit-kv kernel for d ≤ 160 and the d=512 kernel for d = 512, or
+    raises for what they do not take (as flash_sparse_causal, and any other
+    head dim)."""
+    b, sq, h, d = q.shape
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, scale)
+    if k.ndim != 4 or k.shape[2:] != (h, d):
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    sk = k.shape[1]
+    q3, k3, v3 = (x.view(b, x.shape[1], h * d) if x.is_contiguous() else x for x in (q, k, v))
+    _check("flash_attention", q3, k3, v3, h, wide=True)
+    entry = "flash_attention_d512_bf16" if d == WIDE_HEAD_DIM else "flash_attention_kv_bf16"
+    out = _launch(entry, q3, k3, v3, (b, sq, sk, h, d), scale)
+    flash_attention.launches += 1
+    return out.view(b, sq, h, d)
+
+
 flash_sparse_causal.launches = 0
 flash_attention_kv.launches = 0
+flash_attention.launches = 0

@@ -1,7 +1,10 @@
 """Attention modules for the spatio-temporal transformer blocks (port of
 lavie_tpu.nn.attention):
 
-  - Attention: spatial self-attention / text cross-attention
+  - Attention: spatial self-attention / text cross-attention; long
+    self-attention with a head dim that is a multiple of 128 (the VSR
+    UNet's L3) runs the flash kernel (kernels/flash_attention.py), as the
+    JAX package's flash gate routes it
   - RelativePositionBias: learned bucketed bias for the temporal scores
   - TemporalAttention: frame-axis attention over (B, F, S, C), variant
     "rope_relbias" (partial RoPE on q/k + relative-position bias, base) or
@@ -22,9 +25,12 @@ import torch
 from torch import nn
 
 from lavie_tpu_torch.kernels.attention import dot_product_attention
-from lavie_tpu_torch.kernels.flash_attention import flash_sparse_causal
+from lavie_tpu_torch.kernels.flash_attention import flash_attention, flash_sparse_causal
 from lavie_tpu_torch.kernels.temporal_fused import temporal_attention
 from lavie_tpu_torch.nn.embeddings import relative_position_buckets, rope_half_frequencies
+
+
+FLASH_MIN_SEQ = 1024  # the JAX package's flash gate: S ≥ 1024, d % 128 == 0
 
 
 class Attention(nn.Module):
@@ -50,8 +56,11 @@ class Attention(nn.Module):
         q = self.to_q(hidden_states).view(b, s, self.heads, self.head_dim)
         k = self.to_k(context).view(b, sk, self.heads, self.head_dim)
         v = self.to_v(context).view(b, sk, self.heads, self.head_dim)
-        out = dot_product_attention(q, k, v).reshape(b, s, self.heads * self.head_dim)
-        return self.to_out[0](out)
+        if encoder_hidden_states is None and s >= FLASH_MIN_SEQ and self.head_dim % 128 == 0:
+            out = flash_attention(q, k, v, scale=self.head_dim ** -0.5)
+        else:
+            out = dot_product_attention(q, k, v)
+        return self.to_out[0](out.reshape(b, s, self.heads * self.head_dim))
 
 
 class RelativePositionBias(nn.Module):

@@ -1,6 +1,6 @@
 """CLIP text encoder (port of lavie_tpu.nn.clip.CLIPTextModel): pre-LN
-blocks, causal mask, quick-gelu MLP. Token ids (B, L) → last_hidden_state
-(B, L, hidden). Parameter names follow the JAX package's flat layout
+blocks, causal mask, a quick-gelu (ViT-L) or erf-gelu (OpenCLIP-H) MLP.
+Token ids (B, L) → last_hidden_state (B, L, hidden). Parameter names follow the JAX package's flat layout
 (`layers.N.self_attn.q_proj`, `token_embedding`, `position_embedding`)."""
 
 from __future__ import annotations
@@ -40,15 +40,21 @@ class CLIPAttention(nn.Module):
 
 
 class CLIPMLP(nn.Module):
-    """fc1 → quick_gelu → fc2 (the OpenAI ViT-L towers' activation)."""
+    """fc1 → activation → fc2; `hidden_act` "quick_gelu" (the OpenAI ViT-L
+    towers) or "gelu" (erf-exact, the OpenCLIP-H tower)."""
 
-    def __init__(self, hidden_size: int, intermediate_size: int):
+    def __init__(self, hidden_size: int, intermediate_size: int, hidden_act: str = "quick_gelu"):
         super().__init__()
+        if hidden_act not in ("quick_gelu", "gelu"):
+            raise ValueError(f"unsupported CLIP hidden_act: {hidden_act!r}")
+        self.hidden_act = hidden_act
         self.fc1 = nn.Linear(hidden_size, intermediate_size)
         self.fc2 = nn.Linear(intermediate_size, hidden_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.fc1(x)
+        if self.hidden_act == "gelu":
+            return self.fc2(F.gelu(x))
         return self.fc2(x * torch.sigmoid(1.702 * x))
 
 
@@ -58,7 +64,7 @@ class CLIPEncoderLayer(nn.Module):
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size)
+        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(_layer_norm(self.layer_norm1, x))

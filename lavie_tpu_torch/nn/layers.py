@@ -30,7 +30,9 @@ class GroupNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def affine(self, x: torch.Tensor):
+        """The fp32 per-(N, C) (w, u) with GroupNorm(x) = x·w + u, for
+        kernels that apply the normalisation themselves."""
         n, c = x.shape[0], x.shape[-1]
         g = self.num_groups
         xf = x.reshape(n, -1, g, c // g).float()
@@ -39,7 +41,11 @@ class GroupNorm(nn.Module):
         inv_c = inv.repeat_interleave(c // g, dim=1)  # (N, C)
         mean_c = mean.repeat_interleave(c // g, dim=1)
         w = inv_c * self.weight.float()
-        u = self.bias.float() - mean_c * w
+        return w, self.bias.float() - mean_c * w
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[0], x.shape[-1]
+        w, u = self.affine(x)
         shape = (n,) + (1,) * (x.ndim - 2) + (c,)
         return x * w.to(x.dtype).view(shape) + u.to(x.dtype).view(shape)
 
@@ -54,6 +60,29 @@ class InflatedConv(nn.Conv2d):
         y = self._conv_forward(x, self.weight, self.bias)
         y = y.permute(0, 2, 3, 1)
         return y.reshape(lead + y.shape[1:])
+
+
+class TemporalConv(nn.Conv2d):
+    """(k, 1, 1) convolution over the frame axis of (B, F, ..., C) video:
+    the VSR stage's only true 3D convolutions. Parameters are nn.Conv2d's
+    with a (k, 1) kernel, weight (O, I, k, 1): the JAX package's (k, 1, I, O)
+    kernel transposed, or a reference Conv3d's (O, I, k, 1, 1) squeezed.
+    The weight's memory is in the fused kernel's (k, O, I) order (loading,
+    casting and moving keep strides), so `taps()` is a view of it."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_frames: int):
+        super().__init__(in_channels, out_channels, (kernel_frames, 1),
+                         padding=(kernel_frames // 2, 0))
+        taps_first = self.weight.detach().permute(2, 3, 0, 1).contiguous()  # (k, 1, O, I)
+        self.weight = nn.Parameter(taps_first.permute(2, 3, 0, 1))  # (O, I, k, 1) view
+
+    def taps(self) -> torch.Tensor:
+        return self.weight[..., 0].permute(2, 0, 1).contiguous()  # no copy: already (k, O, I)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, f, c = x.shape[0], x.shape[1], x.shape[-1]
+        y = self._conv_forward(x.reshape(b, f, -1, c).permute(0, 3, 1, 2), self.weight, self.bias)
+        return y.permute(0, 2, 3, 1).reshape(x.shape[:-1] + (y.shape[1],))
 
 
 class TimestepEmbedding(nn.Module):

@@ -1,5 +1,7 @@
 """Residual blocks and spatial up/downsampling for the video UNet (port of
-lavie_tpu.nn.resnet). Convolutions are per-frame 2D (InflatedConv)."""
+lavie_tpu.nn.resnet). Convolutions are per-frame 2D (InflatedConv), apart
+from ResnetBlock3DCNN's frame-axis convolutions (TemporalConv), which run as
+the fused GN·SiLU·temporal-conv kernel (kernels/temporal_resblock.py)."""
 
 from __future__ import annotations
 
@@ -9,7 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv
+from lavie_tpu_torch.kernels.temporal_resblock import gn_silu_tconv
+from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv, TemporalConv
 
 
 class ResnetBlock3D(nn.Module):
@@ -66,3 +69,42 @@ class Downsample3D(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv(x)
+
+
+class ResnetBlock3DCNN(nn.Module):
+    """GN→SiLU→TemporalConv(k)→(+temb)→GN→SiLU→TemporalConv(3) with a k=1
+    shortcut when the widths differ; the GroupNorms take their statistics
+    over all frames and positions of a video. Each GN→SiLU→conv is one
+    launch of gn_silu_tconv (the plain version for a CPU tensor): the
+    statistics are folded into a per-(batch, channel) affine, the time
+    embedding into conv1's fp32 bias, the block residual into conv2's
+    accumulator. Activations are frame-major (B, F, ..., C), the port's
+    memory order, at both call sites (the JAX package's 5-D call takes the
+    token-major form because of XLA's conv layout)."""
+
+    def __init__(self, in_channels: int, out_channels: Optional[int] = None,
+                 kernel_frames: int = 5, temb_channels: Optional[int] = None,
+                 groups: int = 32, eps: float = 1e-6):
+        super().__init__()
+        out_ch = out_channels or in_channels
+        self.norm1 = GroupNorm(groups, in_channels, eps)
+        self.conv1 = TemporalConv(in_channels, out_ch, kernel_frames)
+        self.time_emb_proj = nn.Linear(temb_channels, out_ch) if temb_channels else None
+        self.norm2 = GroupNorm(groups, out_ch, eps)
+        self.conv2 = TemporalConv(out_ch, out_ch, 3)
+        self.conv_shortcut = TemporalConv(in_channels, out_ch, 1) if in_channels != out_ch else None
+
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x (B, F, ..., C) → (B, F, ..., O); temb (B, temb_channels)."""
+        b, f, c = x.shape[0], x.shape[1], x.shape[-1]
+        v = x.reshape(b, f, -1, c)
+        bias1 = self.conv1.bias.float().expand(b, -1)
+        if temb is not None and self.time_emb_proj is not None:
+            bias1 = bias1 + self.time_emb_proj(F.silu(temb)).float()
+        w1, u1 = self.norm1.affine(v)
+        h = gn_silu_tconv(v, w1, u1, self.conv1.taps(), bias1.contiguous())
+        w2, u2 = self.norm2.affine(h)
+        res = v if self.conv_shortcut is None else self.conv_shortcut(v)
+        y = gn_silu_tconv(h, w2, u2, self.conv2.taps(),
+                          self.conv2.bias.float().expand(b, -1).contiguous(), res)
+        return y.reshape(x.shape[:-1] + (y.shape[-1],))

@@ -1,11 +1,18 @@
 """Spatio-temporal transformer blocks (port of lavie_tpu.nn.transformer).
 
-Per-frame spatial attention (self, or sparse-causal for interpolation),
-text cross-attention, then frame-axis temporal attention and the GEGLU
-feed-forward (interpolation runs the FF first). Tokens stay (B·F, S, C)
-throughout; the temporal attention reads the same memory as (B, F, S, C).
-LayerNorms are nn.LayerNorm: PyTorch takes their statistics in fp32 for
-bf16 inputs, as the JAX package's LayerNorm does.
+Per-frame spatial attention (self, sparse-causal for interpolation, or text
+cross-attention in the VSR only-cross blocks), text cross-attention, then
+frame-axis temporal attention and the GEGLU feed-forward (interpolation
+runs the FF first). Tokens stay (B·F, S, C) throughout; the temporal
+attention reads the same memory as (B, F, S, C). LayerNorms are
+nn.LayerNorm: PyTorch takes their statistics in fp32 for bf16 inputs, as the
+JAX package's LayerNorm does.
+
+The VSR Transformer3D starts with a frame-axis ResnetBlock3DCNN inside its
+residual, and its one-layer only-cross block runs as two fused passes
+around the temporal attention (kernels/cross_block.py): the head
+[proj_in → LN1+attn1 → LN2+attn2] and the tail [LN3 → GEGLU → proj_out →
++ residual].
 """
 
 from __future__ import annotations
@@ -15,9 +22,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lavie_tpu_torch.kernels.cross_block import cross_attention_head, transformer_tail
 from lavie_tpu_torch.kernels.geglu import geglu
 from lavie_tpu_torch.nn.attention import Attention, SparseCausalAttention, TemporalAttention
 from lavie_tpu_torch.nn.layers import GroupNorm
+from lavie_tpu_torch.nn.resnet import ResnetBlock3DCNN
 
 
 class GEGLU(nn.Module):
@@ -45,21 +54,25 @@ class FeedForward(nn.Module):
 class BasicTransformerBlock(nn.Module):
     """Spatial attention, text cross-attention, then temporal attention and
     FF over (B·F, S, C) tokens: FF last in the base block, before temporal
-    attention with `ff_before_temporal` (interpolation)."""
+    attention with `ff_before_temporal` (interpolation). With
+    `only_cross_attention` (VSR) attn1 attends to the text as well, so the
+    block runs two text cross-attentions."""
 
     def __init__(self, dim: int, heads: int, head_dim: int,
                  cross_attention_dim: Optional[int] = None, rope_dim: int = 32,
                  relpos_num_buckets: int = 32, relpos_max_distance: int = 32,
                  spatial_attention: str = "self", temporal_attention: str = "rope_relbias",
-                 ff_before_temporal: bool = False):
+                 ff_before_temporal: bool = False, only_cross_attention: bool = False):
         super().__init__()
         if spatial_attention == "sparse_causal":
             self.attn1 = SparseCausalAttention(dim, heads, head_dim)
         elif spatial_attention == "self":
-            self.attn1 = Attention(dim, heads, head_dim)
+            self.attn1 = Attention(dim, heads, head_dim,
+                                   cross_attention_dim if only_cross_attention else None)
         else:
             raise ValueError(f"unknown spatial attention: {spatial_attention}")
         self.sparse_causal = spatial_attention == "sparse_causal"
+        self.only_cross = only_cross_attention and not self.sparse_causal
         self.ff_before_temporal = ff_before_temporal
         self.norm1 = nn.LayerNorm(dim)
         self.attn2 = (
@@ -82,42 +95,86 @@ class BasicTransformerBlock(nn.Module):
         of text states per video, shared by its frames."""
         bf, s, c = hidden_states.shape
         b = bf // video_length
+        # every frame of a video attends to the same text kv, so the frames'
+        # queries form one (B, F·S) sequence
+        text = lambda attn, norm, x: (  # noqa: E731
+            attn(norm(x.view(b, video_length * s, c)), encoder_hidden_states).view(bf, s, c) + x)
         if self.sparse_causal:
             x = self.attn1(self.norm1(hidden_states), video_length) + hidden_states
+        elif self.only_cross:
+            x = text(self.attn1, self.norm1, hidden_states)
         else:
             x = self.attn1(self.norm1(hidden_states)) + hidden_states
         if self.attn2 is not None:
-            # every frame of a video attends to the same text kv, so the
-            # frames' queries form one (B, F·S) sequence
-            xv = x.view(b, video_length * s, c)
-            x = (self.attn2(self.norm2(xv), encoder_hidden_states) + xv).view(bf, s, c)
+            x = text(self.attn2, self.norm2, x)
         if self.ff_before_temporal:
             x = self.ff(self.norm3(x)) + x
-        x4 = x.view(b, video_length, s, c)
-        x = (self.attn_temp(self.norm_temp(x4)) + x4).view(bf, s, c)
+        x = self.apply_temporal(x, video_length)
         if not self.ff_before_temporal:
             x = self.ff(self.norm3(x)) + x
         return x
 
+    def apply_temporal(self, x: torch.Tensor, video_length: int) -> torch.Tensor:
+        """x + attn_temp(norm_temp(x)) over (B·F, S, C) tokens."""
+        bf, s, c = x.shape
+        x4 = x.view(bf // video_length, video_length, s, c)
+        return (self.attn_temp(self.norm_temp(x4)) + x4).view(bf, s, c)
+
+    def fused_only_cross(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
+                         video_length: int, proj_in: nn.Linear, proj_out: nn.Linear,
+                         residual: torch.Tensor) -> torch.Tensor:
+        """The only-cross block with the enclosing Transformer3D's proj_in
+        and proj_out, as the head kernel → temporal attention → tail kernel.
+        x: (B·F, S, C) GroupNorm'd transformer input; residual: the outer
+        residual, same shape. The text keys and values are projected once
+        per video (B, L, C)."""
+        bf, s, c = x.shape
+        b = bf // video_length
+
+        def attn(a: Attention, norm: nn.LayerNorm):
+            return (norm.weight.float(), norm.bias.float(), a.to_q.weight, a.to_out[0].weight,
+                    a.to_out[0].bias.float(), a.to_k(encoder_hidden_states),
+                    a.to_v(encoder_hidden_states))
+
+        h = cross_attention_head(
+            x.reshape(b, video_length * s, c), proj_in.weight, proj_in.bias.float(),
+            attn(self.attn1, self.norm1), attn(self.attn2, self.norm2), heads=self.attn1.heads,
+            scale=self.attn1.head_dim ** -0.5, eps=self.norm1.eps)
+        h = self.apply_temporal(h.view(bf, s, c), video_length)
+        ff0, ff2 = self.ff.net[0].proj, self.ff.net[2]
+        return transformer_tail(
+            h, residual, self.norm3.weight.float(), self.norm3.bias.float(), ff0.weight,
+            ff0.bias.float(), ff2.weight, ff2.bias.float(), proj_out.weight,
+            proj_out.bias.float(), eps=self.norm3.eps)
+
 
 class Transformer3D(nn.Module):
-    """GroupNorm (per frame) → proj_in → transformer blocks → proj_out, plus
-    the outer residual."""
+    """[ResnetBlock3DCNN(k=3) →] GroupNorm (per frame) → proj_in →
+    transformer blocks → proj_out, plus the outer residual (taken after the
+    temporal resblock, reference: vsr/models/attention.py:396-436). A
+    one-layer only-cross transformer with text states runs the fused route
+    (BasicTransformerBlock.fused_only_cross); every other one runs its
+    blocks as modules."""
 
     def __init__(self, in_channels: int, heads: int, head_dim: int, num_layers: int = 1,
                  cross_attention_dim: Optional[int] = None, norm_num_groups: int = 32,
                  rope_dim: int = 32, relpos_num_buckets: int = 32,
                  relpos_max_distance: int = 32, spatial_attention: str = "self",
-                 temporal_attention: str = "rope_relbias", ff_before_temporal: bool = False):
+                 temporal_attention: str = "rope_relbias", ff_before_temporal: bool = False,
+                 only_cross_attention: bool = False, use_temporal_resblock: bool = False):
         super().__init__()
         inner = heads * head_dim
+        self.resblock_temporal = (
+            ResnetBlock3DCNN(in_channels, in_channels, kernel_frames=3)
+            if use_temporal_resblock else None
+        )
         self.norm = GroupNorm(norm_num_groups, in_channels, eps=1e-6)
         self.proj_in = nn.Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(
                 inner, heads, head_dim, cross_attention_dim, rope_dim,
                 relpos_num_buckets, relpos_max_distance, spatial_attention,
-                temporal_attention, ff_before_temporal,
+                temporal_attention, ff_before_temporal, only_cross_attention,
             )
             for _ in range(num_layers)
         ])
@@ -127,8 +184,15 @@ class Transformer3D(nn.Module):
                 encoder_hidden_states: Optional[torch.Tensor]) -> torch.Tensor:
         """hidden_states (B, F, H, W, C); encoder_hidden_states (B, L, D)."""
         b, f, h, w, c = hidden_states.shape
-        x = self.norm(hidden_states.reshape(b * f, h, w, c))  # per-frame statistics
-        x = self.proj_in(x.reshape(b * f, h * w, c))
+        if self.resblock_temporal is not None:
+            hidden_states = self.resblock_temporal(hidden_states)
+        x = self.norm(hidden_states.reshape(b * f, h, w, c)).reshape(b * f, h * w, c)  # per frame
+        block = self.transformer_blocks[0]
+        if len(self.transformer_blocks) == 1 and block.only_cross and encoder_hidden_states is not None:
+            x = block.fused_only_cross(x, encoder_hidden_states, f, self.proj_in, self.proj_out,
+                                       hidden_states.reshape(b * f, h * w, c))
+            return x.reshape(b, f, h, w, c)
+        x = self.proj_in(x)
         for block in self.transformer_blocks:
             x = block(x, encoder_hidden_states, video_length=f)
         x = self.proj_out(x)

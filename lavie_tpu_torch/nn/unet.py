@@ -1,13 +1,16 @@
-"""The spatio-temporal UNet of base text-to-video and interpolation (port
-of lavie_tpu.nn.unet, the blocks `UNetConfig.base_t2v()` and
-`UNetConfig.interpolation()` use).
+"""The spatio-temporal UNet of base text-to-video, interpolation and video
+super-resolution (port of lavie_tpu.nn.unet, the blocks
+`UNetConfig.base_t2v()`, `.interpolation()` and `.vsr()` use). The VSR UNet
+adds a noise-level class embedding, a TemporalModule3D after every block,
+and `forward_prefix`: the text-independent leading blocks, run once per
+step and shared by the two CFG halves.
 
 Layout: (B, F, H, W, C) channels-last video tensors throughout.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -16,10 +19,13 @@ from torch import nn
 from lavie_tpu_torch.core.config import UNetConfig
 from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv, TimestepEmbedding
 from lavie_tpu_torch.nn.resnet import Downsample3D, ResnetBlock3D, Upsample3D
+from lavie_tpu_torch.nn.temporal_module import TemporalModule3D
 from lavie_tpu_torch.nn.transformer import Transformer3D
 
+Prefix = Tuple[torch.Tensor, List[torch.Tensor]]
 
-def _transformer(cfg: UNetConfig, channels: int) -> Transformer3D:
+
+def _transformer(cfg: UNetConfig, channels: int, only_cross: bool = False) -> Transformer3D:
     heads = cfg.num_attention_heads
     return Transformer3D(
         channels, heads, channels // heads, num_layers=1,
@@ -27,6 +33,7 @@ def _transformer(cfg: UNetConfig, channels: int) -> Transformer3D:
         rope_dim=cfg.rope_dim, relpos_num_buckets=cfg.relpos_num_buckets,
         relpos_max_distance=cfg.relpos_max_distance, spatial_attention=cfg.spatial_attention,
         temporal_attention=cfg.temporal_attention, ff_before_temporal=cfg.ff_before_temporal,
+        only_cross_attention=only_cross, use_temporal_resblock=cfg.transformer_temporal_resblock,
     )
 
 
@@ -37,12 +44,14 @@ def _resnet(cfg: UNetConfig, cin: int, cout: int, scale: float = 1.0) -> ResnetB
 class CrossAttnDownBlock3D(nn.Module):
     """(resnet → Transformer3D) × layers + optional downsample."""
 
-    def __init__(self, cfg: UNetConfig, cin: int, cout: int, num_layers: int, add_downsample: bool):
+    def __init__(self, cfg: UNetConfig, cin: int, cout: int, num_layers: int, add_downsample: bool,
+                 only_cross: bool = False):
         super().__init__()
         self.resnets = nn.ModuleList(
             [_resnet(cfg, cin if i == 0 else cout, cout) for i in range(num_layers)]
         )
-        self.attentions = nn.ModuleList([_transformer(cfg, cout) for _ in range(num_layers)])
+        self.attentions = nn.ModuleList([_transformer(cfg, cout, only_cross)
+                                         for _ in range(num_layers)])
         self.downsamplers = nn.ModuleList([Downsample3D(cout)]) if add_downsample else None
 
     def forward(self, x, temb, ehs):
@@ -101,7 +110,7 @@ class CrossAttnUpBlock3D(nn.Module):
     has_attention = True
 
     def __init__(self, cfg: UNetConfig, cin: int, prev: int, cout: int, num_layers: int,
-                 add_upsample: bool):
+                 add_upsample: bool, only_cross: bool = False):
         super().__init__()
         resnets = []
         for i in range(num_layers):
@@ -110,7 +119,8 @@ class CrossAttnUpBlock3D(nn.Module):
             resnets.append(_resnet(cfg, res_in + skip, cout))
         self.resnets = nn.ModuleList(resnets)
         if self.has_attention:
-            self.attentions = nn.ModuleList([_transformer(cfg, cout) for _ in range(num_layers)])
+            self.attentions = nn.ModuleList([_transformer(cfg, cout, only_cross)
+                                             for _ in range(num_layers)])
         self.upsamplers = nn.ModuleList([Upsample3D(cout)]) if add_upsample else None
 
     def forward(self, x, skips: List[torch.Tensor], temb, ehs):
@@ -131,7 +141,8 @@ class UpBlock3D(CrossAttnUpBlock3D):
 
 class UNet3D(nn.Module):
     """forward(sample (B,F,H,W,Cin), timesteps (B,), encoder_hidden_states
-    (B,L,D)) → (B,F,H,W,Cout) prediction."""
+    (B,L,D), class_labels (B,) for the VSR noise level) → (B,F,H,W,Cout)
+    prediction."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -141,15 +152,26 @@ class UNet3D(nn.Module):
         self.time_embedding = TimestepEmbedding(
             boc[0], cfg.time_embed_dim, cfg.flip_sin_to_cos, cfg.freq_shift
         )
+        if cfg.class_embed_type == "num_embeds":
+            self.class_embedding = nn.Embedding(cfg.num_class_embeds, cfg.time_embed_dim)
+        elif cfg.class_embed_type is not None:
+            raise NotImplementedError(f"class_embed_type {cfg.class_embed_type!r}")
+        else:
+            self.class_embedding = None
+        oca = cfg.only_cross_attention_per_block
+
+        def make(block_type: str, *args, only_cross: bool):
+            if block_type.startswith("CrossAttn"):
+                return blocks[block_type](cfg, *args, only_cross=only_cross)
+            return blocks[block_type](cfg, *args)
 
         blocks = {"CrossAttnDownBlock3D": CrossAttnDownBlock3D, "DownBlock3D": DownBlock3D}
         self.down_blocks = nn.ModuleList()
         cout = boc[0]
         for i, block_type in enumerate(cfg.down_block_types):
             cin, cout = cout, boc[i]
-            self.down_blocks.append(
-                blocks[block_type](cfg, cin, cout, cfg.layers_per_block, i < len(boc) - 1)
-            )
+            self.down_blocks.append(make(block_type, cin, cout, cfg.layers_per_block,
+                                         i < len(boc) - 1, only_cross=oca[i]))
 
         self.mid_block = UNetMidBlock3DCrossAttn(cfg, boc[-1])
 
@@ -160,29 +182,86 @@ class UNet3D(nn.Module):
         for i, block_type in enumerate(cfg.up_block_types):
             prev, cout = cout, rev[i]
             cin = rev[min(i + 1, len(boc) - 1)]
-            self.up_blocks.append(
-                blocks[block_type](cfg, cin, prev, cout, cfg.layers_per_block + 1, i < len(boc) - 1)
-            )
+            self.up_blocks.append(make(block_type, cin, prev, cout, cfg.layers_per_block + 1,
+                                       i < len(boc) - 1, only_cross=oca[::-1][i]))
+
+        self.down_temporal_blocks = self.mid_temporal_block = self.up_temporal_blocks = None
+        if cfg.use_temporal_modules:
+            tm = lambda ch: TemporalModule3D(  # noqa: E731
+                ch, cfg.time_embed_dim, cfg.norm_num_groups, cfg.temporal_module_attention_types,
+                cfg.temporal_module_use_dcn_warpping, cfg.temporal_module_use_deformable_conv)
+            self.down_temporal_blocks = nn.ModuleList([tm(boc[i]) for i in range(len(boc))])
+            self.mid_temporal_block = tm(boc[-1])
+            self.up_temporal_blocks = nn.ModuleList([tm(c) for c in rev])
 
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
         self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
 
-    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
-                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+    @property
+    def num_prefix_blocks(self) -> int:
+        """Leading down blocks without cross-attention: everything up to and
+        including them (conv_in, the embeddings, the blocks and their
+        temporal modules) is the same for both CFG halves."""
+        n = 0
+        for t in self.config.down_block_types:
+            if t != "DownBlock3D":
+                break
+            n += 1
+        return n
+
+    def _embed(self, sample: torch.Tensor, timesteps: torch.Tensor,
+               class_labels: Optional[torch.Tensor]) -> torch.Tensor:
         if timesteps.ndim == 0:
             timesteps = timesteps.expand(sample.shape[0])
-        dtype = self.conv_in.weight.dtype
         emb = self.time_embedding(timesteps)
+        if self.class_embedding is not None:
+            if class_labels is None:
+                raise ValueError("this UNet takes class_labels (the noise level)")
+            emb = emb + self.class_embedding(class_labels.reshape(-1).expand(
+                sample.shape[0]).long()).to(emb.dtype)
+        return emb
+
+    def _down(self, x: torch.Tensor, skips: List[torch.Tensor], emb: torch.Tensor,
+              ehs: Optional[torch.Tensor], blocks: range) -> torch.Tensor:
+        for i in blocks:
+            x, res = self.down_blocks[i](x, emb, ehs)
+            skips.extend(res)
+            if self.down_temporal_blocks is not None:
+                x = self.down_temporal_blocks[i](x, emb)
+        return x
+
+    def forward_prefix(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                       class_labels: Optional[torch.Tensor] = None) -> Prefix:
+        """The text-independent prefix; feed it to forward(..., prefix=) of
+        each CFG half."""
+        emb = self._embed(sample, timesteps, class_labels)
+        x = self.conv_in(sample.to(self.conv_in.weight.dtype))
+        skips = [x]
+        x = self._down(x, skips, emb, None, range(self.num_prefix_blocks))
+        return x, skips
+
+    def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                class_labels: Optional[torch.Tensor] = None,
+                prefix: Optional[Prefix] = None) -> torch.Tensor:
+        dtype = self.conv_in.weight.dtype
+        emb = self._embed(sample, timesteps, class_labels)
         if encoder_hidden_states is not None:
             encoder_hidden_states = encoder_hidden_states.to(dtype)
-        x = self.conv_in(sample.to(dtype))
-        skips = [x]
-        for block in self.down_blocks:
-            x, res = block(x, emb, encoder_hidden_states)
-            skips.extend(res)
+        if prefix is None:
+            x = self.conv_in(sample.to(dtype))
+            skips, start = [x], 0
+        else:
+            x, skips = prefix[0], list(prefix[1])
+            start = self.num_prefix_blocks
+        x = self._down(x, skips, emb, encoder_hidden_states, range(start, len(self.down_blocks)))
         x = self.mid_block(x, emb, encoder_hidden_states)
-        for block in self.up_blocks:
+        if self.mid_temporal_block is not None:
+            x = self.mid_temporal_block(x, emb)
+        for i, block in enumerate(self.up_blocks):
             n = len(block.resnets)
             res, skips = skips[-n:], skips[:-n]
             x = block(x, res, emb, encoder_hidden_states)
+            if self.up_temporal_blocks is not None:
+                x = self.up_temporal_blocks[i](x, emb)
         return self.conv_out(F.silu(self.conv_norm_out(x)))

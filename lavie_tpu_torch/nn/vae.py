@@ -1,6 +1,11 @@
-"""AutoencoderKL, the SD f8 VAE (port of lavie_tpu.nn.vae for
-`VAEConfig.sd()`): encode to (mean, logvar), sample the posterior,
-decode latents to RGB.
+"""AutoencoderKL, the SD f8 VAE and the x4-upscaler's f4 VAE (port of
+lavie_tpu.nn.vae for `VAEConfig.sd()` and `.vsr()`): encode to (mean,
+logvar), sample the posterior, decode latents to RGB, whole or in two phases
+(decode_mid at latent resolution, decode_up through the upsampling half).
+The mid-block attention at 4096 positions or more (the f4 decoder's
+163,840 at 320×512 latents, one head of 512) runs the flash kernel
+(kernels/flash_attention.py); the SD VAE's 2,560 stay on PyTorch's
+attention, as the JAX package keeps them on XLA.
 Images are channels-last (N, H, W, C); a video is decoded with its frames
 folded into N. Module names follow diffusers' nesting with the classic
 mid-block attention names (query/key/value/proj_attn)."""
@@ -14,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lavie_tpu_torch.core.config import VAEConfig
+from lavie_tpu_torch.kernels.flash_attention import flash_attention
 from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv
 
 
@@ -40,6 +46,9 @@ class VAEResnetBlock(nn.Module):
         return x + h
 
 
+FLASH_MIN_SEQ = 4096  # the JAX package's gate for the VAE's flash path
+
+
 class VAEAttentionBlock(nn.Module):
     """Single-head spatial self-attention at the bottleneck."""
 
@@ -53,8 +62,12 @@ class VAEAttentionBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, h, w, c = x.shape
-        t = self.group_norm(x).reshape(n, 1, h * w, c)
-        out = F.scaled_dot_product_attention(self.query(t), self.key(t), self.value(t))
+        if h * w >= FLASH_MIN_SEQ:
+            t = self.group_norm(x).reshape(n, h * w, 1, c)
+            out = flash_attention(self.query(t), self.key(t), self.value(t), scale=c ** -0.5)
+        else:
+            t = self.group_norm(x).reshape(n, 1, h * w, c)
+            out = F.scaled_dot_product_attention(self.query(t), self.key(t), self.value(t))
         return self.proj_attn(out).reshape(n, h, w, c) + x
 
 
@@ -147,11 +160,16 @@ class Decoder(nn.Module):
         self.conv_norm_out = GroupNorm(g, ch, 1e-6)
         self.conv_out = _conv3(ch, cfg.out_channels)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        x = self.mid_block(self.conv_in(z))
+    def forward_mid(self, z: torch.Tensor) -> torch.Tensor:
+        return self.mid_block(self.conv_in(z))
+
+    def forward_up(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.up_blocks:
             x = block(x)
         return self.conv_out(F.silu(self.conv_norm_out(x)))
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        return self.forward_up(self.forward_mid(z))
 
 
 class AutoencoderKL(nn.Module):
@@ -172,6 +190,15 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         return self.decoder(self.post_quant_conv(z))
+
+    def decode_mid(self, z: torch.Tensor) -> torch.Tensor:
+        """The latent-resolution half of decode: post_quant_conv → conv_in →
+        mid block. Cheap in memory, so many frames can go through at once."""
+        return self.decoder.forward_mid(self.post_quant_conv(z))
+
+    def decode_up(self, h: torch.Tensor) -> torch.Tensor:
+        """The upsampling half; decode_up(decode_mid(z)) is decode(z)."""
+        return self.decoder.forward_up(h)
 
     @staticmethod
     def sample_posterior(mean: torch.Tensor, logvar: torch.Tensor,

@@ -46,19 +46,21 @@ def test_device_parameters_default_to_cuda():
                 kw = {k.arg: k.value for k in node.keywords}
                 assert getattr(kw.get("default"), "value", None) == "cuda"
     # per pipeline: __init__/init_random, its CLI's build_pipeline and --device
-    assert seen >= 8
+    assert seen >= 12
 
 
 def test_entry_points_default_to_cuda():
     import inspect
 
-    from lavie_tpu_torch.cli import interpolate, sample
+    from lavie_tpu_torch.cli import interpolate, sample, vsr
     from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
     from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
+    from lavie_tpu_torch.pipelines.vsr import VideoSuperResolutionPipeline
 
     for fn in (TextToVideoPipeline.__init__, TextToVideoPipeline.init_random, sample.build_pipeline,
                VideoInterpolationPipeline.__init__, VideoInterpolationPipeline.init_random,
-               interpolate.build_pipeline):
+               interpolate.build_pipeline, VideoSuperResolutionPipeline.__init__,
+               VideoSuperResolutionPipeline.init_random, vsr.build_pipeline):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
