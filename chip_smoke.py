@@ -32,14 +32,32 @@ its result line:
                 8 frames of the first main-phase video to 8x1280x2048: 50
                 v-prediction DDIM steps, CFG 5.0, noise level 50
  13. profile_vsr  the profile of one VSR UNet half-forward
- 14. result     a `kernels` JSON line, then the `ok` JSON line last
-Launch counts are zeroed just before each path (main, tsr, vsr) and read
-just after it. Imports nothing of JAX or of the JAX package.
+ 14. optin      the JAX package's opt-in float routes: temporal_attention_folded
+                (the temporal kernel on q/k rotated beforehand, with a bias)
+                at the base and VSR shapes; gn_silu_tconv with emit_stats at
+                the four VSR levels, timed beside the same call without
+                statistics and beside the GroupNorm.affine it replaces, and
+                with activation "none" at one shape
+ 15. ab_vsr, ab_base  one full-width VSR UNet half-forward with
+                LAVIE_TRESBLOCK_STATS unset and set, one base UNet forward
+                with LAVIE_TEMPORAL_KERNEL unset and set: device ms of each,
+                outputs compared
+ 16. cascade    the serving entry point at full width: Predictor().setup(),
+                predict() for option 2 (61x320x512, written to
+                build/cascade/), then the cascade for option 4 (61x1280x2048,
+                not written) with both opt-in switches set and one cut, 10
+                VSR steps; stage seconds, shapes, peak memory and exact
+                launch counts per stage
+ 17. result     a `kernels` JSON line, then the `ok` JSON line last
+Launch counts are zeroed just before each path (main, tsr, vsr, cascade) and
+read just after it; the paths before the cascade run the default routes and
+launch neither opt-in entry. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -65,6 +83,9 @@ VSR_STEPS, VSR_FRAMES = 50, 8
 # (positions per frame, channels)
 VSR_LEVELS = [(163840, 256), (40960, 512), (10240, 512), (2560, 1024)]
 CROSS_TOL, TCONV_TOL = 2e-2, 1e-2  # of max|plain|
+STATS_TOL = 1e-2  # gn_silu_tconv's Σ, Σ², of max|plain|
+# the cascade phase's option 4: the one cut (50 VSR steps in a user's run)
+CASCADE_VSR_STEPS = 10
 
 
 def log(msg: str) -> None:
@@ -139,12 +160,16 @@ def phase_build() -> None:
     log(f"[build] {time.time() - t0:.1f} s")
 
 
-def phase_temporal(f: int, rope: int, levels=ATTENTION_LEVELS, b: int = 2) -> list:
+def phase_temporal(f: int, rope: int, levels=ATTENTION_LEVELS, b: int = 2,
+                   folded: bool = False) -> list:
     """Temporal attention at H=8: the base path's F=16 with RoPE and a bias
     (B=2), the TSR path's F=61 with neither (B=2), the VSR path's F=8 with
-    both (B=1, one CFG half)."""
+    both (B=1, one CFG half). `folded`: the opt-in route's entry,
+    temporal_attention_folded, on q and k rotated beforehand, with the bias."""
     from lavie_tpu_torch.kernels.temporal_fused import (
         temporal_attention,
+        temporal_attention_folded,
+        temporal_attention_folded_reference,
         temporal_attention_reference,
     )
     from lavie_tpu_torch.nn.embeddings import apply_rope_half, rope_half_frequencies
@@ -159,24 +184,31 @@ def phase_temporal(f: int, rope: int, levels=ATTENTION_LEVELS, b: int = 2) -> li
         if rope:
             bias = 0.5 * torch.randn(h, f, f, generator=g, device="cuda")
             cos, sin = (torch.from_numpy(a).cuda() for a in rope_half_frequencies(f, rope))
-        args = (q, k, v, bias, cos, sin, d**-0.5, rope, h)
         # yardstick: one library call on (B·S, H, F, d) tensors, RoPE done beforehand
         to_bhsd = lambda x: x.view(b, f, s, h, d).permute(0, 2, 3, 1, 4).reshape(b * s, h, f, d)  # noqa: E731
         if rope:
             cs, sn = cos.bfloat16()[:, None, None, :], sin.bfloat16()[:, None, None, :]
-            qs = to_bhsd(apply_rope_half(q.view(b, f, s, h, d), cs, sn)).contiguous()
-            ks = to_bhsd(apply_rope_half(k.view(b, f, s, h, d), cs, sn)).contiguous()
+            qr = apply_rope_half(q.view(b, f, s, h, d), cs, sn)
+            kr = apply_rope_half(k.view(b, f, s, h, d), cs, sn)
+            qs, ks = to_bhsd(qr).contiguous(), to_bhsd(kr).contiguous()
         else:
             qs, ks = to_bhsd(q).contiguous(), to_bhsd(k).contiguous()
         vs = to_bhsd(v).contiguous()
         mask = bias.bfloat16() if rope else None
-        n_bytes = 4 * b * f * s * c * 2 + (h * f * f * 4 + 2 * f * (rope // 2) * 4 if rope else 0)
+        if folded:
+            name, fn, plain = "temporal_attention_folded", temporal_attention_folded, \
+                temporal_attention_folded_reference
+            args = (qr.reshape(q.shape), kr.reshape(k.shape), v, bias, d**-0.5, h)
+            n_bytes = 4 * b * f * s * c * 2 + h * f * f * 4
+        else:
+            name, fn, plain = "temporal_attention", temporal_attention, temporal_attention_reference
+            args = (q, k, v, bias, cos, sin, d**-0.5, rope, h)
+            n_bytes = 4 * b * f * s * c * 2 + (h * f * f * 4 + 2 * f * (rope // 2) * 4 if rope else 0)
         # QKᵀ on bf16 operands can run on the tensor cores; P·V takes fp32 P
         half_flops = 2 * b * s * h * f * f * d
         rows.append(check_row(
-            "temporal_attention", {"B": b, "F": f, "S": s, "H": h, "d": d},
-            temporal_attention(*args), temporal_attention_reference(*args), TEMPORAL_TOL,
-            lambda: temporal_attention(*args), lambda: temporal_attention_reference(*args),
+            name, {"B": b, "F": f, "S": s, "H": h, "d": d},
+            fn(*args), plain(*args), TEMPORAL_TOL, lambda: fn(*args), lambda: plain(*args),
             lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=d**-0.5),
             n_bytes, ((half_flops, BF16_FLOPS), (half_flops, FP32_FLOPS))))
     return rows
@@ -257,6 +289,7 @@ class plain_kernels:
 
         return [
             (attn_mod, "temporal_attention", tf.temporal_attention_reference),
+            (attn_mod, "temporal_attention_folded", tf.temporal_attention_folded_reference),
             (attn_mod, "flash_sparse_causal", fa.flash_sparse_causal_reference),
             (attn_mod, "flash_attention", fa.flash_attention_reference),
             (vae_mod, "flash_attention", fa.flash_attention_reference),
@@ -390,6 +423,8 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
 
 
 def launch_counters() -> dict:
+    """name → (wrapper, attribute holding its count); the stats variant of
+    gn_silu_tconv is counted on its own besides."""
     from lavie_tpu_torch.kernels.cross_block import cross_attention_head, transformer_tail
     from lavie_tpu_torch.kernels.flash_attention import (
         flash_attention,
@@ -397,22 +432,36 @@ def launch_counters() -> dict:
         flash_sparse_causal,
     )
     from lavie_tpu_torch.kernels.geglu import geglu
-    from lavie_tpu_torch.kernels.temporal_fused import temporal_attention
+    from lavie_tpu_torch.kernels.temporal_fused import temporal_attention, temporal_attention_folded
     from lavie_tpu_torch.kernels.temporal_resblock import gn_silu_tconv
 
-    return {"temporal_attention": temporal_attention, "geglu": geglu,
-            "flash_sparse_causal": flash_sparse_causal, "flash_attention_kv": flash_attention_kv,
-            "flash_attention": flash_attention, "cross_attention_head": cross_attention_head,
-            "transformer_tail": transformer_tail, "gn_silu_tconv": gn_silu_tconv}
+    fns = {"temporal_attention": temporal_attention, "geglu": geglu,
+           "flash_sparse_causal": flash_sparse_causal, "flash_attention_kv": flash_attention_kv,
+           "flash_attention": flash_attention, "cross_attention_head": cross_attention_head,
+           "transformer_tail": transformer_tail, "gn_silu_tconv": gn_silu_tconv,
+           "temporal_attention_folded": temporal_attention_folded}
+    counters = {name: (fn, "launches") for name, fn in fns.items()}
+    counters["gn_silu_tconv_stats"] = (gn_silu_tconv, "stats_launches")
+    return counters
 
 
 def zero_launches() -> None:
-    for fn in launch_counters().values():
-        fn.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in launch_counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
+
+
+OPT_IN = ("temporal_attention_folded", "gn_silu_tconv_stats")
+
+
+def assert_default_routes(path: str, launches: dict) -> None:
+    """A path run without the opt-in switches launches neither opt-in entry."""
+    for name in OPT_IN:
+        if launches[name]:
+            raise AssertionError(f"{name} launched {launches[name]} times on the {path} path")
 
 
 def phase_main() -> tuple:
@@ -450,6 +499,7 @@ def phase_main() -> tuple:
     for name in ("temporal_attention", "geglu"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    assert_default_routes("main", launches)
     phase_profile("profile", pipe.unet, 16)
     del pipe
     torch.cuda.empty_cache()
@@ -490,6 +540,7 @@ def phase_tsr(base_video) -> dict:
     for name in ("temporal_attention", "geglu"):
         if launches[name] < per_forward * TSR_STEPS:
             raise AssertionError(f"{name} launched {launches[name]} times on the TSR path")
+    assert_default_routes("tsr", launches)
     phase_profile("profile_tsr", pipe.unet, TSR_FRAMES)
     del pipe
     torch.cuda.empty_cache()
@@ -643,8 +694,253 @@ def phase_vsr(base_video) -> dict:
     for name, n in expected.items():
         if launches[name] != n:
             raise AssertionError(f"{name} launched {launches[name]} times on the VSR path, expected {n}")
+    assert_default_routes("vsr", launches)
     phase_profile("profile_vsr", pipe.unet, VSR_FRAMES, batch=1, h=320, w=512, ctx_dim=1024)
     del pipe, out
+    torch.cuda.empty_cache()
+    return launches
+
+
+class env:
+    """Within the block the named environment variables hold the given
+    values (None: unset); afterwards they are as they were."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        self._set(self.values)
+
+    def __exit__(self, *exc):
+        self._set(self.saved)
+
+    @staticmethod
+    def _set(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def phase_optin_tconv() -> dict:
+    """gn_silu_tconv's opt-in options at the VSR shapes (one CFG half, one
+    8-frame window): emit_stats at the four levels (k=5, conv1 of the
+    temporal modules' resblocks, the call that feeds norm2), timed beside the
+    same call without statistics and beside the GroupNorm.affine(h) that the
+    statistics replace; activation "none" at one shape."""
+    from lavie_tpu_torch.kernels import temporal_resblock as tr
+    from lavie_tpu_torch.nn.layers import GroupNorm
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    bf = lambda *shape, sd=1.0: (sd * torch.randn(*shape, generator=g, device="cuda")).bfloat16()  # noqa: E731
+    f32 = lambda *shape, sd=0.1, m=0.0: m + sd * torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    f, k = VSR_FRAMES, 5
+    rows = {"stats": [], "none": []}
+    for s, c in VSR_LEVELS:
+        x, taps = bf(1, f, s, c), bf(k, c, c, sd=c ** -0.5)
+        args = (x, f32(1, c, m=1.0), f32(1, c), taps, f32(1, c))
+        got = tr.gn_silu_tconv(*args, emit_stats=True)
+        want = tr.gn_silu_tconv_reference(*args, emit_stats=True)
+        torch.cuda.synchronize()
+        sum_errs = [(a - b_).abs().max().item() / b_.abs().max().item() for a, b_ in zip(got[1:], want[1:])]
+        norm = GroupNorm(32, c, eps=1e-6).cuda()
+        h = got[0]
+        n_bytes = 2 * f * s * c * 2 + k * c * c * 2 + 3 * c * 4 + 2 * c * 4
+        row = check_row(
+            "gn_silu_tconv (emit_stats)", {"B": 1, "F": f, "S": s, "C": c, "O": c, "k": k},
+            got[0], want[0], TCONV_TOL, lambda: tr.gn_silu_tconv(*args, emit_stats=True),
+            lambda: tr.gn_silu_tconv_reference(*args, emit_stats=True), None, n_bytes,
+            ((2 * _valid_taps(f, k) * s * c * c, BF16_FLOPS),),
+            ms_without_stats=time_ms(lambda: tr.gn_silu_tconv(*args)),
+            groupnorm_affine_ms=time_ms(lambda: norm.affine(h)),
+            sums_err_of_max=sum_errs)
+        if max(sum_errs) > STATS_TOL:
+            raise AssertionError(f"gn_silu_tconv sums at S={s} C={c}: {sum_errs} > {STATS_TOL} of max|plain|")
+        rows["stats"].append(row)
+        del x, got, want, h, args
+    # activation "none" (a plain temporal conv + residual) at the L2 width
+    s, c = VSR_LEVELS[2]
+    args = (bf(1, f, s, c), None, None, bf(3, c, c, sd=c ** -0.5), f32(1, c), bf(1, f, s, c))
+    rows["none"].append(check_row(
+        "gn_silu_tconv (activation none)", {"B": 1, "F": f, "S": s, "C": c, "O": c, "k": 3,
+                                            "residual": True},
+        tr.gn_silu_tconv(*args, activation="none"),
+        tr.gn_silu_tconv_reference(*args, activation="none"), TCONV_TOL,
+        lambda: tr.gn_silu_tconv(*args, activation="none"),
+        lambda: tr.gn_silu_tconv_reference(*args, activation="none"), None,
+        3 * f * s * c * 2 + 3 * c * c * 2 + c * 4, ((2 * _valid_taps(f, 3) * s * c * c, BF16_FLOPS),)))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ab(phase: str, cfg, frames: int, switch: str, tol: float, batch: int, h: int, w: int,
+             ctx_dim: int) -> dict:
+    """One full-width UNet forward with the opt-in `switch` unset and set,
+    same weights and inputs: device ms of each (CUDA events, one warm-up,
+    then unset, set, set, unset) and the two outputs compared."""
+    from lavie_tpu_torch.nn.unet import UNet3D
+    from lavie_tpu_torch.pipelines.t2v import random_init_
+
+    with torch.device("cuda"):
+        unet = UNet3D(cfg).to(torch.bfloat16).eval()
+    random_init_(unet, seed=7)
+    x, ts, ctx, labels = unet_inputs(cfg, batch, frames, h, w, ctx_dim, seed=3, t=981.0)
+    outs, times = {}, {False: [], True: []}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        for on in (False, True, False, True, True, False):
+            with env(**{switch: "1" if on else None}):
+                zero_launches()
+                torch.cuda.synchronize()
+                start.record()
+                out = unet(x, ts, ctx, labels)
+                end.record()
+                torch.cuda.synchronize()
+                launches = read_launches()
+            if on not in outs:  # the first two runs are the warm-ups
+                outs[on] = out.float()
+                expected = "temporal_attention_folded" if switch == "LAVIE_TEMPORAL_KERNEL" else \
+                    "gn_silu_tconv_stats"
+                if (launches[expected] > 0) != on:
+                    raise AssertionError(f"{phase}: {expected} launched {launches[expected]} times "
+                                         f"with {switch} {'set' if on else 'unset'}")
+            else:
+                times[on].append(start.elapsed_time(end))
+    err = (outs[True] - outs[False]).abs().max().item()
+    scale = outs[False].abs().max().item()
+    row = {"phase": phase, "switch": switch, "shape": list(x.shape),
+           "ms_unset": times[False], "ms_set": times[True],
+           "mean_ms_unset": sum(times[False]) / 2, "mean_ms_set": sum(times[True]) / 2,
+           "max_abs_diff": err, "max_abs_ref": scale}
+    log(json.dumps(row))
+    if not (bool(torch.isfinite(outs[True]).all()) and err <= tol * scale):
+        raise AssertionError(f"{phase}: {switch} set vs unset: {err} > {tol}·{scale}")
+    del unet, outs
+    torch.cuda.empty_cache()
+    return row
+
+
+class TimedStage:
+    """Wraps one stage pipeline of the cascade: times each call (host clock,
+    synchronised) and records the launches made within it and the shape of
+    its video; every other attribute is the stage's."""
+
+    def __init__(self, name: str, stage):
+        self.name, self.stage, self.calls = name, stage, []
+
+    def __getattr__(self, attr):
+        return getattr(self.stage, attr)
+
+    def __call__(self, *args, **kw):
+        before = read_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = self.stage(*args, **kw)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        after = read_launches()
+        self.calls.append({"stage": self.name, "seconds": secs, "shape": list(out.video.shape),
+                           "dtype": out.video.dtype.name,
+                           "launches": {n: after[n] - before[n] for n in after}})
+        return out
+
+
+def expected_stage_launches(stage: str, steps: int, folded: bool, stats: bool, windows: int = 1) -> dict:
+    """Exact launches of one cascade stage (per forward counts as the main,
+    tsr and vsr phases hold them)."""
+    n = dict.fromkeys(launch_counters(), 0)
+    temporal = "temporal_attention_folded" if folded else "temporal_attention"
+    if stage == "base":  # 16 transformer blocks per CFG-batched forward
+        n.update({temporal: 16 * steps, "geglu": 16 * steps})
+    elif stage == "interpolation":
+        n.update({"temporal_attention": 16 * steps, "geglu": 16 * steps,
+                  "flash_sparse_causal": 16 * steps})
+    else:  # per window: the vsr phase's counts
+        n.update({"gn_silu_tconv": 98 * steps * windows, "cross_attention_head": 20 * steps * windows,
+                  "transformer_tail": 20 * steps * windows,
+                  "flash_attention": (12 * steps + 1) * windows, temporal: 32 * steps * windows,
+                  "geglu": 12 * steps * windows})
+        if stats:
+            n["gn_silu_tconv_stats"] = 49 * steps * windows
+    return n
+
+
+def phase_cascade() -> dict:
+    """The serving entry point at full width: Predictor().setup() once; then
+    predict(...) for option 2 (16 → 61 frames at 320x512, 50 DDPM base
+    steps, 50 DDIM TSR steps), which writes its file; then the cascade
+    pipeline for option 4 (16x320x512 → 61x320x512 → 61x1280x2048: seven VSR
+    windows of 8 and a tail of 5) with LAVIE_TRESBLOCK_STATS=1 and
+    LAVIE_TEMPORAL_KERNEL=1, its video not written. Stage seconds come from
+    wrapping each stage here (TimedStage)."""
+    from lavie_tpu_torch.serve import Predictor
+
+    t0 = time.time()
+    predictor = Predictor()
+    predictor.setup()  # full width, bf16, on the card, seeded random weights
+    torch.cuda.synchronize()
+    log(f"[cascade] setup {time.time() - t0:.1f} s")
+    cascade = predictor.pipeline
+    stages = [TimedStage("base", cascade.base), TimedStage("interpolation", cascade.interpolation),
+              TimedStage("vsr", cascade.vsr)]
+    cascade.base, cascade.interpolation, cascade.vsr = stages
+    prompt = "a teddy bear walking on the street, 2k, high quality"
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cascade")
+    os.makedirs(out_dir, exist_ok=True)
+    launches = dict.fromkeys(launch_counters(), 0)
+    for option, switches in ((2, {}), (4, {"LAVIE_TRESBLOCK_STATS": "1", "LAVIE_TEMPORAL_KERNEL": "1"})):
+        for st in stages:
+            st.calls.clear()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with env(**switches):
+            if option == 2:
+                path = predictor.predict(prompt, output_path=os.path.join(out_dir, "option2.mp4"),
+                                         seed=0, interpolation=True, super_resolution=False)
+                ok = os.path.getsize(path) > 0
+                video_shape = stages[1].calls[0]["shape"][1:]
+            else:
+                out = cascade(prompt, interpolation=True, super_resolution=True,
+                              vsr_steps=CASCADE_VSR_STEPS, seed=0, keep_intermediates=True)
+                path = None
+                video_shape = list(out.video.shape)
+                ok = (out.video.dtype.name == "uint8" and out.base_video.shape == (16, 320, 512, 3)
+                      and out.interpolated_video.shape == (TSR_FRAMES, 320, 512, 3))
+                del out
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        got = read_launches()
+        calls = [c for st in stages for c in st.calls]
+        want_shape = [TSR_FRAMES, 320, 512, 3] if option == 2 else [TSR_FRAMES, 1280, 2048, 3]
+        row = {"phase": "cascade", "option": option, "switches": switches, "seconds": secs,
+               "stages": calls, "shape": video_shape, "dtype": "uint8", "written": path,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": got}
+        if option == 4:
+            row["cut"] = {"vsr_steps": CASCADE_VSR_STEPS}
+        log(json.dumps(row))
+        if not ok or video_shape != want_shape:
+            raise AssertionError(f"cascade option {option}: bad output {video_shape} (ok={ok})")
+        folded = stats = option == 4
+        windows = -(-TSR_FRAMES // VSR_FRAMES)
+        want = {"base": expected_stage_launches("base", 50, folded, stats),
+                "interpolation": expected_stage_launches("interpolation", TSR_STEPS, folded, stats)}
+        if option == 4:
+            want["vsr"] = expected_stage_launches("vsr", CASCADE_VSR_STEPS, folded, stats, windows)
+        if [c["stage"] for c in calls] != list(want):
+            raise AssertionError(f"cascade option {option} ran stages {[c['stage'] for c in calls]}")
+        for c in calls:
+            if c["launches"] != want[c["stage"]]:
+                raise AssertionError(f"cascade option {option}, {c['stage']}: launches {c['launches']}, "
+                                     f"expected {want[c['stage']]}")
+        for name in got:
+            launches[name] += got[name]
+    if not (launches["temporal_attention_folded"] and launches["gn_silu_tconv_stats"]):
+        raise AssertionError("the opt-in entries were not launched on the cascade path")
+    del predictor, cascade, stages
     torch.cuda.empty_cache()
     return launches
 
@@ -675,10 +971,21 @@ def main() -> int:
     vsr_rows = phase_vsr_kernels()
     phase_model("model_vsr", UNetConfig.vsr(), VSR_FRAMES, batch=1, h=320, w=512, ctx_dim=1024)
     vsr_launches = phase_vsr(base_video)
+    # the opt-in routes: kernels, then each route in the model against the default
+    folded_rows = phase_temporal(16, rope=32, folded=True)
+    phase_temporal(VSR_FRAMES, rope=32, b=1, folded=True,
+                   levels=[(s, 64) for s, _ in VSR_LEVELS[1:3]] + [(VSR_LEVELS[3][0], 128)])
+    optin_rows = phase_optin_tconv()
+    phase_ab("ab_vsr", UNetConfig.vsr(), VSR_FRAMES, "LAVIE_TRESBLOCK_STATS", MODEL_TOL["model_vsr"],
+             batch=1, h=320, w=512, ctx_dim=1024)
+    phase_ab("ab_base", UNetConfig.base_t2v(), 16, "LAVIE_TEMPORAL_KERNEL", MODEL_TOL["model"],
+             batch=2, h=40, w=64, ctx_dim=768)
+    cascade_launches = phase_cascade()
 
-    def entry(name, source, replaces, row, note=None):
-        by_path = {"main": main_launches[name], "tsr": tsr_launches[name],
-                   "vsr": vsr_launches[name]}
+    def entry(name, source, replaces, row, note=None, counter=None):
+        counter = counter or name
+        by_path = {"main": main_launches[counter], "tsr": tsr_launches[counter],
+                   "vsr": vsr_launches[counter], "cascade": cascade_launches[counter]}
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": sum(by_path.values()), "launches_by_path": by_path,
              "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -688,6 +995,17 @@ def main() -> int:
             e["note"] = note
         return e
 
+    tconv = entry("gn_silu_tconv", "lavie_tpu_torch/csrc/temporal_resblock.cu",
+                  "lavie_tpu/kernels/temporal_resblock.py:398", vsr_rows["gn_silu_tconv"][0],
+                  note="also replaces gn_silu_tconv_sfc, lavie_tpu/kernels/temporal_resblock.py:306: "
+                       "the port keeps video frame-major at that call site too")
+    stats_row = optin_rows["stats"][0]
+    tconv["stats_variant"] = {
+        **entry("gn_silu_tconv (emit_stats)", tconv["source"], tconv["replaces"], stats_row,
+                counter="gn_silu_tconv_stats"),
+        "ms_without_stats": stats_row["ms_without_stats"],
+        "groupnorm_affine_ms": stats_row["groupnorm_affine_ms"],
+        "sums_err_of_max": stats_row["sums_err_of_max"]}
     # per-kernel numbers are those of each kernel's L0 shape on its first path
     log(json.dumps({"kernels": [
         entry("temporal_attention", "lavie_tpu_torch/csrc/temporal_fused.cu",
@@ -705,10 +1023,11 @@ def main() -> int:
               "lavie_tpu/kernels/cross_block.py:383", vsr_rows["cross_attention_head"][0]),
         entry("transformer_tail", "lavie_tpu_torch/csrc/cross_block.cu",
               "lavie_tpu/kernels/cross_block.py:441", vsr_rows["transformer_tail"][0]),
-        entry("gn_silu_tconv", "lavie_tpu_torch/csrc/temporal_resblock.cu",
-              "lavie_tpu/kernels/temporal_resblock.py:398", vsr_rows["gn_silu_tconv"][0],
-              note="also replaces gn_silu_tconv_sfc, lavie_tpu/kernels/temporal_resblock.py:306: "
-                   "the port keeps video frame-major at that call site too"),
+        tconv,
+        entry("temporal_attention_folded", "lavie_tpu_torch/csrc/temporal_fused.cu",
+              "lavie_tpu/kernels/temporal_attention.py:120", folded_rows[0],
+              note="the temporal kernel without its RoPE, on q/k rotated by the caller; "
+                   "opt-in (LAVIE_TEMPORAL_KERNEL=1): launched on the cascade path only"),
     ]}))
     log(f"[chip_smoke] {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,10 @@
 //
 // Replaces: lavie_tpu/kernels/temporal_fused.py, temporal_attention_cmajor
 // (Pallas body _kernel_v5; _kernel_v4 and _kernel are older bodies of the
-// same function).
+// same function); and lavie_tpu/kernels/temporal_attention.py,
+// temporal_attention (_temporal_bfcs, body _temporal_kernel), the opt-in
+// "folded" route: the same function on q and k rotated by the caller, which
+// is this kernel with rope_half = 0 and a bias.
 //
 // What it computes, per batch b, spatial position s and head h, on the F x d
 // slices q[b, :, s, h*d:(h+1)*d] (k, v likewise):

@@ -11,6 +11,15 @@ and its channel-major (C, B, F, S) re-layout are both gone.
                                 (csrc/temporal_fused.cu) for a CUDA tensor,
                                 the plain version for a CPU tensor
   temporal_attention_reference  the plain PyTorch version of the same math
+
+  temporal_attention_folded            port of lavie_tpu.kernels.
+  temporal_attention_folded_reference  temporal_attention.temporal_attention
+                                       (the opt-in "folded" route): the same
+                                       function on q and k that the caller has
+                                       already rotated, with an (H, F, F)
+                                       bias and no RoPE inside; it launches
+                                       the same kernel with rope_dim = 0 and
+                                       counts its launches on its own
 """
 
 from __future__ import annotations
@@ -71,29 +80,59 @@ def temporal_attention(
     bf16, head_dim not a multiple of 8, F > 64, non-contiguous inputs)."""
     if q.device.type == "cpu":
         return temporal_attention_reference(q, k, v, bias, cos, sin, scale, rope_dim, heads)
+    out = _launch("temporal_attention", q, k, v, bias, cos, sin, scale, rope_dim, heads)
+    temporal_attention.launches += 1
+    return out
+
+
+def temporal_attention_folded_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                        bias: torch.Tensor, scale: float,
+                                        heads: int) -> torch.Tensor:
+    """The plain version of temporal_attention_folded: fp32 scores and
+    softmax, fp32 probs·v."""
+    return temporal_attention_reference(q, k, v, bias, None, None, scale, 0, heads)
+
+
+def temporal_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              bias: torch.Tensor, scale: float, heads: int) -> torch.Tensor:
+    """softmax(q·kᵀ·scale + bias)·v over the frames of (B, F, S, C) tensors
+    whose q and k the caller has rotated; bias (H, F, F) fp32. On a CUDA
+    tensor this launches the temporal kernel without its RoPE, or raises as
+    temporal_attention does (and without a bias)."""
+    if q.device.type == "cpu":
+        return temporal_attention_folded_reference(q, k, v, bias, scale, heads)
+    if bias is None:
+        raise ValueError("temporal_attention_folded takes an (H, F, F) bias")
+    out = _launch("temporal_attention_folded", q, k, v, bias, None, None, scale, 0, heads)
+    temporal_attention_folded.launches += 1
+    return out
+
+
+def _launch(name, q, k, v, bias, cos, sin, scale, rope_dim, heads) -> torch.Tensor:
+    """Check what the kernel takes, launch it on the current stream."""
     if q.device.type != "cuda":
-        raise ValueError(f"temporal_attention: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     b, f, s, c = q.shape
     d = c // heads
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"temporal_attention kernel takes bf16 q/k/v, got {q.dtype}")
+        raise TypeError(f"{name} kernel takes bf16 q/k/v, got {q.dtype}")
     if k.shape != q.shape or v.shape != q.shape or c != heads * d:
-        raise ValueError(f"temporal_attention: shapes {q.shape} {k.shape} {v.shape}, heads={heads}")
+        raise ValueError(f"{name}: shapes {q.shape} {k.shape} {v.shape}, heads={heads}")
     if d % 8 or f > 64 or rope_dim > d or rope_dim % 2:
-        raise ValueError(f"temporal_attention kernel: head_dim={d}, frames={f}, rope_dim={rope_dim}")
+        raise ValueError(f"{name} kernel: head_dim={d}, frames={f}, rope_dim={rope_dim}")
     for t in (q, k, v):
-        if not t.is_contiguous():
-            raise ValueError("temporal_attention kernel takes contiguous q/k/v")
+        if not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} kernel takes contiguous q/k/v on one device")
     if bias is not None and (
         bias.dtype != torch.float32 or bias.shape != (heads, f, f) or not bias.is_contiguous()
         or bias.device != q.device
     ):
-        raise ValueError("temporal_attention kernel takes a contiguous fp32 (H, F, F) bias")
+        raise ValueError(f"{name} kernel takes a contiguous fp32 (H, F, F) bias")
     if rope_dim:
         for t in (cos, sin):
             if (t.dtype != torch.float32 or t.shape != (f, rope_dim // 2)
                     or not t.is_contiguous() or t.device != q.device):
-                raise ValueError("temporal_attention kernel takes contiguous fp32 (F, rope_dim/2) tables")
+                raise ValueError(f"{name} kernel takes contiguous fp32 (F, rope_dim/2) tables")
 
     lib = _build.load("temporal_fused")
     fn = lib.temporal_attention_bf16
@@ -108,9 +147,9 @@ def temporal_attention(
         b, f, s, heads, d, rope_dim // 2, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "temporal_attention")
-    temporal_attention.launches += 1
+    _build.check(err, name)
     return out
 
 
 temporal_attention.launches = 0
+temporal_attention_folded.launches = 0

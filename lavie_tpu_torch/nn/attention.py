@@ -9,7 +9,8 @@ lavie_tpu.nn.attention):
   - TemporalAttention: frame-axis attention over (B, F, S, C), variant
     "rope_relbias" (partial RoPE on q/k + relative-position bias, base) or
     "plain" (interpolation), computed by the fused temporal kernel
-    (kernels/temporal_fused.py)
+    (kernels/temporal_fused.py); LAVIE_TEMPORAL_KERNEL=1 takes the JAX
+    package's opt-in "folded" route instead (TemporalAttention.folded)
   - SparseCausalAttention: each frame attends to frames {0, i-1} of its
     video (interpolation), computed by the sparse-causal flash kernel
     (kernels/flash_attention.py)
@@ -19,6 +20,7 @@ Projection names follow diffusers (to_q/to_k/to_v/to_out.0).
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -26,11 +28,16 @@ from torch import nn
 
 from lavie_tpu_torch.kernels.attention import dot_product_attention
 from lavie_tpu_torch.kernels.flash_attention import flash_attention, flash_sparse_causal
-from lavie_tpu_torch.kernels.temporal_fused import temporal_attention
-from lavie_tpu_torch.nn.embeddings import relative_position_buckets, rope_half_frequencies
+from lavie_tpu_torch.kernels.temporal_fused import temporal_attention, temporal_attention_folded
+from lavie_tpu_torch.nn.embeddings import (
+    apply_rope_half,
+    relative_position_buckets,
+    rope_half_frequencies,
+)
 
 
 FLASH_MIN_SEQ = 1024  # the JAX package's flash gate: S ≥ 1024, d % 128 == 0
+FOLDED_MAX_FRAMES = 16  # the JAX package's folded-route gate (temporal_supported_shape)
 
 
 class Attention(nn.Module):
@@ -143,7 +150,12 @@ class TemporalAttention(nn.Module):
         return self._tables[key]
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        """hidden_states (B, F, S, C) → (B, F, S, C)."""
+        """hidden_states (B, F, S, C) → (B, F, S, C). A rope_relbias call
+        with F ≤ 16 takes the folded route when LAVIE_TEMPORAL_KERNEL=1 is
+        in the environment, read at each call."""
+        if (self.variant == "rope_relbias" and hidden_states.shape[1] <= FOLDED_MAX_FRAMES
+                and os.environ.get("LAVIE_TEMPORAL_KERNEL") == "1"):
+            return self.folded(hidden_states)
         cos = sin = bias = None
         if self.variant == "rope_relbias":
             cos, sin, buckets = self._frame_tables(hidden_states.shape[1], hidden_states.device)
@@ -153,4 +165,26 @@ class TemporalAttention(nn.Module):
             bias, cos, sin, scale=self.head_dim ** -0.5, rope_dim=self.rope_dim,
             heads=self.heads,
         )
+        return self.to_out[0](out)
+
+    def folded(self, hidden_states: torch.Tensor) -> torch.Tensor:
+        """The JAX package's opt-in route (lavie_tpu.nn.attention's
+        TemporalAttention.folded): RoPE is applied to q and k here, in their
+        dtype with the tables cast to it, then temporal_attention_folded
+        computes the attention with the (H, F, F) bias and no RoPE of its
+        own. On the TPU the channel-major route took precedence wherever its
+        TPU-specific gate held; the port copies no TPU gate, so under the
+        switch this route takes every rope_relbias call with F ≤ 16."""
+        b, f, s, c = hidden_states.shape
+        cos, sin, buckets = self._frame_tables(f, hidden_states.device)
+        bias = self.time_rel_pos_bias(buckets).float().contiguous()  # (H, F, F)
+        shape5 = (b, f, s, self.heads, self.head_dim)
+        q = self.to_q(hidden_states).view(shape5)
+        k = self.to_k(hidden_states).view(shape5)
+        cs = cos.to(q.dtype)[:, None, None, :]  # (F, 1, 1, rot/2) onto (b, f, s, h, d)
+        sn = sin.to(q.dtype)[:, None, None, :]
+        q = apply_rope_half(q, cs, sn).reshape(b, f, s, c)
+        k = apply_rope_half(k, cs, sn).reshape(b, f, s, c)
+        out = temporal_attention_folded(q, k, self.to_v(hidden_states), bias,
+                                        scale=self.head_dim ** -0.5, heads=self.heads)
         return self.to_out[0](out)

@@ -50,6 +50,26 @@ class GroupNorm(nn.Module):
         return x * w.to(x.dtype).view(shape) + u.to(x.dtype).view(shape)
 
 
+def groupnorm_affine_from_moments(mean_c: torch.Tensor, meansq_c: torch.Tensor,
+                                  scale: torch.Tensor, bias: torch.Tensor, num_groups: int,
+                                  eps: float):
+    """GroupNorm's fp32 per-(N, C) (w, u) from per-channel E[x] and E[x²]
+    (N, C), e.g. the (Σ, Σ²)/n that gn_silu_tconv emits beside its output:
+    group moments are the means of the channels' moments and var =
+    max(E[x²] − E[x]², 0). This is lavie_tpu.nn.layers'
+    groupnorm_affine_from_moments, kept so that the port's statistics route
+    matches the JAX package's (GroupNorm.affine takes var_mean of x instead)."""
+    n, c = mean_c.shape
+    per = c // num_groups
+    gm = mean_c.float().reshape(n, num_groups, per).mean(-1)  # (N, g)
+    gs = meansq_c.float().reshape(n, num_groups, per).mean(-1)
+    var = torch.clamp(gs - gm * gm, min=0.0)
+    inv_c = torch.rsqrt(var + eps).repeat_interleave(per, dim=1)  # (N, C)
+    mc = gm.repeat_interleave(per, dim=1)
+    w = inv_c * scale.float()[None]
+    return w, bias.float()[None] - mc * inv_c * scale.float()[None]
+
+
 class InflatedConv(nn.Conv2d):
     """Per-frame 2D convolution over (B, F, H, W, C) video, or (N, H, W, C)
     images. Parameters are nn.Conv2d's (weight (O, I, kh, kw), bias)."""

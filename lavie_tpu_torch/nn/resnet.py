@@ -5,6 +5,7 @@ the fused GN·SiLU·temporal-conv kernel (kernels/temporal_resblock.py)."""
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -12,7 +13,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from lavie_tpu_torch.kernels.temporal_resblock import gn_silu_tconv
-from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv, TemporalConv
+from lavie_tpu_torch.nn.layers import (
+    GroupNorm,
+    InflatedConv,
+    TemporalConv,
+    groupnorm_affine_from_moments,
+)
 
 
 class ResnetBlock3D(nn.Module):
@@ -80,7 +86,12 @@ class ResnetBlock3DCNN(nn.Module):
     embedding into conv1's fp32 bias, the block residual into conv2's
     accumulator. Activations are frame-major (B, F, ..., C), the port's
     memory order, at both call sites (the JAX package's 5-D call takes the
-    token-major form because of XLA's conv layout)."""
+    token-major form because of XLA's conv layout).
+
+    With LAVIE_TRESBLOCK_STATS=1 in the environment, read at each call (the
+    JAX package's switch, off by default there too), conv1 also emits its
+    output's per-channel (Σ, Σ²) and norm2's affine comes from those moments
+    (groupnorm_affine_from_moments), so h is not read again for norm2."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  kernel_frames: int = 5, temb_channels: Optional[int] = None,
@@ -102,8 +113,16 @@ class ResnetBlock3DCNN(nn.Module):
         if temb is not None and self.time_emb_proj is not None:
             bias1 = bias1 + self.time_emb_proj(F.silu(temb)).float()
         w1, u1 = self.norm1.affine(v)
-        h = gn_silu_tconv(v, w1, u1, self.conv1.taps(), bias1.contiguous())
-        w2, u2 = self.norm2.affine(h)
+        if os.environ.get("LAVIE_TRESBLOCK_STATS") == "1":
+            h, s1, s2 = gn_silu_tconv(v, w1, u1, self.conv1.taps(), bias1.contiguous(),
+                                      emit_stats=True)
+            n = v.shape[1] * v.shape[2]
+            n2 = self.norm2
+            w2, u2 = groupnorm_affine_from_moments(s1 / n, s2 / n, n2.weight, n2.bias,
+                                                   n2.num_groups, n2.eps)
+        else:
+            h = gn_silu_tconv(v, w1, u1, self.conv1.taps(), bias1.contiguous())
+            w2, u2 = self.norm2.affine(h)
         res = v if self.conv_shortcut is None else self.conv_shortcut(v)
         y = gn_silu_tconv(h, w2, u2, self.conv2.taps(),
                           self.conv2.bias.float().expand(b, -1).contiguous(), res)

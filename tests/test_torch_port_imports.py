@@ -52,16 +52,25 @@ def test_device_parameters_default_to_cuda():
 def test_entry_points_default_to_cuda():
     import inspect
 
-    from lavie_tpu_torch.cli import interpolate, sample, vsr
+    from lavie_tpu_torch.cli import cascade, interpolate, sample, vsr
+    from lavie_tpu_torch.pipelines.cascade import VideoCascadePipeline
     from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
     from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
     from lavie_tpu_torch.pipelines.vsr import VideoSuperResolutionPipeline
+    from lavie_tpu_torch.serve import Predictor
 
     for fn in (TextToVideoPipeline.__init__, TextToVideoPipeline.init_random, sample.build_pipeline,
                VideoInterpolationPipeline.__init__, VideoInterpolationPipeline.init_random,
                interpolate.build_pipeline, VideoSuperResolutionPipeline.__init__,
-               VideoSuperResolutionPipeline.init_random, vsr.build_pipeline):
+               VideoSuperResolutionPipeline.init_random, vsr.build_pipeline,
+               VideoCascadePipeline.init_random, Predictor.setup, cascade.build_pipeline):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
+    # the cascade CLI's --device
+    tree = ast.parse((ROOT / "lavie_tpu_torch" / "cli" / "cascade.py").read_text())
+    defaults = [k.value.value for node in ast.walk(tree) if isinstance(node, ast.Call)
+                and node.args and getattr(node.args[0], "value", None) == "--device"
+                for k in node.keywords if k.arg == "default"]
+    assert defaults == ["cuda"]
 
 
 def test_package_imports_without_a_card():
