@@ -29,8 +29,9 @@ its result line:
  11. model_vsr  one full-width VSR UNet half-forward (1x8x320x512x7, text and
                 noise level) with the kernels and with the plain versions
  12. vsr        VideoSuperResolutionPipeline at full width upscales the first
-                8 frames of the first main-phase video to 8x1280x2048: 50
-                v-prediction DDIM steps, CFG 5.0, noise level 50
+                8 frames of the first main-phase video to 8x1280x2048: 10
+                v-prediction DDIM steps (the one cut; 50 in a user's run),
+                CFG 5.0, noise level 50
  13. profile_vsr  the profile of one VSR UNet half-forward
  14. optin      the JAX package's opt-in float routes: temporal_attention_folded
                 (the temporal kernel on q/k rotated beforehand, with a bias)
@@ -42,16 +43,29 @@ its result line:
                 LAVIE_TRESBLOCK_STATS unset and set, one base UNet forward
                 with LAVIE_TEMPORAL_KERNEL unset and set: device ms of each,
                 outputs compared
- 16. cascade    the serving entry point at full width: Predictor().setup(),
+ 16. turbo_kernels  the int8 turbo mode's pieces: the int8 gn_silu_tconv at
+                every VSR shape where the JAX package's gate admits it (k=5,
+                and k=3 + residual; F=8 and the 5-frame tail, the tail with
+                emit_stats on conv1) against its plain version, timed beside
+                the float kernel and its bound; int8_conv2d at the base L0,
+                VSR L0 and one f4-VAE full-resolution frame, its int32
+                product checked exactly on bands of rows, timed beside
+                cuDNN's bf16 conv (a yardstick only)
+ 17. ab_turbo_vsr, ab_turbo_base  one full-width VSR UNet half-forward and
+                one base UNet forward with conv_quant "none", "int8" (and
+                LAVIE_TRESBLOCK_INT8=1), "int8" excluding samplers and
+                up_blocks: device ms and the relative error against bf16
+ 18. cascade    the serving entry point at full width: Predictor().setup(),
                 predict() for option 2 (61x320x512, written to
-                build/cascade/), then the cascade for option 4 (61x1280x2048,
-                not written) with both opt-in switches set and one cut, 10
-                VSR steps; stage seconds, shapes, peak memory and exact
-                launch counts per stage
- 17. result     a `kernels` JSON line, then the `ok` JSON line last
+                build/cascade/); then a second predictor in turbo,
+                Predictor().setup(conv_quant="int8"), runs the cascade for
+                option 4 (61x1280x2048, not written) with the three opt-in
+                switches set and one cut, 10 VSR steps; stage seconds,
+                shapes, peak memory and exact launch counts per stage
+ 19. result     a `kernels` JSON line, then the `ok` JSON line last
 Launch counts are zeroed just before each path (main, tsr, vsr, cascade) and
 read just after it; the paths before the cascade run the default routes and
-launch neither opt-in entry. Imports nothing of JAX or of the JAX package.
+launch no opt-in entry. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -67,6 +81,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense tensor-core bf16
+INT8_OPS = 1979e12  # dense tensor-core int8
 FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 
 # (S, head_dim) at B=2, H=8; F=16 on the base path, 61 on the TSR path
@@ -78,7 +93,9 @@ TEMPORAL_TOL, GEGLU_TOL, FLASH_TOL = 1e-2, 2e-2, 1e-2  # of max|plain|
 # VSR at 0.0246 (H100 80GB HBM3, 700 W)
 MODEL_TOL = {"model": 1e-1, "model_tsr": 4e-2, "model_vsr": 5e-2}
 TSR_STEPS = 50
-VSR_STEPS, VSR_FRAMES = 50, 8
+# the vsr phase's one cut: 10 steps (50 in a user's run), as the cascade's
+# option 4, to keep the script under half its time limit
+VSR_STEPS, VSR_FRAMES = 10, 8
 # VSR levels at one CFG half and one 8-frame window of 320x512 latents:
 # (positions per frame, channels)
 VSR_LEVELS = [(163840, 256), (40960, 512), (10240, 512), (2560, 1024)]
@@ -86,6 +103,10 @@ CROSS_TOL, TCONV_TOL = 2e-2, 1e-2  # of max|plain|
 STATS_TOL = 1e-2  # gn_silu_tconv's Σ, Σ², of max|plain|
 # the cascade phase's option 4: the one cut (50 VSR steps in a user's run)
 CASCADE_VSR_STEPS = 10
+# int8 turbo against bf16, relative L2 error of a random-init UNet's output:
+# the JAX package's own bound (tests/test_quant.py)
+TURBO_REL_TOL = 0.35
+TURBO_EXCLUDE = ("samplers", "up_blocks")
 
 
 def log(msg: str) -> None:
@@ -423,8 +444,8 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
 
 
 def launch_counters() -> dict:
-    """name → (wrapper, attribute holding its count); the stats variant of
-    gn_silu_tconv is counted on its own besides."""
+    """name → (wrapper, attribute holding its count); the stats and int8
+    variants of gn_silu_tconv are counted on their own besides."""
     from lavie_tpu_torch.kernels.cross_block import cross_attention_head, transformer_tail
     from lavie_tpu_torch.kernels.flash_attention import (
         flash_attention,
@@ -442,6 +463,7 @@ def launch_counters() -> dict:
            "temporal_attention_folded": temporal_attention_folded}
     counters = {name: (fn, "launches") for name, fn in fns.items()}
     counters["gn_silu_tconv_stats"] = (gn_silu_tconv, "stats_launches")
+    counters["gn_silu_tconv_int8"] = (gn_silu_tconv, "int8_launches")
     return counters
 
 
@@ -454,7 +476,7 @@ def read_launches() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
-OPT_IN = ("temporal_attention_folded", "gn_silu_tconv_stats")
+OPT_IN = ("temporal_attention_folded", "gn_silu_tconv_stats", "gn_silu_tconv_int8")
 
 
 def assert_default_routes(path: str, launches: dict) -> None:
@@ -822,6 +844,163 @@ def phase_ab(phase: str, cfg, frames: int, switch: str, tol: float, batch: int, 
     return row
 
 
+def turbo_tconv_sites(cfg, h: int, w: int, frames: int) -> tuple:
+    """(S, C) of each temporal module whose ResnetBlock3DCNN takes the int8
+    kernel in turbo, from the UNet's structure at h x w latents: (those in the
+    shared prefix, those in one CFG half). Down block i's module runs after
+    its downsampler, up block i's after its upsampler; the gate is the port's
+    (the JAX package's): equal widths of at least MIN_CHANNELS and the fused
+    gate for both convs."""
+    from lavie_tpu_torch.kernels.temporal_resblock import resblock_conv_supported
+    from lavie_tpu_torch.nn import quant
+
+    boc, n = cfg.block_out_channels, len(cfg.block_out_channels)
+    size = lambda lvl: (h >> lvl) * (w >> lvl)  # noqa: E731
+    down = [(size(min(i + 1, n - 1)), c) for i, c in enumerate(boc)]
+    rest = [(size(n - 1), boc[-1])] + [(size(max(n - 2 - i, 0)), c) for i, c in enumerate(reversed(boc))]
+    n_prefix = next(i for i, t in enumerate(cfg.down_block_types + ("",)) if t != "DownBlock3D")
+    ok = lambda s_, c: (c >= quant.MIN_CHANNELS  # noqa: E731
+                        and resblock_conv_supported(frames, s_, c, c, 5)
+                        and resblock_conv_supported(frames, s_, c, c, 3, with_res=True))
+    return ([x for x in down[:n_prefix] if ok(*x)],
+            [x for x in down[n_prefix:] + rest if ok(*x)])
+
+
+def phase_turbo_kernels() -> dict:
+    """The int8 variant of gn_silu_tconv at the VSR shapes where turbo runs
+    it (one CFG half, one window), against its plain version (exact integer
+    products), timed beside the float kernel at the same inputs; then
+    int8_conv2d at three shapes, its int32 product checked exactly on bands
+    of rows, timed beside cuDNN's bf16 conv."""
+    from lavie_tpu_torch.core.config import UNetConfig
+    from lavie_tpu_torch.kernels import temporal_resblock as tr
+    from lavie_tpu_torch.nn import quant
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    bf = lambda *shape, sd=1.0: (sd * torch.randn(*shape, generator=g, device="cuda")).bfloat16()  # noqa: E731
+    f32 = lambda *shape, sd=0.1, m=0.0: m + sd * torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    prefix, half = turbo_tconv_sites(UNetConfig.vsr(), 320, 512, VSR_FRAMES)
+    shapes = sorted(set(prefix + half), reverse=True)
+    rows = {"gn_silu_tconv_int8": [], "int8_conv2d": []}
+    for s, c in shapes:
+        for f in (VSR_FRAMES, 5):
+            for k, with_res in ((5, False), (3, True)):
+                stats = f == 5 and k == 5  # the tail's conv1 with its statistics
+                x = bf(1, f, s, c)
+                args = (x, f32(1, c, m=1.0), f32(1, c), bf(k, c, c, sd=c ** -0.5), f32(1, c),
+                        bf(1, f, s, c) if with_res else None)
+                kw = dict(quant="int8", emit_stats=stats)
+                got, want = tr.gn_silu_tconv(*args, **kw), tr.gn_silu_tconv_reference(*args, **kw)
+                if stats:
+                    torch.cuda.synchronize()
+                    sums_err = [(a - b_).abs().max().item() / b_.abs().max().item()
+                                for a, b_ in zip(got[1:], want[1:])]
+                    if max(sums_err) > STATS_TOL:
+                        raise AssertionError(f"int8 gn_silu_tconv sums at S={s} C={c}: {sums_err}")
+                    got, want = got[0], want[0]
+                n_bytes = (2 + with_res) * f * s * c * 2 + k * c * c + 3 * c * 4
+                blk = tr._pick_block(s, f, c, c, k, with_res, 2, "int8")
+                rows["gn_silu_tconv_int8"].append(check_row(
+                    "gn_silu_tconv (int8)",
+                    {"B": 1, "F": f, "S": s, "C": c, "O": c, "k": k, "residual": with_res,
+                     "emit_stats": stats, "scale_block": blk},
+                    got, want, TCONV_TOL, lambda: tr.gn_silu_tconv(*args, **kw),
+                    lambda: tr.gn_silu_tconv_reference(*args, **kw), None, n_bytes,
+                    ((2 * _valid_taps(f, k) * s * c * c, INT8_OPS),), plain_iters=1, iters=10,
+                    float_ms=time_ms(lambda: tr.gn_silu_tconv(*args, emit_stats=stats), 10)))
+                del x, args, got, want
+    torch.cuda.empty_cache()
+
+    # int8_conv2d: base L0 (2 CFG x 16 frames), VSR L0 (one 8-frame window),
+    # one f4-VAE frame at full resolution (decode_up's last level)
+    for name, (n, h, w, c) in (("base L0", (32, 40, 64, 320)), ("VSR L0", (8, 320, 512, 256)),
+                               ("VAE frame", (1, 1280, 2048, 128))):
+        x = bf(n, h, w, c)
+        weight, bias = bf(c, c, 3, 3, sd=(9 * c) ** -0.5), f32(c).bfloat16()
+        pad = ((1, 1), (1, 1))
+        xq, _ = quant.quantize(x)
+        wq, _ = quant.quantize(weight)
+        prod = quant.int_conv(xq, wq, (1, 1), pad)
+        # exact on 8 output rows at the top of the first sample and at the
+        # bottom of the last, each from its input rows and the zero padding
+        band = 8
+        top = quant.int_conv_reference(xq[:1, :band + 1], wq, (1, 1), ((1, 0), (1, 1)))
+        bottom = quant.int_conv_reference(xq[-1:, h - band - 1:], wq, (1, 1), ((0, 1), (1, 1)))
+        exact = (torch.equal(prod[:1, :band].double(), top)
+                 and torch.equal(prod[-1:, h - band:].double(), bottom))
+        x_nchw = x.permute(0, 3, 1, 2)  # channels_last memory, as InflatedConv hands cuDNN
+        run = lambda: quant.int8_conv2d(x, weight, bias, (1, 1), pad)  # noqa: E731
+        out = run()
+        ref = F.conv2d(x_nchw, weight, bias, padding=1).permute(0, 2, 3, 1)
+        rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        bound_ms, bound_by = bound(2 * n * h * w * c * 2 + 9 * c * c * 2,
+                                   ((2 * n * h * w * 9 * c * c, INT8_OPS),))
+        row = {"kernel": "int8_conv2d", "shape": {"where": name, "N": n, "H": h, "W": w, "C": c, "O": c},
+               "product_exact": exact, "rel_err_vs_bf16": rel,
+               "ms": time_ms(run, 5, 2), "product_ms": time_ms(lambda: quant.int_conv(xq, wq, (1, 1), pad), 5, 2),
+               "library_ms": time_ms(lambda: F.conv2d(x_nchw, weight, bias, padding=1), 10),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "im2col_bytes": n * h * w * 9 * c}
+        log(json.dumps(row))
+        rows["int8_conv2d"].append(row)
+        if not (exact and bool(torch.isfinite(out).all()) and rel < 0.05):
+            raise AssertionError(f"int8_conv2d at {name}: exact {exact}, rel err {rel}")
+        del x, xq, prod, out, ref, x_nchw
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_ab_turbo(phase: str, cfg, frames: int, batch: int, h: int, w: int, ctx_dim: int) -> dict:
+    """One full-width UNet forward, same weights and inputs, with conv_quant
+    "none", "int8" with LAVIE_TRESBLOCK_INT8=1, and "int8" excluding
+    TURBO_EXCLUDE (switch set): device ms (CUDA events, after one warm-up
+    each) and the relative L2 error of each turbo output against bf16."""
+    from lavie_tpu_torch.nn import quant
+    from lavie_tpu_torch.nn.unet import UNet3D
+    from lavie_tpu_torch.pipelines.t2v import random_init_
+
+    with torch.device("cuda"):
+        unet = UNet3D(cfg).to(torch.bfloat16).eval()
+    random_init_(unet, seed=7)
+    x, ts, ctx, labels = unet_inputs(cfg, batch, frames, h, w, ctx_dim, seed=3, t=981.0)
+    prefix, half = turbo_tconv_sites(cfg, h, w, frames) if cfg.use_temporal_modules else ([], [])
+    want_int8 = 2 * (len(prefix) + len(half))  # one whole forward
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    row = {"phase": phase, "shape": list(x.shape), "runs": []}
+    outs = {}
+    with torch.no_grad():
+        for name, mode, exclude in (("bf16", "none", ()), ("int8", "int8", ()),
+                                    ("int8_excluding", "int8", TURBO_EXCLUDE)):
+            quant.configure(unet, mode, exclude)
+            with env(LAVIE_TRESBLOCK_INT8="1" if mode == "int8" else None):
+                unet(x, ts, ctx, labels)
+                zero_launches()
+                torch.cuda.synchronize()
+                start.record()
+                out = unet(x, ts, ctx, labels)
+                end.record()
+                torch.cuda.synchronize()
+                launches = read_launches()
+            outs[name] = out.float()
+            run = {"conv_quant": mode, "exclude": list(exclude), "device_ms": start.elapsed_time(end),
+                   "gn_silu_tconv_int8": launches["gn_silu_tconv_int8"]}
+            if name != "bf16":
+                run["rel_err_vs_bf16"] = ((outs[name] - outs["bf16"]).norm() / outs["bf16"].norm()).item()
+            row["runs"].append(run)
+            if launches["gn_silu_tconv_int8"] != (want_int8 if mode == "int8" else 0):
+                raise AssertionError(f"{phase} {name}: {launches['gn_silu_tconv_int8']} int8 tconv "
+                                     f"launches, expected {want_int8 if mode == 'int8' else 0}")
+    log(json.dumps(row))
+    for run in row["runs"][1:]:
+        if not 0.0 < run["rel_err_vs_bf16"] < TURBO_REL_TOL:
+            raise AssertionError(f"{phase}: turbo vs bf16 {run['rel_err_vs_bf16']} not in (0, {TURBO_REL_TOL})")
+    if not all(bool(torch.isfinite(o).all()) for o in outs.values()):
+        raise AssertionError(f"{phase}: non-finite output")
+    del unet, outs
+    torch.cuda.empty_cache()
+    return row
+
+
 class TimedStage:
     """Wraps one stage pipeline of the cascade: times each call (host clock,
     synchronised) and records the launches made within it and the shape of
@@ -847,9 +1026,11 @@ class TimedStage:
         return out
 
 
-def expected_stage_launches(stage: str, steps: int, folded: bool, stats: bool, windows: int = 1) -> dict:
+def expected_stage_launches(stage: str, steps: int, folded: bool, stats: bool, windows: int = 1,
+                            int8_per_step: int = 0) -> dict:
     """Exact launches of one cascade stage (per forward counts as the main,
-    tsr and vsr phases hold them)."""
+    tsr and vsr phases hold them); `int8_per_step`: the int8 temporal convs
+    of one VSR step over all windows (turbo_tconv_sites)."""
     n = dict.fromkeys(launch_counters(), 0)
     temporal = "temporal_attention_folded" if folded else "temporal_attention"
     if stage == "base":  # 16 transformer blocks per CFG-batched forward
@@ -864,40 +1045,43 @@ def expected_stage_launches(stage: str, steps: int, folded: bool, stats: bool, w
                   "geglu": 12 * steps * windows})
         if stats:
             n["gn_silu_tconv_stats"] = 49 * steps * windows
+        n["gn_silu_tconv_int8"] = int8_per_step * steps
     return n
 
 
 def phase_cascade() -> dict:
-    """The serving entry point at full width: Predictor().setup() once; then
+    """The serving entry point at full width: Predictor().setup() once and
     predict(...) for option 2 (16 → 61 frames at 320x512, 50 DDPM base
-    steps, 50 DDIM TSR steps), which writes its file; then the cascade
-    pipeline for option 4 (16x320x512 → 61x320x512 → 61x1280x2048: seven VSR
-    windows of 8 and a tail of 5) with LAVIE_TRESBLOCK_STATS=1 and
-    LAVIE_TEMPORAL_KERNEL=1, its video not written. Stage seconds come from
+    steps, 50 DDIM TSR steps), which writes its file; then, that predictor
+    freed, a second one in turbo, Predictor().setup(conv_quant="int8"), and
+    its cascade pipeline for option 4 (16x320x512 → 61x320x512 →
+    61x1280x2048: seven VSR windows of 8 and a tail of 5) with
+    LAVIE_TRESBLOCK_STATS=1, LAVIE_TEMPORAL_KERNEL=1 and
+    LAVIE_TRESBLOCK_INT8=1, its video not written. Stage seconds come from
     wrapping each stage here (TimedStage)."""
+    from lavie_tpu_torch.core.config import UNetConfig
     from lavie_tpu_torch.serve import Predictor
 
-    t0 = time.time()
-    predictor = Predictor()
-    predictor.setup()  # full width, bf16, on the card, seeded random weights
-    torch.cuda.synchronize()
-    log(f"[cascade] setup {time.time() - t0:.1f} s")
-    cascade = predictor.pipeline
-    stages = [TimedStage("base", cascade.base), TimedStage("interpolation", cascade.interpolation),
-              TimedStage("vsr", cascade.vsr)]
-    cascade.base, cascade.interpolation, cascade.vsr = stages
     prompt = "a teddy bear walking on the street, 2k, high quality"
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cascade")
     os.makedirs(out_dir, exist_ok=True)
     launches = dict.fromkeys(launch_counters(), 0)
-    for option, switches in ((2, {}), (4, {"LAVIE_TRESBLOCK_STATS": "1", "LAVIE_TEMPORAL_KERNEL": "1"})):
-        for st in stages:
-            st.calls.clear()
+    switches = {"LAVIE_TRESBLOCK_STATS": "1", "LAVIE_TEMPORAL_KERNEL": "1", "LAVIE_TRESBLOCK_INT8": "1"}
+    for option, conv_quant, on in ((2, "none", {}), (4, "int8", switches)):
+        t0 = time.time()
+        predictor = Predictor()
+        predictor.setup(conv_quant=conv_quant)  # full width, bf16, on the card, seeded random weights
+        torch.cuda.synchronize()
+        log(f"[cascade] setup (conv_quant {conv_quant}) {time.time() - t0:.1f} s")
+        cascade = predictor.pipeline
+        stages = [TimedStage("base", cascade.base), TimedStage("interpolation", cascade.interpolation),
+                  TimedStage("vsr", cascade.vsr)]
+        cascade.base, cascade.interpolation, cascade.vsr = stages
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         torch.cuda.synchronize()
         t0 = time.time()
-        with env(**switches):
+        with env(**on):
             if option == 2:
                 path = predictor.predict(prompt, output_path=os.path.join(out_dir, "option2.mp4"),
                                          seed=0, interpolation=True, super_resolution=False)
@@ -916,20 +1100,27 @@ def phase_cascade() -> dict:
         got = read_launches()
         calls = [c for st in stages for c in st.calls]
         want_shape = [TSR_FRAMES, 320, 512, 3] if option == 2 else [TSR_FRAMES, 1280, 2048, 3]
-        row = {"phase": "cascade", "option": option, "switches": switches, "seconds": secs,
-               "stages": calls, "shape": video_shape, "dtype": "uint8", "written": path,
-               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": got}
+        row = {"phase": "cascade", "option": option, "conv_quant": conv_quant, "switches": on,
+               "seconds": secs, "stages": calls, "shape": video_shape, "dtype": "uint8",
+               "written": path, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": got}
         if option == 4:
             row["cut"] = {"vsr_steps": CASCADE_VSR_STEPS}
         log(json.dumps(row))
         if not ok or video_shape != want_shape:
             raise AssertionError(f"cascade option {option}: bad output {video_shape} (ok={ok})")
         folded = stats = option == 4
-        windows = -(-TSR_FRAMES // VSR_FRAMES)
+        frames = [VSR_FRAMES] * (TSR_FRAMES // VSR_FRAMES) + [TSR_FRAMES % VSR_FRAMES]
+        int8_per_step = 0
+        if conv_quant == "int8":  # the shared prefix once and both CFG halves, every window
+            for f in frames:
+                prefix, half = turbo_tconv_sites(UNetConfig.vsr(), 320, 512, f)
+                int8_per_step += 2 * len(prefix) + 2 * 2 * len(half)
         want = {"base": expected_stage_launches("base", 50, folded, stats),
                 "interpolation": expected_stage_launches("interpolation", TSR_STEPS, folded, stats)}
         if option == 4:
-            want["vsr"] = expected_stage_launches("vsr", CASCADE_VSR_STEPS, folded, stats, windows)
+            want["vsr"] = expected_stage_launches("vsr", CASCADE_VSR_STEPS, folded, stats, len(frames),
+                                                  int8_per_step)
         if [c["stage"] for c in calls] != list(want):
             raise AssertionError(f"cascade option {option} ran stages {[c['stage'] for c in calls]}")
         for c in calls:
@@ -938,10 +1129,10 @@ def phase_cascade() -> dict:
                                      f"expected {want[c['stage']]}")
         for name in got:
             launches[name] += got[name]
-    if not (launches["temporal_attention_folded"] and launches["gn_silu_tconv_stats"]):
-        raise AssertionError("the opt-in entries were not launched on the cascade path")
-    del predictor, cascade, stages
-    torch.cuda.empty_cache()
+        del predictor, cascade, stages
+        torch.cuda.empty_cache()
+    if not all(launches[name] for name in OPT_IN):
+        raise AssertionError("the opt-in entries were not all launched on the cascade path")
     return launches
 
 
@@ -980,6 +1171,10 @@ def main() -> int:
              batch=1, h=320, w=512, ctx_dim=1024)
     phase_ab("ab_base", UNetConfig.base_t2v(), 16, "LAVIE_TEMPORAL_KERNEL", MODEL_TOL["model"],
              batch=2, h=40, w=64, ctx_dim=768)
+    # the int8 turbo mode: its pieces, then each UNet in the three settings
+    turbo_rows = phase_turbo_kernels()
+    phase_ab_turbo("ab_turbo_vsr", UNetConfig.vsr(), VSR_FRAMES, batch=1, h=320, w=512, ctx_dim=1024)
+    phase_ab_turbo("ab_turbo_base", UNetConfig.base_t2v(), 16, batch=2, h=40, w=64, ctx_dim=768)
     cascade_launches = phase_cascade()
 
     def entry(name, source, replaces, row, note=None, counter=None):
@@ -1006,6 +1201,14 @@ def main() -> int:
         "ms_without_stats": stats_row["ms_without_stats"],
         "groupnorm_affine_ms": stats_row["groupnorm_affine_ms"],
         "sums_err_of_max": stats_row["sums_err_of_max"]}
+    int8_row = turbo_rows["gn_silu_tconv_int8"][0]  # the largest shape, F=8, k=5
+    tconv["int8_variant"] = {
+        **entry("gn_silu_tconv (int8)", tconv["source"], "lavie_tpu/kernels/temporal_resblock.py:306",
+                int8_row, counter="gn_silu_tconv_int8",
+                note="quant=\"int8\" of gn_silu_tconv_sfc (_kernel_sfc :182-209), entry "
+                     "gn_silu_tconv_int8_bf16; turbo (LAVIE_TRESBLOCK_INT8=1 with conv_quant int8): "
+                     "launched on the cascade path only"),
+        "float_ms": int8_row["float_ms"]}
     # per-kernel numbers are those of each kernel's L0 shape on its first path
     log(json.dumps({"kernels": [
         entry("temporal_attention", "lavie_tpu_torch/csrc/temporal_fused.cu",

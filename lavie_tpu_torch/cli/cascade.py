@@ -9,9 +9,11 @@ video_length, image_size, num_sampling_steps, guidance_scale,
 sample_method, interpolation, super_resolution, seed, fps, conv_quant,
 conv_quant_exclude) and writes one video per prompt. No checkpoint loader
 is ported yet, so the models carry seeded random weights; a config that
-asks for checkpoints (`ckpt_dir`, as `Predictor.setup` names them), a mesh
-or int8 convs is refused with NotImplementedError rather than run without
-them. `--device` defaults to the GPU.
+asks for checkpoints (`ckpt_dir`, as `Predictor.setup` names them) or a
+mesh is refused with NotImplementedError rather than run without them.
+`conv_quant: int8` turns on the int8 turbo convs in every stage
+(`conv_quant_exclude`: comma-separated patterns, "VAE" keeps the codecs
+exact). `--device` defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import argparse
 import os
 import sys
 
-from lavie_tpu_torch.core.config import load_yaml_config
+from lavie_tpu_torch.core.config import load_yaml_config, yaml_conv_quant
 from lavie_tpu_torch.io.video import write_video
 from lavie_tpu_torch.pipelines.cascade import VideoCascadePipeline
 
@@ -32,11 +34,10 @@ def build_pipeline(cfg: dict, device: str = "cuda") -> VideoCascadePipeline:
     tiny = cfg.get("model_scale", "full") == "tiny"
     if tiny:
         print("[lavie_tpu_torch] tiny cascade (random weights, smoke mode)", file=sys.stderr)
+    conv_quant, conv_quant_exclude = yaml_conv_quant(cfg)
     return VideoCascadePipeline.init_random(
-        cfg.get("seed") or 0, tiny=tiny,
-        conv_quant=str(cfg.get("conv_quant", "none")),
-        conv_quant_exclude=tuple(p for p in str(cfg.get("conv_quant_exclude", "")).split(",") if p),
-        device=device,
+        cfg.get("seed") or 0, tiny=tiny, conv_quant=conv_quant,
+        conv_quant_exclude=conv_quant_exclude, device=device,
     )
 
 

@@ -5,10 +5,10 @@
 reads the same YAML keys (the reference's `args:` block: input_folder,
 output_folder, model_scale, num_frames, num_sampling_steps, guidance_scale,
 use_ddim_sample_loop, additional_prompt, negative_prompt, mask_type, seed,
-fps), interpolates every .mp4/.npy/.gif/.avi video in input_folder to 61
-frames and writes it at the configured fps. No checkpoint loader is ported
-yet, so the models carry seeded random weights; `--device` defaults to the
-GPU.
+fps, conv_quant, conv_quant_exclude), interpolates every .mp4/.npy/.gif/.avi
+video in input_folder to 61 frames and writes it at the configured fps. No
+checkpoint loader is ported yet, so the models carry seeded random weights;
+`--device` defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -26,19 +26,21 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
+    with_conv_quant,
+    yaml_conv_quant,
 )
 from lavie_tpu_torch.io.video import read_video, write_video
 from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> VideoInterpolationPipeline:
-    if str(cfg.get("conv_quant", "none")) != "none":
-        raise NotImplementedError("conv_quant (int8 convs) is not ported yet")
     use_mask = bool(cfg.get("mask_type")) or cfg.get("use_mask", False)
     unet_cfg = UNetConfig.interpolation(use_mask=use_mask)
     vae_cfg, text_cfg = VAEConfig.sd(), CLIPTextConfig.vit_l()
     if cfg.get("model_scale", "full") == "tiny":
         unet_cfg, vae_cfg, text_cfg = unet_cfg.tiny(), vae_cfg.tiny(), text_cfg.tiny()
+    quant = yaml_conv_quant(cfg)
+    unet_cfg, vae_cfg = with_conv_quant(unet_cfg, *quant), with_conv_quant(vae_cfg, *quant)
     sampling = SamplingConfig(
         video_length=cfg.get("num_frames", 61),
         num_inference_steps=cfg.get("num_sampling_steps", 50),

@@ -4,8 +4,9 @@
 
 reads the same YAML keys (text_prompt, image_size, video_length, beta
 schedule, sample_method, num_sampling_steps, guidance_scale, seed, fps,
-output_folder, model_scale). No checkpoint loader is ported yet, so the
-models carry seeded random weights; `--device` defaults to the GPU.
+output_folder, model_scale, conv_quant, conv_quant_exclude). No checkpoint
+loader is ported yet, so the models carry seeded random weights; `--device`
+defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
+    with_conv_quant,
+    yaml_conv_quant,
 )
 from lavie_tpu_torch.io.video import write_video
 from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
@@ -43,11 +46,11 @@ def build_pipeline(cfg: dict, device: str = "cuda") -> TextToVideoPipeline:
         clip_sample=cfg.get("clip_sample", True),
         set_alpha_to_one=cfg.get("set_alpha_to_one", False),
     )
-    if str(cfg.get("conv_quant", "none")) != "none":
-        raise NotImplementedError("conv_quant (int8 convs) is not ported yet")
     unet_cfg, vae_cfg, text_cfg = UNetConfig.base_t2v(), VAEConfig.sd(), CLIPTextConfig.vit_l()
     if cfg.get("model_scale", "full") == "tiny":
         unet_cfg, vae_cfg, text_cfg = unet_cfg.tiny(), vae_cfg.tiny(), text_cfg.tiny()
+    quant = yaml_conv_quant(cfg)
+    unet_cfg, vae_cfg = with_conv_quant(unet_cfg, *quant), with_conv_quant(vae_cfg, *quant)
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
     print("[lavie_tpu_torch] running with seeded random weights (outputs are noise)",
           file=sys.stderr)

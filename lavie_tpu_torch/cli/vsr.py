@@ -4,9 +4,9 @@
 
 reads the same YAML keys (input_path, output_path, model_scale,
 noise_level, guidance_scale, inference_steps, negative_prompt, window, fps,
-conv_quant) and upscales every .mp4/.npy/.gif/.avi video in input_path ×4.
-No checkpoint loader is ported yet, so the models carry seeded random
-weights; `--device` defaults to the GPU.
+conv_quant, conv_quant_exclude) and upscales every .mp4/.npy/.gif/.avi video
+in input_path ×4. No checkpoint loader is ported yet, so the models carry
+seeded random weights; `--device` defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -25,17 +25,19 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
+    with_conv_quant,
+    yaml_conv_quant,
 )
 from lavie_tpu_torch.io.video import read_video, write_video
 from lavie_tpu_torch.pipelines.vsr import VideoSuperResolutionPipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> VideoSuperResolutionPipeline:
-    if str(cfg.get("conv_quant", "none")) != "none":
-        raise NotImplementedError("conv_quant (int8 convs) is not ported yet")
     unet_cfg, vae_cfg, text_cfg = UNetConfig.vsr(), VAEConfig.vsr(), CLIPTextConfig.open_clip_h()
     if cfg.get("model_scale", "full") == "tiny":
         unet_cfg, vae_cfg, text_cfg = unet_cfg.tiny(), vae_cfg.tiny(), text_cfg.tiny()
+    quant = yaml_conv_quant(cfg)
+    unet_cfg, vae_cfg = with_conv_quant(unet_cfg, *quant), with_conv_quant(vae_cfg, *quant)
     sampling = SamplingConfig.vsr()
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
     print("[lavie_tpu_torch] no VSR checkpoint loader yet: running with seeded random "

@@ -11,7 +11,7 @@ vsr/configs/sample.yaml).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Optional, Sequence, Tuple, Union
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,6 +46,12 @@ class UNetConfig:
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
     mid_block_scale_factor: float = 1.0
+    # Opt-in int8 turbo convs ("none" | "int8", nn/quant.py): outside the
+    # parity contract, off by default.
+    conv_quant: str = "none"
+    # substrings of a conv's JAX module path that keep it exact in int8 mode
+    # (selective quantisation, e.g. ("samplers", "up_blocks"))
+    conv_quant_exclude: Tuple[str, ...] = ()
     # "self": spatial self-attention (base); "sparse_causal": each frame's
     # k/v are frames {0, i-1} (interpolation; reference
     # interpolation/models/attention.py:609-665)
@@ -157,6 +163,9 @@ class VAEConfig:
     norm_num_groups: int = 32
     scaling_factor: float = 0.18215
     mid_block_attention: bool = True
+    # opt-in int8 turbo for the codec's wide 3×3 convs (see UNetConfig)
+    conv_quant: str = "none"
+    conv_quant_exclude: Tuple[str, ...] = ()
 
     @property
     def downscale_factor(self) -> int:
@@ -261,6 +270,26 @@ class SamplingConfig:
         vsr/sample.py:49-53)."""
         return cls(num_inference_steps=50, guidance_scale=5.0, sample_method="ddim",
                    prediction_type="v_prediction", clip_sample=False)
+
+
+def with_conv_quant(cfg, mode: str = "none", exclude: Sequence[str] = ()):
+    """A UNetConfig or VAEConfig with the int8 turbo keys set as the JAX
+    package's CLIs and cascade set them: mode "none" leaves cfg as it is;
+    "VAE" in `exclude` keeps the VAE exact and is not handed on as a
+    pattern (lavie_tpu/pipelines/cascade.py's mk)."""
+    if mode == "none":
+        return cfg
+    if isinstance(cfg, VAEConfig) and "VAE" in exclude:
+        mode = "none"
+    return dataclasses.replace(cfg, conv_quant=mode,
+                               conv_quant_exclude=tuple(p for p in exclude if p != "VAE"))
+
+
+def yaml_conv_quant(cfg: dict) -> Tuple[str, Tuple[str, ...]]:
+    """(conv_quant, conv_quant_exclude) from a CLI's YAML keys: the mode, and
+    the patterns comma-separated (lavie_tpu/cli/sample.py's surface)."""
+    exclude = tuple(p for p in str(cfg.get("conv_quant_exclude", "")).split(",") if p)
+    return str(cfg.get("conv_quant", "none")), exclude
 
 
 def load_yaml_config(path: str) -> dict:

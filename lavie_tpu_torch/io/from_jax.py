@@ -68,6 +68,29 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     return f"{name}.{suffix}" if name else suffix
 
 
+# the inverse of the VAE's entries of _REGEX_SPECIAL, on module names
+_VAE_MODULE_PATHS = [
+    (re.compile(r"down_blocks\.(\d+)\.downsamplers\.0\.conv$"), r"down_blocks_\1_downsample"),
+    (re.compile(r"up_blocks\.(\d+)\.upsamplers\.0\.conv$"), r"up_blocks_\1_upsample"),
+    (re.compile(r"(down|up)_blocks\.(\d+)\.resnets\.(\d+)"), r"\1_blocks_\2_resnets_\3"),
+    (re.compile(r"mid_block\.resnets\.(\d+)"), r"mid_resnet_\1"),
+    (re.compile(r"mid_block\.attentions\.0"), r"mid_attn"),
+]
+
+
+def flax_module_path(name: str) -> str:
+    """A port module's name → the JAX package's flax module path of the same
+    module, "a/b/c": 'down_blocks.0.resnets.1.conv1' →
+    'down_blocks_0/resnets_1/conv1' in the UNet; in the VAE (names under
+    'encoder.' or 'decoder.') the flat JAX names, 'decoder.up_blocks.0.
+    upsamplers.0.conv' → 'decoder/up_blocks_0_upsample'. These are the
+    strings the int8 exclude patterns match (nn/quant.py)."""
+    if name.split(".")[0] in ("encoder", "decoder"):
+        for pat, repl in _VAE_MODULE_PATHS:
+            name = pat.sub(repl, name)
+    return re.sub(r"\.(\d+)(?=\.|$)", r"_\1", name).replace(".", "/")
+
+
 def flax_tensor_to_torch(value: np.ndarray, leaf: str) -> np.ndarray:
     v = np.asarray(value)
     if leaf == "kernel":

@@ -11,20 +11,32 @@ frame-major CUDA kernel (csrc/temporal_resblock.cu) replaces both. GroupNorm
 statistics are folded outside into the per-(batch, channel) fp32 affine
 (w, u); the conv bias is fp32 and may carry a folded time embedding; the
 residual is added in the fp32 accumulator. w ⊙ x + u is computed in the
-input dtype, SiLU in fp32 rounded to the input dtype; frames outside [0, F)
+input dtype, the product and the sum each rounded, SiLU in fp32 rounded to
+the input dtype; frames outside [0, F)
 contribute nothing (the zero padding is of the activated input). With
 emit_stats the function also returns per-(batch, output channel) Σ y and
 Σ y² over (F, S), in fp32, of y as stored (rounded to its dtype): a
-following GroupNorm's moments without a second read of y. The int8 variant
-of the Pallas kernel (quant="int8") is not ported.
+following GroupNorm's moments without a second read of y.
+
+quant="int8" is the int8 variant of `_kernel_sfc` (the JAX package's turbo
+mode): act is quantised to int8 with one symmetric scale per (batch, block
+of `block` positions), a_scale = max(max|act|, 1e-12) / 127 over all F
+frames, C and the block's rows, so that the k taps accumulate in int32;
+q = clip(round_half_even(act · (1 / a_scale)), ±127). The taps are
+quantised per output channel over (k, C) (quantize_taps). y = iacc ·
+(a_scale · w_scale) + bias (+ residual) in fp32. `block` defaults to the
+JAX package's own choice, _pick_block(..., "int8").
 
 The taps are (k, O, C): W[j] is tap j's (O, C) matrix, nn.Linear layout.
 
   gn_silu_tconv            the wrapper: the CUDA kernel for a CUDA tensor,
                            the plain version for a CPU tensor; `launches`
                            counts every launch, `stats_launches` those with
-                           emit_stats
-  gn_silu_tconv_reference  the plain PyTorch version (fp32 products and sums)
+                           emit_stats, `int8_launches` those with quant="int8"
+  gn_silu_tconv_reference  the plain PyTorch version (fp32 products and sums;
+                           the int8 products exact, in fp64)
+  resblock_conv_supported  the JAX package's gate of the fused kernel, which
+                           also gates its int8 variant
 """
 
 from __future__ import annotations
@@ -36,20 +48,72 @@ import torch
 import torch.nn.functional as F
 
 from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.nn.quant import quantize
 
 
 ACTIVATIONS = ("silu", "none")
+QUANTS = ("none", "int8")
+
+# The JAX package's VMEM budget (lavie_tpu/kernels/temporal_resblock.py).
+# It picks the Pallas kernel's token block, which in the int8 variant is the
+# extent of one activation scale, so it is part of the function computed.
+_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def _pick_block(s: int, frames: int, cin: int, cout: int, ktaps: int, with_res: bool,
+                itemsize: int = 2, quant: str = "none") -> int:
+    """The JAX package's token block: the largest power of 2 from 512 down
+    to 128 that divides S and whose VMEM estimate fits, else 0."""
+    blk = 512
+    while blk >= 128:
+        if s % blk == 0:
+            est = (frames * blk * cin * itemsize * 2
+                   + frames * blk * cout * itemsize
+                   + (frames * blk * cout * itemsize if with_res else 0)
+                   + (frames * blk * cin if quant == "int8" else 0)
+                   + ktaps * cin * cout * itemsize
+                   + blk * cout * 4)
+            if est <= _VMEM_BUDGET:
+                return blk
+        blk //= 2
+    return 0
+
+
+def resblock_conv_supported(frames: int, s: int, cin: int, cout: int, ktaps: int,
+                            with_res: bool = False, itemsize: int = 2) -> bool:
+    """The JAX package's gate of its fused kernel: channels multiples of
+    128, 2 ≤ F ≤ 32, and a token block that fits."""
+    return (cin % 128 == 0 and cout % 128 == 0 and 2 <= frames <= 32
+            and _pick_block(s, frames, cin, cout, ktaps, with_res, itemsize) >= 128)
+
+
+def quantize_taps(weight: torch.Tensor):
+    """(k, O, C) taps → (int8 taps (k, O, C), fp32 scales (O,)): nn/quant.py's
+    symmetric quantisation with one scale per output channel over (k, C)."""
+    q, scale = quantize(weight.transpose(0, 1))
+    return q.transpose(0, 1).contiguous(), scale.view(-1)
+
+
+def _scale_block(block: Optional[int], x: torch.Tensor, o: int, k: int, with_res: bool) -> int:
+    s, f, c = x.shape[2], x.shape[1], x.shape[3]
+    blk = block or _pick_block(s, f, c, o, k, with_res, x.element_size(), "int8")
+    if blk <= 0:
+        raise ValueError(f"gn_silu_tconv int8: no token block for S={s}, F={f}, C={c}, O={o}, k={k}")
+    return blk
 
 
 def gn_silu_tconv_reference(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.Tensor],
                             weight: torch.Tensor, bias: torch.Tensor,
                             residual: Optional[torch.Tensor] = None, *, activation: str = "silu",
-                            emit_stats: bool = False):
+                            emit_stats: bool = False, quant: str = "none",
+                            block: Optional[int] = None):
     """x (B, F, S, C); w, u (B, C) (None with activation "none"); weight
     (k, O, C); bias (B, O); residual (B, F, S, O). Returns y, or (y, Σy, Σy²)
     with emit_stats."""
     if activation not in ACTIVATIONS:
         raise ValueError(f"gn_silu_tconv: activation {activation!r} not in {ACTIVATIONS}")
+    if quant not in QUANTS:
+        raise ValueError(f"gn_silu_tconv: quant {quant!r} not in {QUANTS}")
     b, f, s, _ = x.shape
     k, o = weight.shape[0], weight.shape[1]
     if activation == "silu":
@@ -57,13 +121,27 @@ def gn_silu_tconv_reference(x: torch.Tensor, w: Optional[torch.Tensor], u: Optio
         act = F.silu(act.float()).to(x.dtype).float()
     else:
         act = x.float()
-    acc = bias.float()[:, None, None].expand(b, f, s, o).clone()
-    pad = k // 2
-    for j in range(k):
-        shift = j - pad  # out[f] += act[f + shift] · W[j]ᵀ
-        lo, hi = max(0, -shift), min(f, f - shift)
-        if lo < hi:
-            acc[:, lo:hi] += act[:, lo + shift:hi + shift] @ weight[j].float().t()
+    def taps_into(acc, a, wt):
+        for j in range(k):
+            shift = j - k // 2  # out[f] += a[f + shift] · W[j]ᵀ
+            lo, hi = max(0, -shift), min(f, f - shift)
+            if lo < hi:
+                acc[:, lo:hi] += a[:, lo + shift:hi + shift] @ wt[j].t()
+        return acc
+
+    if quant == "int8":
+        blk = _scale_block(block, x, o, k, residual is not None)
+        nblk = -(-s // blk)
+        amax = F.pad(act.abs(), (0, 0, 0, nblk * blk - s)).view(b, f, nblk, blk, -1).amax(dim=(1, 3, 4))
+        a_scale = amax.clamp_min(1e-12) / 127.0  # (B, nblk)
+        rows = lambda t: t.repeat_interleave(blk, dim=1)[:, None, :s, None]  # noqa: E731  (B,1,S,1)
+        q = torch.round(act * rows(1.0 / a_scale)).clamp_(-127.0, 127.0).double()
+        wq, w_scale = quantize_taps(weight)
+        # fp64 holds the int32 sums exactly
+        iacc = taps_into(torch.zeros((b, f, s, o), dtype=torch.float64, device=x.device), q, wq.double())
+        acc = iacc.float() * (rows(a_scale) * w_scale) + bias.float()[:, None, None]
+    else:
+        acc = taps_into(bias.float()[:, None, None].expand(b, f, s, o).clone(), act, weight.float())
     if residual is not None:
         acc += residual.float()
     y = acc.to(x.dtype)
@@ -75,21 +153,24 @@ def gn_silu_tconv_reference(x: torch.Tensor, w: Optional[torch.Tensor], u: Optio
 
 def gn_silu_tconv(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.Tensor],
                   weight: torch.Tensor, bias: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                  *, activation: str = "silu", emit_stats: bool = False):
+                  *, activation: str = "silu", emit_stats: bool = False, quant: str = "none",
+                  block: Optional[int] = None):
     """(B, F, S, C) → (B, F, S, O), or (y, Σy, Σy²) with emit_stats, the
     sums (B, O) fp32. On a CUDA tensor this launches the kernel, or raises
     for what it does not take (x, taps or residual not bf16, w/u/bias not
-    fp32, C not a multiple of 32, O not a multiple of 128, C above 1024,
-    even k or k > 7, non-contiguous or misaligned tensors)."""
+    fp32, C not a multiple of 32 (of 64 with int8), O not a multiple of 128,
+    C above 1024, even k or k > 7, non-contiguous or misaligned tensors)."""
     if x.device.type == "cpu":
         return gn_silu_tconv_reference(x, w, u, weight, bias, residual, activation=activation,
-                                       emit_stats=emit_stats)
+                                       emit_stats=emit_stats, quant=quant, block=block)
     name = "gn_silu_tconv"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if activation not in ACTIVATIONS:
         raise ValueError(f"{name}: activation {activation!r} not in {ACTIVATIONS}")
-    silu = activation == "silu"
+    if quant not in QUANTS:
+        raise ValueError(f"{name}: quant {quant!r} not in {QUANTS}")
+    silu, int8 = activation == "silu", quant == "int8"
     if x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16 or (
             residual is not None and residual.dtype != torch.bfloat16):
         raise TypeError(f"{name} kernel takes bf16 x, taps and residual")
@@ -103,16 +184,13 @@ def gn_silu_tconv(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.
     if weight.shape != (k, o, c) or any(t.shape != (b, c) for t in norm) or \
             bias.shape != (b, o) or (residual is not None and residual.shape != (b, f, s, o)):
         raise ValueError(f"{name}: shapes x {tuple(x.shape)}, taps {tuple(weight.shape)}")
-    if c % 32 or c > 1024 or o % 128 or k % 2 == 0 or k > 7:
-        raise ValueError(f"{name} kernel: C={c} must be a multiple of 32 up to 1024, O={o} a "
-                         f"multiple of 128, k={k} odd and at most 7")
+    if c % (64 if int8 else 32) or c > 1024 or o % 128 or k % 2 == 0 or k > 7:
+        raise ValueError(f"{name} kernel: C={c} must be a multiple of {64 if int8 else 32} up to "
+                         f"1024, O={o} a multiple of 128, k={k} odd and at most 7")
     tensors = [t for t in (x, *norm, weight, bias, residual) if t is not None]
     if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned tensors on one device")
     lib = _build.load("temporal_resblock")
-    fn = lib.gn_silu_tconv_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
     out = torch.empty((b, f, s, o), device=x.device, dtype=x.dtype)
     ws = s1 = s2 = None
     if emit_stats:
@@ -122,11 +200,27 @@ def gn_silu_tconv(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.
         ws = torch.empty(size(b, f, s, o), device=x.device, dtype=torch.float32)
         s1, s2 = (torch.empty((b, o), device=x.device, dtype=torch.float32) for _ in range(2))
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    err = fn(x.data_ptr(), ptr(w) if silu else None, ptr(u) if silu else None, weight.data_ptr(),
-             bias.data_ptr(), ptr(residual), out.data_ptr(), b, f, s, c, o, k, int(silu),
-             ptr(ws), ptr(s1), ptr(s2), torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    head = (x.data_ptr(), ptr(w) if silu else None, ptr(u) if silu else None)
+    dims = (b, f, s, c, o, k, int(silu))
+    if int8:
+        blk = _scale_block(block, x, o, k, residual is not None)
+        wq, w_scale = quantize_taps(weight)
+        scales = torch.empty((b, -(-s // blk), 2), device=x.device, dtype=torch.float32)
+        fn = lib.gn_silu_tconv_int8_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
+        err = fn(*head, wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), ptr(residual),
+                 out.data_ptr(), *dims, blk, scales.data_ptr(), ptr(ws), ptr(s1), ptr(s2), stream)
+    else:
+        fn = lib.gn_silu_tconv_bf16
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
+        err = fn(*head, weight.data_ptr(), bias.data_ptr(), ptr(residual), out.data_ptr(), *dims,
+                 ptr(ws), ptr(s1), ptr(s2), stream)
     _build.check(err, name)
     gn_silu_tconv.launches += 1
+    gn_silu_tconv.int8_launches += int8
     if not emit_stats:
         return out
     gn_silu_tconv.stats_launches += 1
@@ -135,3 +229,4 @@ def gn_silu_tconv(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.
 
 gn_silu_tconv.launches = 0
 gn_silu_tconv.stats_launches = 0
+gn_silu_tconv.int8_launches = 0

@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lavie_tpu_torch.nn import quant
 from lavie_tpu_torch.nn.embeddings import sinusoidal_timestep_embedding
 
 
@@ -72,13 +73,27 @@ def groupnorm_affine_from_moments(mean_c: torch.Tensor, meansq_c: torch.Tensor,
 
 class InflatedConv(nn.Conv2d):
     """Per-frame 2D convolution over (B, F, H, W, C) video, or (N, H, W, C)
-    images. Parameters are nn.Conv2d's (weight (O, I, kh, kw), bias)."""
+    images. Parameters are nn.Conv2d's (weight (O, I, kh, kw), bias).
+
+    In int8 turbo mode (`conv_quant`, set with the exclude patterns and the
+    conv's JAX module path by nn/quant.py::configure) an eligible conv runs
+    int8_conv2d instead, frames folded into the sample axis so that each
+    frame has its own activation scale."""
+
+    conv_quant = "none"
+    quant_path = None
+    quant_exclude = ()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]
-        x = x.reshape((-1,) + x.shape[-3:]).permute(0, 3, 1, 2)  # NCHW view, channels_last memory
-        y = self._conv_forward(x, self.weight, self.bias)
-        y = y.permute(0, 2, 3, 1)
+        x = x.reshape((-1,) + x.shape[-3:])
+        if quant.quant_eligible(self.kernel_size, x.shape[-1], self.out_channels, x.dtype,
+                                self.quant_path, mode=self.conv_quant, exclude=self.quant_exclude):
+            (ph, pw), (sh, sw) = self.padding, self.stride
+            y = quant.int8_conv2d(x, self.weight, self.bias, (sh, sw), ((ph, ph), (pw, pw)))
+        else:  # cuDNN on an NCHW view of channels_last memory
+            y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight, self.bias)
+            y = y.permute(0, 2, 3, 1)
         return y.reshape(lead + y.shape[1:])
 
 

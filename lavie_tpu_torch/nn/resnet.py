@@ -12,7 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lavie_tpu_torch.kernels.temporal_resblock import gn_silu_tconv
+from lavie_tpu_torch.kernels.temporal_resblock import gn_silu_tconv, resblock_conv_supported
+from lavie_tpu_torch.nn import quant
 from lavie_tpu_torch.nn.layers import (
     GroupNorm,
     InflatedConv,
@@ -91,13 +92,25 @@ class ResnetBlock3DCNN(nn.Module):
     With LAVIE_TRESBLOCK_STATS=1 in the environment, read at each call (the
     JAX package's switch, off by default there too), conv1 also emits its
     output's per-channel (Σ, Σ²) and norm2's affine comes from those moments
-    (groupnorm_affine_from_moments), so h is not read again for norm2."""
+    (groupnorm_affine_from_moments), so h is not read again for norm2.
+
+    With LAVIE_TRESBLOCK_INT8=1, also read at each call, and conv_quant
+    "int8" (set by nn/quant.py::configure), both convs take the kernel's
+    int8 variant where the JAX package's does: at the TemporalModule3D site
+    only (`int8_site`; the JAX package's Transformer3D hands its block 4-D
+    activations, which that package never quantises), with equal widths of
+    at least MIN_CHANNELS and its fused-kernel gate (resblock_conv_supported)
+    holding for both convs. Elsewhere they run the float kernel, the function
+    the JAX package computes there."""
+
+    conv_quant = "none"
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  kernel_frames: int = 5, temb_channels: Optional[int] = None,
-                 groups: int = 32, eps: float = 1e-6):
+                 groups: int = 32, eps: float = 1e-6, int8_site: bool = False):
         super().__init__()
         out_ch = out_channels or in_channels
+        self.int8_site = int8_site
         self.norm1 = GroupNorm(groups, in_channels, eps)
         self.conv1 = TemporalConv(in_channels, out_ch, kernel_frames)
         self.time_emb_proj = nn.Linear(temb_channels, out_ch) if temb_channels else None
@@ -105,25 +118,36 @@ class ResnetBlock3DCNN(nn.Module):
         self.conv2 = TemporalConv(out_ch, out_ch, 3)
         self.conv_shortcut = TemporalConv(in_channels, out_ch, 1) if in_channels != out_ch else None
 
+    def _quant(self, v: torch.Tensor) -> str:
+        """The tconv route of both convs for activations v (B, F, S, C)."""
+        _, f, s, c = v.shape
+        o, item = self.conv1.out_channels, v.element_size()
+        int8 = (os.environ.get("LAVIE_TRESBLOCK_INT8") == "1" and self.conv_quant == "int8"
+                and self.int8_site and c == o and c >= quant.MIN_CHANNELS
+                and resblock_conv_supported(f, s, c, o, self.conv1.kernel_size[0], itemsize=item)
+                and resblock_conv_supported(f, s, o, o, 3, with_res=True, itemsize=item))
+        return "int8" if int8 else "none"
+
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x (B, F, ..., C) → (B, F, ..., O); temb (B, temb_channels)."""
         b, f, c = x.shape[0], x.shape[1], x.shape[-1]
         v = x.reshape(b, f, -1, c)
+        q = self._quant(v)
         bias1 = self.conv1.bias.float().expand(b, -1)
         if temb is not None and self.time_emb_proj is not None:
             bias1 = bias1 + self.time_emb_proj(F.silu(temb)).float()
         w1, u1 = self.norm1.affine(v)
         if os.environ.get("LAVIE_TRESBLOCK_STATS") == "1":
             h, s1, s2 = gn_silu_tconv(v, w1, u1, self.conv1.taps(), bias1.contiguous(),
-                                      emit_stats=True)
+                                      emit_stats=True, quant=q)
             n = v.shape[1] * v.shape[2]
             n2 = self.norm2
             w2, u2 = groupnorm_affine_from_moments(s1 / n, s2 / n, n2.weight, n2.bias,
                                                    n2.num_groups, n2.eps)
         else:
-            h = gn_silu_tconv(v, w1, u1, self.conv1.taps(), bias1.contiguous())
+            h = gn_silu_tconv(v, w1, u1, self.conv1.taps(), bias1.contiguous(), quant=q)
             w2, u2 = self.norm2.affine(h)
         res = v if self.conv_shortcut is None else self.conv_shortcut(v)
         y = gn_silu_tconv(h, w2, u2, self.conv2.taps(),
-                          self.conv2.bias.float().expand(b, -1).contiguous(), res)
+                          self.conv2.bias.float().expand(b, -1).contiguous(), res, quant=q)
         return y.reshape(x.shape[:-1] + (y.shape[-1],))

@@ -35,7 +35,7 @@ class TemporalModule3D(nn.Module):
             if on:
                 raise NotImplementedError(f"TemporalModule3D: {name} is not ported")
         self.resblocks_3d_t = ResnetBlock3DCNN(channels, channels, 5, temb_channels,
-                                               norm_num_groups)
+                                               norm_num_groups, int8_site=True)
         self.resblocks_3d_s = ResnetBlock3D(channels, channels, temb_channels, norm_num_groups)
         self.shift_conv = InflatedConv(channels, channels, 1)
         nn.init.zeros_(self.shift_conv.weight)

@@ -3,7 +3,8 @@ super-resolution (port of lavie_tpu.nn.unet, the blocks
 `UNetConfig.base_t2v()`, `.interpolation()` and `.vsr()` use). The VSR UNet
 adds a noise-level class embedding, a TemporalModule3D after every block,
 and `forward_prefix`: the text-independent leading blocks, run once per
-step and shared by the two CFG halves.
+step and shared by the two CFG halves. `conv_quant` "int8" turns on the
+int8 turbo convs (nn/quant.py) in forward and forward_prefix alike.
 
 Layout: (B, F, H, W, C) channels-last video tensors throughout.
 """
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from lavie_tpu_torch.core.config import UNetConfig
+from lavie_tpu_torch.nn import quant
 from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv, TimestepEmbedding
 from lavie_tpu_torch.nn.resnet import Downsample3D, ResnetBlock3D, Upsample3D
 from lavie_tpu_torch.nn.temporal_module import TemporalModule3D
@@ -196,6 +198,7 @@ class UNet3D(nn.Module):
 
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
         self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
+        quant.configure(self, cfg.conv_quant, cfg.conv_quant_exclude)
 
     @property
     def num_prefix_blocks(self) -> int:

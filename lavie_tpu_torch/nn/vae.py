@@ -8,7 +8,9 @@ The mid-block attention at 4096 positions or more (the f4 decoder's
 attention, as the JAX package keeps them on XLA.
 Images are channels-last (N, H, W, C); a video is decoded with its frames
 folded into N. Module names follow diffusers' nesting with the classic
-mid-block attention names (query/key/value/proj_attn)."""
+mid-block attention names (query/key/value/proj_attn). `conv_quant` "int8"
+turns on the int8 turbo convs (nn/quant.py) in every encode and decode
+phase; conv_in and conv_out stay exact by the channel gate."""
 
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch import nn
 
 from lavie_tpu_torch.core.config import VAEConfig
 from lavie_tpu_torch.kernels.flash_attention import flash_attention
+from lavie_tpu_torch.nn import quant
 from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv
 
 
@@ -183,6 +186,7 @@ class AutoencoderKL(nn.Module):
         lc = config.latent_channels
         self.quant_conv = InflatedConv(2 * lc, 2 * lc, 1)
         self.post_quant_conv = InflatedConv(lc, lc, 1)
+        quant.configure(self, config.conv_quant, config.conv_quant_exclude)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         mean, logvar = self.quant_conv(self.encoder(x)).chunk(2, dim=-1)

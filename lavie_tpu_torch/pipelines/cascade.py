@@ -20,7 +20,7 @@ from typing import Any, Optional, Union
 import numpy as np
 import torch
 
-from lavie_tpu_torch.core.config import CLIPTextConfig, UNetConfig, VAEConfig
+from lavie_tpu_torch.core.config import CLIPTextConfig, UNetConfig, VAEConfig, with_conv_quant
 from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
 from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
 from lavie_tpu_torch.pipelines.vsr import VideoSuperResolutionPipeline
@@ -66,13 +66,19 @@ class VideoCascadePipeline:
         """All three stages at full width (or their `tiny` configs) with
         seeded random weights, made on `device`; the stages' weight seeds are
         3·seed, 3·seed + 1 and 3·seed + 2. `dtype` None is bf16 on the card
-        and fp32 on the CPU. The int8 convolutions (conv_quant "int8") are
-        not ported yet; conv_quant_exclude only qualifies them."""
-        if conv_quant != "none":
-            raise NotImplementedError("conv_quant (int8 convs) is not ported yet")
+        and fp32 on the CPU. conv_quant "int8" turns on the int8 turbo convs
+        (nn/quant.py) in every stage's UNet and VAE; conv_quant_exclude
+        keeps the convs whose JAX module path holds one of its patterns
+        exact, and "VAE" in it both codecs."""
         if dtype is None:
             dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
-        mk = (lambda c: c.tiny()) if tiny else (lambda c: c)
+
+        def mk(c):
+            c = c.tiny() if tiny else c
+            if isinstance(c, (UNetConfig, VAEConfig)):
+                c = with_conv_quant(c, conv_quant, conv_quant_exclude)
+            return c
+
         base = TextToVideoPipeline.init_random(
             3 * seed, mk(UNetConfig.base_t2v()), mk(VAEConfig.sd()), mk(CLIPTextConfig.vit_l()),
             dtype=dtype, device=device)

@@ -79,3 +79,21 @@ def test_package_imports_without_a_card():
     for path in FILES[:-1]:
         rel = path.relative_to(ROOT).with_suffix("")
         importlib.import_module(".".join(rel.parts).removesuffix(".__init__"))
+
+
+def test_turbo_is_off_by_default_at_every_entry_point():
+    """nn/quant.py's int8 mode is opt-in: every config and entry point that
+    takes conv_quant defaults to "none", with no exclude pattern."""
+    import inspect
+
+    from lavie_tpu_torch.core.config import UNetConfig, VAEConfig
+    from lavie_tpu_torch.nn import quant
+    from lavie_tpu_torch.pipelines.cascade import VideoCascadePipeline
+    from lavie_tpu_torch.serve import Predictor
+
+    assert quant.VALID_MODES == ("none", "int8") and quant.MIN_CHANNELS == 128
+    for cfg in (UNetConfig(), UNetConfig.vsr(), VAEConfig(), VAEConfig.vsr()):
+        assert (cfg.conv_quant, cfg.conv_quant_exclude) == ("none", ())
+    for fn in (VideoCascadePipeline.init_random, Predictor.setup):
+        params = inspect.signature(fn).parameters
+        assert params["conv_quant"].default == "none" and params["conv_quant_exclude"].default == ()
