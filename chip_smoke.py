@@ -43,7 +43,18 @@ its result line:
                 LAVIE_TRESBLOCK_STATS unset and set, one base UNet forward
                 with LAVIE_TEMPORAL_KERNEL unset and set: device ms of each,
                 outputs compared
- 16. turbo_kernels  the int8 turbo mode's pieces: the int8 gn_silu_tconv at
+ 16. cross_kernels  the text cross-attention at the base levels and VSR L3:
+                cross_attention (timed beside SDPA) and
+                fused_ln_cross_attention (timed beside the LayerNorm,
+                cuBLAS and SDPA path it replaces), each against its plain
+                version
+ 17. temporal_proj_kernels  ln_qkv and out_proj_residual at the base levels
+                and TSR L0, each against its plain version, timed beside the
+                eager LayerNorm and cuBLAS projections they replace
+ 18. ab_attn2, ab_temporal_proj  one base UNet forward with LAVIE_ATTN2
+                unset, "cross" and "fused", and with LAVIE_TEMPORAL_PROJ unset
+                and set: device ms, launches of each route, outputs compared
+ 19. turbo_kernels  the int8 turbo mode's pieces: the int8 gn_silu_tconv at
                 every VSR shape where the JAX package's gate admits it (k=5,
                 and k=3 + residual; F=8 and the 5-frame tail, the tail with
                 emit_stats on conv1) against its plain version, timed beside
@@ -51,18 +62,19 @@ its result line:
                 VSR L0 and one f4-VAE full-resolution frame, its int32
                 product checked exactly on bands of rows, timed beside
                 cuDNN's bf16 conv (a yardstick only)
- 17. ab_turbo_vsr, ab_turbo_base  one full-width VSR UNet half-forward and
+ 20. ab_turbo_vsr, ab_turbo_base  one full-width VSR UNet half-forward and
                 one base UNet forward with conv_quant "none", "int8" (and
                 LAVIE_TRESBLOCK_INT8=1), "int8" excluding samplers and
                 up_blocks: device ms and the relative error against bf16
- 18. cascade    the serving entry point at full width: Predictor().setup(),
+ 21. cascade    the serving entry point at full width: Predictor().setup(),
                 predict() for option 2 (61x320x512, written to
-                build/cascade/); then a second predictor in turbo,
+                build/cascade/ as .avi where a C compiler and libjpeg are
+                found, else as a GIF); then a second predictor in turbo,
                 Predictor().setup(conv_quant="int8"), runs the cascade for
-                option 4 (61x1280x2048, not written) with the three opt-in
+                option 4 (61x1280x2048, not written) with the five opt-in
                 switches set and one cut, 10 VSR steps; stage seconds,
                 shapes, peak memory and exact launch counts per stage
- 19. result     a `kernels` JSON line, then the `ok` JSON line last
+ 22. result     a `kernels` JSON line, then the `ok` JSON line last
 Launch counts are zeroed just before each path (main, tsr, vsr, cascade) and
 read just after it; the paths before the cascade run the default routes and
 launch no opt-in entry. Imports nothing of JAX or of the JAX package.
@@ -100,6 +112,7 @@ VSR_STEPS, VSR_FRAMES = 10, 8
 # (positions per frame, channels)
 VSR_LEVELS = [(163840, 256), (40960, 512), (10240, 512), (2560, 1024)]
 CROSS_TOL, TCONV_TOL = 2e-2, 1e-2  # of max|plain|
+ATTN_TOL, PROJ_TOL = 1e-2, 2e-2  # cross_attention; ln_qkv and out_proj_residual
 STATS_TOL = 1e-2  # gn_silu_tconv's Σ, Σ², of max|plain|
 # the cascade phase's option 4: the one cut (50 VSR steps in a user's run)
 CASCADE_VSR_STEPS = 10
@@ -174,7 +187,7 @@ def phase_build() -> None:
 
     t0 = time.time()
     logs = _build.build(["temporal_fused", "geglu", "flash_attention", "temporal_resblock",
-                         "cross_block"])
+                         "cross_block", "cross_attention", "temporal_proj"])
     for name, text in logs.items():
         regs = [ln.split("ptxas info    : ")[-1] for ln in text.splitlines() if "registers" in ln]
         log(f"[build] {name}: {'; '.join(regs)}")
@@ -298,17 +311,24 @@ class plain_kernels:
     every kernel instead of the kernels."""
 
     def _swaps(self):
+        import lavie_tpu_torch.kernels.attention as dpa_mod
         import lavie_tpu_torch.nn.attention as attn_mod
         import lavie_tpu_torch.nn.resnet as res_mod
         import lavie_tpu_torch.nn.transformer as tr_mod
         import lavie_tpu_torch.nn.vae as vae_mod
+        from lavie_tpu_torch.kernels import cross_attention as ca
         from lavie_tpu_torch.kernels import cross_block as cb
         from lavie_tpu_torch.kernels import flash_attention as fa
         from lavie_tpu_torch.kernels import geglu as gg
         from lavie_tpu_torch.kernels import temporal_fused as tf
+        from lavie_tpu_torch.kernels import temporal_proj as tp
         from lavie_tpu_torch.kernels import temporal_resblock as tr
 
         return [
+            (dpa_mod, "cross_attention", ca.cross_attention_reference),
+            (tr_mod, "fused_ln_cross_attention", cb.fused_ln_cross_attention_reference),
+            (tr_mod, "ln_qkv", tp.ln_qkv_reference),
+            (tr_mod, "out_proj_residual", tp.out_proj_residual_reference),
             (attn_mod, "temporal_attention", tf.temporal_attention_reference),
             (attn_mod, "temporal_attention_folded", tf.temporal_attention_folded_reference),
             (attn_mod, "flash_sparse_causal", fa.flash_sparse_causal_reference),
@@ -446,7 +466,12 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
 def launch_counters() -> dict:
     """name → (wrapper, attribute holding its count); the stats and int8
     variants of gn_silu_tconv are counted on their own besides."""
-    from lavie_tpu_torch.kernels.cross_block import cross_attention_head, transformer_tail
+    from lavie_tpu_torch.kernels.cross_attention import cross_attention
+    from lavie_tpu_torch.kernels.cross_block import (
+        cross_attention_head,
+        fused_ln_cross_attention,
+        transformer_tail,
+    )
     from lavie_tpu_torch.kernels.flash_attention import (
         flash_attention,
         flash_attention_kv,
@@ -454,13 +479,16 @@ def launch_counters() -> dict:
     )
     from lavie_tpu_torch.kernels.geglu import geglu
     from lavie_tpu_torch.kernels.temporal_fused import temporal_attention, temporal_attention_folded
+    from lavie_tpu_torch.kernels.temporal_proj import ln_qkv, out_proj_residual
     from lavie_tpu_torch.kernels.temporal_resblock import gn_silu_tconv
 
     fns = {"temporal_attention": temporal_attention, "geglu": geglu,
            "flash_sparse_causal": flash_sparse_causal, "flash_attention_kv": flash_attention_kv,
            "flash_attention": flash_attention, "cross_attention_head": cross_attention_head,
            "transformer_tail": transformer_tail, "gn_silu_tconv": gn_silu_tconv,
-           "temporal_attention_folded": temporal_attention_folded}
+           "temporal_attention_folded": temporal_attention_folded,
+           "cross_attention": cross_attention, "fused_ln_cross_attention": fused_ln_cross_attention,
+           "ln_qkv": ln_qkv, "out_proj_residual": out_proj_residual}
     counters = {name: (fn, "launches") for name, fn in fns.items()}
     counters["gn_silu_tconv_stats"] = (gn_silu_tconv, "stats_launches")
     counters["gn_silu_tconv_int8"] = (gn_silu_tconv, "int8_launches")
@@ -476,11 +504,12 @@ def read_launches() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in launch_counters().items()}
 
 
-OPT_IN = ("temporal_attention_folded", "gn_silu_tconv_stats", "gn_silu_tconv_int8")
+OPT_IN = ("temporal_attention_folded", "gn_silu_tconv_stats", "gn_silu_tconv_int8",
+          "cross_attention", "fused_ln_cross_attention", "ln_qkv", "out_proj_residual")
 
 
 def assert_default_routes(path: str, launches: dict) -> None:
-    """A path run without the opt-in switches launches neither opt-in entry."""
+    """A path run without the opt-in switches launches no opt-in entry."""
     for name in OPT_IN:
         if launches[name]:
             raise AssertionError(f"{name} launched {launches[name]} times on the {path} path")
@@ -797,11 +826,14 @@ def phase_optin_tconv() -> dict:
     return rows
 
 
-def phase_ab(phase: str, cfg, frames: int, switch: str, tol: float, batch: int, h: int, w: int,
-             ctx_dim: int) -> dict:
-    """One full-width UNet forward with the opt-in `switch` unset and set,
-    same weights and inputs: device ms of each (CUDA events, one warm-up,
-    then unset, set, set, unset) and the two outputs compared."""
+def phase_ab(phase: str, cfg, frames: int, switch: str, routes: dict, tol: float, batch: int,
+             h: int, w: int, ctx_dim: int) -> dict:
+    """One full-width UNet forward with the opt-in `switch` unset and set to
+    each value of `routes` (value → the counters its route launches), same
+    weights and inputs: device ms of each (CUDA events; one warm-up each,
+    then unset, each value, each value in reverse, unset), each route's
+    launches (its own counters, and no other route's), and each output
+    against the unset one."""
     from lavie_tpu_torch.nn.unet import UNet3D
     from lavie_tpu_torch.pipelines.t2v import random_init_
 
@@ -809,11 +841,13 @@ def phase_ab(phase: str, cfg, frames: int, switch: str, tol: float, batch: int, 
         unet = UNet3D(cfg).to(torch.bfloat16).eval()
     random_init_(unet, seed=7)
     x, ts, ctx, labels = unet_inputs(cfg, batch, frames, h, w, ctx_dim, seed=3, t=981.0)
-    outs, times = {}, {False: [], True: []}
+    values = [None, *routes]
+    watched = sorted({n for names in routes.values() for n in names})
+    outs, times, counts = {}, {v: [] for v in values}, {}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
-        for on in (False, True, False, True, True, False):
-            with env(**{switch: "1" if on else None}):
+        for value in values + values[:1] + values[1:] + values[1:][::-1] + values[:1]:
+            with env(**{switch: value}):
                 zero_launches()
                 torch.cuda.synchronize()
                 start.record()
@@ -821,27 +855,123 @@ def phase_ab(phase: str, cfg, frames: int, switch: str, tol: float, batch: int, 
                 end.record()
                 torch.cuda.synchronize()
                 launches = read_launches()
-            if on not in outs:  # the first two runs are the warm-ups
-                outs[on] = out.float()
-                expected = "temporal_attention_folded" if switch == "LAVIE_TEMPORAL_KERNEL" else \
-                    "gn_silu_tconv_stats"
-                if (launches[expected] > 0) != on:
-                    raise AssertionError(f"{phase}: {expected} launched {launches[expected]} times "
-                                         f"with {switch} {'set' if on else 'unset'}")
+            if value not in outs:  # the first run of each setting is its warm-up
+                outs[value] = out.float()
+                counts[value] = {name: launches[name] for name in watched}
+                for name in watched:
+                    if (launches[name] > 0) != (name in routes.get(value, ())):
+                        raise AssertionError(f"{phase}: {name} launched {launches[name]} times with "
+                                             f"{switch}={value}")
             else:
-                times[on].append(start.elapsed_time(end))
-    err = (outs[True] - outs[False]).abs().max().item()
-    scale = outs[False].abs().max().item()
+                times[value].append(start.elapsed_time(end))
+    label = lambda v: "unset" if v is None else v  # noqa: E731
+    scale = outs[None].abs().max().item()
+    diffs = {label(v): (outs[v] - outs[None]).abs().max().item() for v in routes}
     row = {"phase": phase, "switch": switch, "shape": list(x.shape),
-           "ms_unset": times[False], "ms_set": times[True],
-           "mean_ms_unset": sum(times[False]) / 2, "mean_ms_set": sum(times[True]) / 2,
-           "max_abs_diff": err, "max_abs_ref": scale}
+           "ms": {label(v): times[v] for v in values},
+           "mean_ms": {label(v): sum(times[v]) / len(times[v]) for v in values},
+           "max_abs_diff": diffs, "max_abs_ref": scale,
+           "launches": {label(v): counts[v] for v in values}}
     log(json.dumps(row))
-    if not (bool(torch.isfinite(outs[True]).all()) and err <= tol * scale):
-        raise AssertionError(f"{phase}: {switch} set vs unset: {err} > {tol}·{scale}")
+    for v in routes:
+        if not (bool(torch.isfinite(outs[v]).all()) and diffs[v] <= tol * scale):
+            raise AssertionError(f"{phase}: {switch}={v} vs unset: {diffs[v]} > {tol}·{scale}")
     del unet, outs
     torch.cuda.empty_cache()
     return row
+
+
+def phase_cross_kernels() -> dict:
+    """The text cross-attention at every base level (B=2, the 16 frames
+    folded into the queries) and at VSR L3 (one CFG half of one window),
+    77 text keys: cross_attention (LAVIE_ATTN2=cross) against its plain
+    version and SDPA on tensors transposed beforehand; then
+    fused_ln_cross_attention (LAVIE_ATTN2=fused) against its plain version,
+    timed beside the default path it replaces (LayerNorm, q projection, SDPA,
+    out-projection, residual: eager, cuBLAS and SDPA)."""
+    from lavie_tpu_torch.kernels import cross_attention as ca
+    from lavie_tpu_torch.kernels import cross_block as cb
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    bf = lambda *shape, sd=1.0: (sd * torch.randn(*shape, generator=g, device="cuda")).bfloat16()  # noqa: E731
+    f32 = lambda *shape, sd=0.1, m=0.0: m + sd * torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    levels = [("base", 2, 16 * s, d) for s, d in ATTENTION_LEVELS] + [("VSR L3", 1, VSR_FRAMES * 2560, 128)]
+    rows = {"cross_attention": [], "fused_ln_cross_attention": []}
+    h, lkv = 8, 77
+    for where, b, n, d in levels:
+        c, scale = h * d, d ** -0.5
+        q, k, v = bf(b, n, h, d), bf(b, lkv, h, d), bf(b, lkv, h, d)
+        ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        args = (q, k, v, scale)
+        rows["cross_attention"].append(check_row(
+            "cross_attention", {"where": where, "B": b, "S": n, "H": h, "d": d, "L": lkv},
+            ca.cross_attention(*args), ca.cross_attention_reference(*args), ATTN_TOL,
+            lambda: ca.cross_attention(*args), lambda: ca.cross_attention_reference(*args),
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
+            (2 * b * n * c + 2 * b * lkv * c) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),)))
+        del q, ql, kl, vl, args
+        x = bf(b, n, c)
+        p = (f32(c, m=1.0), f32(c), bf(c, c, sd=c ** -0.5), bf(c, c, sd=c ** -0.5), f32(c),
+             k.view(b, lkv, c), v.view(b, lkv, c))
+        fargs = (x, p, h, scale)
+        gamma, beta, wq, wo, bo = (t.bfloat16() for t in p[:5])  # the module's own bf16 parameters
+        kt, vt = (t.transpose(1, 2) for t in (k, v))
+
+        def unfused():
+            qq = F.linear(F.layer_norm(x, (c,), gamma, beta), wq).view(b, n, h, d).transpose(1, 2)
+            o = F.scaled_dot_product_attention(qq, kt, vt, scale=scale)
+            return F.linear(o.transpose(1, 2).reshape(b, n, c), wo, bo) + x
+
+        rows["fused_ln_cross_attention"].append(check_row(
+            "fused_ln_cross_attention", {"where": where, "B": b, "N": n, "C": c, "heads": h, "L": lkv},
+            cb.fused_ln_cross_attention(*fargs), cb.fused_ln_cross_attention_reference(*fargs),
+            CROSS_TOL, lambda: cb.fused_ln_cross_attention(*fargs),
+            lambda: cb.fused_ln_cross_attention_reference(*fargs), None,
+            (2 * b * n * c + 2 * c * c + 2 * b * lkv * c) * 2 + 3 * c * 4,
+            ((4 * b * n * c * c + 4 * b * n * lkv * c, BF16_FLOPS),), unfused_ms=time_ms(unfused)))
+        del x, p, fargs, k, v, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_temporal_proj_kernels() -> dict:
+    """The temporal attention's boundaries at every base level (B=2, F=16)
+    and at TSR L0 (B=2, F=61), E = C: ln_qkv (LAVIE_TEMPORAL_PROJ=1) against
+    its plain version, timed beside the default path's LayerNorm and three
+    projections (eager and cuBLAS); out_proj_residual against its plain
+    version, timed beside F.linear and the residual add."""
+    from lavie_tpu_torch.kernels import temporal_proj as tp
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+    bf = lambda *shape, sd=1.0: (sd * torch.randn(*shape, generator=g, device="cuda")).bfloat16()  # noqa: E731
+    f32 = lambda *shape, sd=0.1, m=0.0: m + sd * torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    levels = [("base", 16, s, c) for (s, _), c in zip(ATTENTION_LEVELS, GEGLU_WIDTHS)]
+    levels.append(("TSR L0", TSR_FRAMES, ATTENTION_LEVELS[0][0], GEGLU_WIDTHS[0]))
+    rows = {"ln_qkv": [], "out_proj_residual": []}
+    for where, f, s, c in levels:
+        b = 2
+        n = b * f * s
+        x, o = bf(b, f, s, c), bf(b, f, s, c)
+        gamma, beta, bo = f32(c, m=1.0), f32(c), f32(c)
+        wq, wk, wv, wo = (bf(c, c, sd=c ** -0.5) for _ in range(4))
+        args = (x, gamma, beta, wq, wk, wv)
+        gb, bb, bob = gamma.bfloat16(), beta.bfloat16(), bo.bfloat16()
+        shape = {"where": where, "B": b, "F": f, "S": s, "C": c, "E": c}
+        rows["ln_qkv"].append(check_row(
+            "ln_qkv", shape, torch.stack(tp.ln_qkv(*args)), torch.stack(tp.ln_qkv_reference(*args)),
+            PROJ_TOL, lambda: tp.ln_qkv(*args), lambda: tp.ln_qkv_reference(*args), None,
+            (n * c + 3 * n * c + 3 * c * c) * 2 + 2 * c * 4, ((6 * n * c * c, BF16_FLOPS),),
+            eager_ms=time_ms(lambda: [F.linear(xn, w) for xn in (F.layer_norm(x, (c,), gb, bb),)
+                                      for w in (wq, wk, wv)])))
+        oargs = (o, x, wo, bo)
+        rows["out_proj_residual"].append(check_row(
+            "out_proj_residual", {**shape, "O": c}, tp.out_proj_residual(*oargs),
+            tp.out_proj_residual_reference(*oargs), PROJ_TOL, lambda: tp.out_proj_residual(*oargs),
+            lambda: tp.out_proj_residual_reference(*oargs), None, 3 * n * c * 2 + c * c * 2 + c * 4,
+            ((2 * n * c * c, BF16_FLOPS),), eager_ms=time_ms(lambda: F.linear(o, wo, bob) + x)))
+        del x, o, args, oargs
+    torch.cuda.empty_cache()
+    return rows
 
 
 def turbo_tconv_sites(cfg, h: int, w: int, frames: int) -> tuple:
@@ -1027,17 +1157,22 @@ class TimedStage:
 
 
 def expected_stage_launches(stage: str, steps: int, folded: bool, stats: bool, windows: int = 1,
-                            int8_per_step: int = 0) -> dict:
+                            int8_per_step: int = 0, attn2_fused: bool = False,
+                            temporal_proj: bool = False) -> dict:
     """Exact launches of one cascade stage (per forward counts as the main,
     tsr and vsr phases hold them); `int8_per_step`: the int8 temporal convs
-    of one VSR step over all windows (turbo_tconv_sites)."""
+    of one VSR step over all windows (turbo_tconv_sites). Every transformer
+    block has one temporal attention and, but for VSR's only-cross blocks,
+    one attn2 (fused under LAVIE_ATTN2=fused)."""
     n = dict.fromkeys(launch_counters(), 0)
     temporal = "temporal_attention_folded" if folded else "temporal_attention"
     if stage == "base":  # 16 transformer blocks per CFG-batched forward
         n.update({temporal: 16 * steps, "geglu": 16 * steps})
+        blocks, attn2 = 16 * steps, 16 * steps
     elif stage == "interpolation":
         n.update({"temporal_attention": 16 * steps, "geglu": 16 * steps,
                   "flash_sparse_causal": 16 * steps})
+        blocks, attn2 = 16 * steps, 16 * steps
     else:  # per window: the vsr phase's counts
         n.update({"gn_silu_tconv": 98 * steps * windows, "cross_attention_head": 20 * steps * windows,
                   "transformer_tail": 20 * steps * windows,
@@ -1046,6 +1181,11 @@ def expected_stage_launches(stage: str, steps: int, folded: bool, stats: bool, w
         if stats:
             n["gn_silu_tconv_stats"] = 49 * steps * windows
         n["gn_silu_tconv_int8"] = int8_per_step * steps
+        blocks, attn2 = 32 * steps * windows, 12 * steps * windows
+    if attn2_fused:
+        n["fused_ln_cross_attention"] = attn2
+    if temporal_proj:
+        n["ln_qkv"] = n["out_proj_residual"] = blocks
     return n
 
 
@@ -1056,8 +1196,8 @@ def phase_cascade() -> dict:
     freed, a second one in turbo, Predictor().setup(conv_quant="int8"), and
     its cascade pipeline for option 4 (16x320x512 → 61x320x512 →
     61x1280x2048: seven VSR windows of 8 and a tail of 5) with
-    LAVIE_TRESBLOCK_STATS=1, LAVIE_TEMPORAL_KERNEL=1 and
-    LAVIE_TRESBLOCK_INT8=1, its video not written. Stage seconds come from
+    LAVIE_TRESBLOCK_STATS=1, LAVIE_TEMPORAL_KERNEL=1, LAVIE_TRESBLOCK_INT8=1,
+    LAVIE_ATTN2=fused and LAVIE_TEMPORAL_PROJ=1, its video not written. Stage seconds come from
     wrapping each stage here (TimedStage)."""
     from lavie_tpu_torch.core.config import UNetConfig
     from lavie_tpu_torch.serve import Predictor
@@ -1066,7 +1206,8 @@ def phase_cascade() -> dict:
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "cascade")
     os.makedirs(out_dir, exist_ok=True)
     launches = dict.fromkeys(launch_counters(), 0)
-    switches = {"LAVIE_TRESBLOCK_STATS": "1", "LAVIE_TEMPORAL_KERNEL": "1", "LAVIE_TRESBLOCK_INT8": "1"}
+    switches = {"LAVIE_TRESBLOCK_STATS": "1", "LAVIE_TEMPORAL_KERNEL": "1", "LAVIE_TRESBLOCK_INT8": "1",
+                "LAVIE_ATTN2": "fused", "LAVIE_TEMPORAL_PROJ": "1"}
     for option, conv_quant, on in ((2, "none", {}), (4, "int8", switches)):
         t0 = time.time()
         predictor = Predictor()
@@ -1102,7 +1243,8 @@ def phase_cascade() -> dict:
         want_shape = [TSR_FRAMES, 320, 512, 3] if option == 2 else [TSR_FRAMES, 1280, 2048, 3]
         row = {"phase": "cascade", "option": option, "conv_quant": conv_quant, "switches": on,
                "seconds": secs, "stages": calls, "shape": video_shape, "dtype": "uint8",
-               "written": path, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "written": path, "writer": path and os.path.splitext(path)[1],
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": got}
         if option == 4:
             row["cut"] = {"vsr_steps": CASCADE_VSR_STEPS}
@@ -1116,11 +1258,13 @@ def phase_cascade() -> dict:
             for f in frames:
                 prefix, half = turbo_tconv_sites(UNetConfig.vsr(), 320, 512, f)
                 int8_per_step += 2 * len(prefix) + 2 * 2 * len(half)
-        want = {"base": expected_stage_launches("base", 50, folded, stats),
-                "interpolation": expected_stage_launches("interpolation", TSR_STEPS, folded, stats)}
+        routes = dict(attn2_fused=option == 4, temporal_proj=option == 4)
+        want = {"base": expected_stage_launches("base", 50, folded, stats, **routes),
+                "interpolation": expected_stage_launches("interpolation", TSR_STEPS, folded, stats,
+                                                         **routes)}
         if option == 4:
             want["vsr"] = expected_stage_launches("vsr", CASCADE_VSR_STEPS, folded, stats, len(frames),
-                                                  int8_per_step)
+                                                  int8_per_step, **routes)
         if [c["stage"] for c in calls] != list(want):
             raise AssertionError(f"cascade option {option} ran stages {[c['stage'] for c in calls]}")
         for c in calls:
@@ -1131,8 +1275,9 @@ def phase_cascade() -> dict:
             launches[name] += got[name]
         del predictor, cascade, stages
         torch.cuda.empty_cache()
-    if not all(launches[name] for name in OPT_IN):
-        raise AssertionError("the opt-in entries were not all launched on the cascade path")
+    missing = [name for name in OPT_IN if name != "cross_attention" and not launches[name]]
+    if missing:  # LAVIE_ATTN2 takes one of its two routes: fused
+        raise AssertionError(f"opt-in entries not launched on the cascade path: {missing}")
     return launches
 
 
@@ -1167,20 +1312,34 @@ def main() -> int:
     phase_temporal(VSR_FRAMES, rope=32, b=1, folded=True,
                    levels=[(s, 64) for s, _ in VSR_LEVELS[1:3]] + [(VSR_LEVELS[3][0], 128)])
     optin_rows = phase_optin_tconv()
-    phase_ab("ab_vsr", UNetConfig.vsr(), VSR_FRAMES, "LAVIE_TRESBLOCK_STATS", MODEL_TOL["model_vsr"],
-             batch=1, h=320, w=512, ctx_dim=1024)
-    phase_ab("ab_base", UNetConfig.base_t2v(), 16, "LAVIE_TEMPORAL_KERNEL", MODEL_TOL["model"],
-             batch=2, h=40, w=64, ctx_dim=768)
+    phase_ab("ab_vsr", UNetConfig.vsr(), VSR_FRAMES, "LAVIE_TRESBLOCK_STATS",
+             {"1": ("gn_silu_tconv_stats",)}, MODEL_TOL["model_vsr"], batch=1, h=320, w=512,
+             ctx_dim=1024)
+    phase_ab("ab_base", UNetConfig.base_t2v(), 16, "LAVIE_TEMPORAL_KERNEL",
+             {"1": ("temporal_attention_folded",)}, MODEL_TOL["model"], batch=2, h=40, w=64,
+             ctx_dim=768)
+    # the text cross-attention and the temporal projection boundaries: kernels,
+    # then each route in the base model against the default
+    cross_rows = phase_cross_kernels()
+    proj_rows = phase_temporal_proj_kernels()
+    ab_attn2_launches = phase_ab("ab_attn2", UNetConfig.base_t2v(), 16, "LAVIE_ATTN2",
+             {"cross": ("cross_attention",), "fused": ("fused_ln_cross_attention",)},
+             MODEL_TOL["model"], batch=2, h=40, w=64, ctx_dim=768)["launches"]
+    ab_proj_launches = phase_ab("ab_temporal_proj", UNetConfig.base_t2v(), 16, "LAVIE_TEMPORAL_PROJ",
+                                {"1": ("ln_qkv", "out_proj_residual")}, MODEL_TOL["model"], batch=2,
+                                h=40, w=64, ctx_dim=768)["launches"]
     # the int8 turbo mode: its pieces, then each UNet in the three settings
     turbo_rows = phase_turbo_kernels()
     phase_ab_turbo("ab_turbo_vsr", UNetConfig.vsr(), VSR_FRAMES, batch=1, h=320, w=512, ctx_dim=1024)
     phase_ab_turbo("ab_turbo_base", UNetConfig.base_t2v(), 16, batch=2, h=40, w=64, ctx_dim=768)
     cascade_launches = phase_cascade()
 
-    def entry(name, source, replaces, row, note=None, counter=None):
+    def entry(name, source, replaces, row, note=None, counter=None, ab=None):
         counter = counter or name
         by_path = {"main": main_launches[counter], "tsr": tsr_launches[counter],
                    "vsr": vsr_launches[counter], "cascade": cascade_launches[counter]}
+        if ab is not None:  # the launches of one A/B forward with the route set
+            by_path["ab"] = ab[counter]
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": sum(by_path.values()), "launches_by_path": by_path,
              "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -1231,6 +1390,23 @@ def main() -> int:
               "lavie_tpu/kernels/temporal_attention.py:120", folded_rows[0],
               note="the temporal kernel without its RoPE, on q/k rotated by the caller; "
                    "opt-in (LAVIE_TEMPORAL_KERNEL=1): launched on the cascade path only"),
+        entry("cross_attention", "lavie_tpu_torch/csrc/cross_attention.cu",
+              "lavie_tpu/kernels/cross_attention.py:75", cross_rows["cross_attention"][0],
+              note="opt-in (LAVIE_ATTN2=cross); the cascade path takes LAVIE_ATTN2=fused, so its "
+                   "in-model launches are those of the ab_attn2 phase",
+              ab=ab_attn2_launches["cross"]),
+        entry("fused_ln_cross_attention", "lavie_tpu_torch/csrc/cross_block.cu",
+              "lavie_tpu/kernels/cross_block.py:293", cross_rows["fused_ln_cross_attention"][0],
+              note="opt-in (LAVIE_ATTN2=fused): launched on the cascade path and in ab_attn2",
+              ab=ab_attn2_launches["fused"]),
+        entry("ln_qkv", "lavie_tpu_torch/csrc/temporal_proj.cu", "lavie_tpu/kernels/temporal_proj.py:69",
+              proj_rows["ln_qkv"][0],
+              note="opt-in (LAVIE_TEMPORAL_PROJ=1): launched on the cascade path and in ab_temporal_proj",
+              ab=ab_proj_launches["1"]),
+        entry("out_proj_residual", "lavie_tpu_torch/csrc/temporal_proj.cu",
+              "lavie_tpu/kernels/temporal_proj.py:141", proj_rows["out_proj_residual"][0],
+              note="opt-in (LAVIE_TEMPORAL_PROJ=1): launched on the cascade path and in ab_temporal_proj",
+              ab=ab_proj_launches["1"]),
     ]}))
     log(f"[chip_smoke] {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

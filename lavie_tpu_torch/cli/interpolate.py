@@ -7,7 +7,8 @@ output_folder, model_scale, num_frames, num_sampling_steps, guidance_scale,
 use_ddim_sample_loop, additional_prompt, negative_prompt, mask_type, seed,
 fps, conv_quant, conv_quant_exclude), interpolates every .mp4/.npy/.gif/.avi
 video in input_folder to 61 frames and writes it at the configured fps. No
-checkpoint loader is ported yet, so the models carry seeded random weights;
+checkpoint loader is ported yet, so the models carry seeded random weights
+(a `ckpt_path` or `pretrained_path` that exists raises NotImplementedError);
 `--device` defaults to the GPU.
 """
 
@@ -26,6 +27,7 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
+    refuse_weight_files,
     with_conv_quant,
     yaml_conv_quant,
 )
@@ -34,6 +36,7 @@ from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> VideoInterpolationPipeline:
+    refuse_weight_files(cfg)
     use_mask = bool(cfg.get("mask_type")) or cfg.get("use_mask", False)
     unet_cfg = UNetConfig.interpolation(use_mask=use_mask)
     vae_cfg, text_cfg = VAEConfig.sd(), CLIPTextConfig.vit_l()

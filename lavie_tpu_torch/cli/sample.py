@@ -5,8 +5,10 @@
 reads the same YAML keys (text_prompt, image_size, video_length, beta
 schedule, sample_method, num_sampling_steps, guidance_scale, seed, fps,
 output_folder, model_scale, conv_quant, conv_quant_exclude). No checkpoint
-loader is ported yet, so the models carry seeded random weights; `--device`
-defaults to the GPU.
+loader is ported yet, so the models carry seeded random weights: a
+`ckpt_path` or `pretrained_path` that exists, and any `image_path` or
+`image_paths` (image conditioning), raise NotImplementedError instead of
+being ignored. `--device` defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
+    refuse_weight_files,
     with_conv_quant,
     yaml_conv_quant,
 )
@@ -31,6 +34,10 @@ from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> TextToVideoPipeline:
+    refuse_weight_files(cfg)
+    for key in ("image_path", "image_paths"):
+        if cfg.get(key):
+            raise NotImplementedError(f"{key}: image conditioning is not ported yet")
     size = cfg.get("image_size", [320, 512])
     sampling = SamplingConfig(
         video_length=cfg.get("video_length", 16),

@@ -6,7 +6,8 @@ reads the same YAML keys (input_path, output_path, model_scale,
 noise_level, guidance_scale, inference_steps, negative_prompt, window, fps,
 conv_quant, conv_quant_exclude) and upscales every .mp4/.npy/.gif/.avi video
 in input_path ×4. No checkpoint loader is ported yet, so the models carry
-seeded random weights; `--device` defaults to the GPU.
+seeded random weights (a `ckpt_path` or `pretrained_path` that exists raises
+NotImplementedError); `--device` defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
+    refuse_weight_files,
     with_conv_quant,
     yaml_conv_quant,
 )
@@ -33,6 +35,7 @@ from lavie_tpu_torch.pipelines.vsr import VideoSuperResolutionPipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> VideoSuperResolutionPipeline:
+    refuse_weight_files(cfg)
     unet_cfg, vae_cfg, text_cfg = UNetConfig.vsr(), VAEConfig.vsr(), CLIPTextConfig.open_clip_h()
     if cfg.get("model_scale", "full") == "tiny":
         unet_cfg, vae_cfg, text_cfg = unet_cfg.tiny(), vae_cfg.tiny(), text_cfg.tiny()

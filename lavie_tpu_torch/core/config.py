@@ -11,6 +11,7 @@ vsr/configs/sample.yaml).
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, Optional, Sequence, Tuple, Union
 
 
@@ -290,6 +291,18 @@ def yaml_conv_quant(cfg: dict) -> Tuple[str, Tuple[str, ...]]:
     the patterns comma-separated (lavie_tpu/cli/sample.py's surface)."""
     exclude = tuple(p for p in str(cfg.get("conv_quant_exclude", "")).split(",") if p)
     return str(cfg.get("conv_quant", "none")), exclude
+
+
+def refuse_weight_files(cfg: dict, keys: Sequence[str] = ("ckpt_path", "pretrained_path")) -> None:
+    """Raise NotImplementedError naming the key when one of `keys` names a
+    path that exists: the JAX CLIs load those weights, and the port has no
+    checkpoint loader yet, so it must not run random weights in their place.
+    A missing path keeps the random-weight run, as in the JAX CLIs."""
+    for key in keys:
+        path = cfg.get(key)
+        if path and os.path.exists(str(path)):
+            raise NotImplementedError(f"{key}: {path} exists, but the port cannot load "
+                                      "checkpoints yet")
 
 
 def load_yaml_config(path: str) -> dict:

@@ -4,15 +4,29 @@
 //   head: xp = x Wpi^T + bpi; x1 = xp + Attn(LN1(xp); k1, v1);
 //         x2 = x1 + Attn(LN2(x1); k2, v2)           (8 heads x 64, 77 text keys)
 //   tail: y = (GEGLU(LN3(x)) + x) Wpo^T + bpo + r   (hidden|gate, erf gelu)
+// and, for the text cross-attention (attn2) of every other transformer
+// block, the head's second half alone:
+//   single: y = x + Attn(LN(x); k, v) Wo^T + bo     (8 heads x 40/80/128/160)
 // Weights bf16 in nn.Linear (out, in) layout; biases and LayerNorm
 // parameters fp32. Arithmetic as the TPU kernels: LayerNorm statistics in
-// fp32 with the elementwise steps rounded to bf16, products accumulated in
-// fp32, q scaled in fp32 then rounded, fp32 softmax whose probabilities are
-// rounded to bf16 before P.V, each residual added in bf16.
+// fp32 with the elementwise steps rounded to bf16 one by one (mul.rn and
+// add.rn, so that no compiler fuses gamma's product and beta's sum into one
+// fma), products accumulated in fp32, q scaled in fp32 then rounded, fp32
+// softmax whose probabilities are rounded to bf16 before P.V, each residual
+// added in bf16. layer_norm_bf16 runs the LayerNorm alone, for its test.
 //
 // Replaces: lavie_tpu/kernels/cross_block.py
-//   cross_attention_head (_head_3d, body _head_kernel) -> cross_attention_head_bf16
-//   transformer_tail     (_tail_3d, body _tail_kernel) -> transformer_tail_bf16
+//   cross_attention_head     (_head_3d, body _head_kernel)     -> cross_attention_head_bf16
+//   transformer_tail         (_tail_3d, body _tail_kernel)     -> transformer_tail_bf16
+//   fused_ln_cross_attention (_single_3d, body _single_kernel) -> fused_ln_cross_attention_bf16
+//
+// The single kernel at the base L0 level (81,920 tokens of C = 320): 4*N*C^2
+// + 4*N*77*C = 0.042 TFLOP, 0.042 ms at 989 TFLOP/s, against 0.031 ms for
+// reading and writing x. It is the head's design with two (ROWS, C) tiles
+// (the normalised rows, then q, overwritten head by head with the attention
+// output) and x re-read for the residual: 64 rows up to C = 640 and 32 rows
+// above. Head dims 40 to 160; a head dim of 40 ends in half a k-step, whose
+// upper q and k fragment registers are zeroed.
 //
 // What bounds them on the H100: tensor-core operations. At the VSR L1 level
 // (327,680 tokens of C = 512) the head is 5 C x C products, 2*5*N*C^2 = 0.86
@@ -41,150 +55,13 @@
 // L2, the cost this simple design pays (ROADMAP: wgmma, TMA multicast of
 // the weight tiles across a cluster, larger token tiles).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_tiles.cuh"
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-constexpr int THREADS = 256;  // 8 warps
-constexpr int WLD = 24;       // weight-stage row stride: 16 channels + 8 pad
+using namespace tiles;
 constexpr int HEAD_D = 64;
 constexpr int KV = 80;        // text keys, zero-padded
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// acc += A (ROWS x K, shared, row stride lda) * W^T over NCOLS output
-// columns, where output column c reads the K contiguous weights at wrow(c).
-// Warp w owns columns [w*NCOLS/8, (w+1)*NCOLS/8) for all ROWS rows; its
-// accumulator element (mt, nt, e) is row mt*16 + g + (e/2)*8, column
-// w*NCOLS/8 + nt*8 + tig*2 + e%2. All 256 threads call it; it begins and
-// ends with a barrier-ordered ring, so A may have been written just before.
-template <int ROWS, int NCOLS, int K, typename RowFn>
-__device__ __forceinline__ void gemm(float (&acc)[ROWS / 16][NCOLS / 64][4], const bf16* A,
-                                     int lda, RowFn wrow, bf16* ring) {
-  constexpr int MT = ROWS / 16, NT = NCOLS / 64, KS = K / 16;
-  static_assert(NT % 2 == 0, "pairs of n8 tiles");
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  auto load = [&](int s, int st) {
-    for (int idx = tid; idx < NCOLS * 2; idx += THREADS) {
-      const int c = idx >> 1, h = idx & 1;
-      cp_async16(ring + (st * NCOLS + c) * WLD + h * 8, wrow(c) + s * 16 + h * 8);
-    }
-  };
-  load(0, 0);
-  cp_async_commit();
-  for (int s = 0; s < KS; ++s) {
-    if (s + 1 < KS) {
-      load(s + 1, (s + 1) & 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const bf16* wt = ring + (s & 1) * NCOLS * WLD;
-    uint32_t a[MT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      ldsm_x4(a[mt], A + (mt * 16 + (lane & 15)) * lda + s * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int np = 0; np < NT / 2; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, wt + (warp * (NCOLS / 8) + np * 16 + (lane & 7) + (lane >> 4) * 8) * WLD +
-                     ((lane >> 3) & 1) * 8);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        mma16816(acc[mt][2 * np], a[mt], b[0], b[1]);
-        mma16816(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <int ROWS, int NCOLS>
-__device__ __forceinline__ void zero(float (&acc)[ROWS / 16][NCOLS / 64][4]) {
-#pragma unroll
-  for (int mt = 0; mt < ROWS / 16; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NCOLS / 64; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-}
-
-// Visit each accumulator element as fn(row, col, value) with the pairs of
-// adjacent columns together: fn(row, col, v0, v1).
-template <int ROWS, int NCOLS, typename Fn>
-__device__ __forceinline__ void each_pair(const float (&acc)[ROWS / 16][NCOLS / 64][4], Fn fn) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-#pragma unroll
-  for (int mt = 0; mt < ROWS / 16; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NCOLS / 64; ++nt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        fn(mt * 16 + g + hr * 8, warp * (NCOLS / 8) + nt * 8 + tig * 2, acc[mt][nt][2 * hr],
-           acc[mt][nt][2 * hr + 1]);
-}
-
-// LayerNorm of ROWS rows of C: fp32 mean and E[x^2], then
-// (x - bf16(mean)) * bf16(inv) * bf16(gamma) + bf16(beta), each step rounded.
-template <int ROWS, int C>
-__device__ __forceinline__ void layer_norm(const bf16* src, bf16* dst, int ld,
-                                           const float* gamma, const float* beta, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < ROWS; r += THREADS / 32) {
-    float s1 = 0.f, s2 = 0.f;
-    for (int c = lane * 2; c < C; c += 64) {
-      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(src + r * ld + c));
-      s1 += v.x + v.y;
-      s2 += v.x * v.x + v.y * v.y;
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-      s1 += __shfl_xor_sync(0xffffffffu, s1, o);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-    }
-    const float mean = s1 / C;
-    const float inv = rsqrtf(fmaxf(s2 / C - mean * mean, 0.f) + eps);
-    const bf16 mb = __float2bfloat16(mean), ib = __float2bfloat16(inv);
-    for (int c = lane; c < C; c += 32) {
-      const bf16 xn = __hmul(__hsub(src[r * ld + c], mb), ib);
-      dst[r * ld + c] = __hadd(__hmul(xn, __float2bfloat16(gamma[c])), __float2bfloat16(beta[c]));
-    }
-  }
-}
 
 // ----------------------------------------------------------------------------
 // head
@@ -421,9 +298,180 @@ __global__ void __launch_bounds__(THREADS, 1) tail_kernel(
   });
 }
 
-template <typename K>
-cudaError_t prepare(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ----------------------------------------------------------------------------
+// single: x + to_out(Attn(LN(x); k, v)) for the attn2 of every other block
+// ----------------------------------------------------------------------------
+
+// C in {320, 640, 1024, 1280} with head dim D = C / 8 (and 512 / 64). Two
+// (ROWS, C) bf16 tiles: the normalised rows, then q, which the attention
+// overwrites with its output head by head. 64 rows up to C = 640 and 32
+// above keep both tiles and the ring within 227 KB (189 KB at C = 1280).
+template <int C>
+struct Single {
+  static constexpr int ROWS = C > 640 ? 32 : 64;
+  static constexpr int LD = C + 8;
+  static constexpr int NC = C % 256 ? 128 : 256;  // output columns per product pass
+  static constexpr size_t SMEM = 2 * (size_t)ROWS * LD * 2 + 2 * (size_t)NC * WLD * 2;
+};
+
+template <int C, int D>
+__global__ void __launch_bounds__(THREADS, 1) single_kernel(const bf16* __restrict__ x,
+                                                           AttnArgs p, bf16* __restrict__ out,
+                                                           int N, int L, float scale, float eps) {
+  static_assert(D % 8 == 0 && C % D == 0, "head dim a multiple of 8");
+  constexpr int ROWS = Single<C>::ROWS, LD = Single<C>::LD, NC = Single<C>::NC, H = C / D;
+  constexpr int KSTEPS = (D + 15) / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* XN = reinterpret_cast<bf16*>(smem);
+  bf16* Q = XN + ROWS * LD;
+  bf16* ring = Q + ROWS * LD;
+  const int brow = blockIdx.y, r0 = blockIdx.x * ROWS;
+  const bf16* xb = x + (size_t)brow * N * C;
+  bf16* ob = out + (size_t)brow * N * C;
+
+  for (int idx = threadIdx.x; idx < ROWS * C / 8; idx += THREADS) {
+    const int r = idx / (C / 8), c8 = idx % (C / 8);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < N) v = *reinterpret_cast<const uint4*>(xb + (size_t)(r0 + r) * C + c8 * 8);
+    *reinterpret_cast<uint4*>(XN + r * LD + c8 * 8) = v;
+  }
+  __syncthreads();
+  layer_norm<ROWS, C>(XN, XN, LD, p.gamma, p.beta, eps);
+  for (int n0 = 0; n0 < C; n0 += NC) {  // q = bf16(LN(x) Wq^T * scale)
+    float acc[ROWS / 16][NC / 64][4];
+    zero<ROWS, NC>(acc);
+    gemm<ROWS, NC, C>(acc, XN, LD, [&](int c) { return p.wq + (size_t)min(n0 + c, C - 1) * C; },
+                      ring);
+    each_pair<ROWS, NC>(acc, [&](int r, int c, float v0, float v1) {
+      if (n0 + c < C)
+        *reinterpret_cast<__nv_bfloat162*>(Q + r * LD + n0 + c) =
+            __floats2bfloat162_rn(v0 * scale, v1 * scale);
+    });
+  }
+  __syncthreads();
+
+  // one (16 tokens, head) item per warp at a time; its output overwrites its
+  // own q. A head dim that is not a multiple of 16 (40) ends in a half k-step
+  // whose upper 8 columns belong to the next head: those q and k fragment
+  // registers are zeroed.
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
+  const bf16* kb = p.k + (size_t)brow * KV * C;
+  const bf16* vb = p.vt + (size_t)brow * C * KV;
+  for (int item = warp; item < (ROWS / 16) * H; item += THREADS / 32) {
+    const int rg = item % (ROWS / 16), h = item / (ROWS / 16);
+    float s[KV / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < KV / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      const bool upper = kk * 16 + 8 < D;
+      uint32_t qa[4];
+      ldsm_x4(qa, Q + (rg * 16 + (lane & 15)) * LD + h * D + kk * 16 + (lane >> 4) * 8);
+      if (!upper) qa[2] = qa[3] = 0u;
+#pragma unroll
+      for (int nt = 0; nt < KV / 8; ++nt) {
+        const bf16* kr = kb + (size_t)(nt * 8 + g) * C + h * D + kk * 16 + tig * 2;
+        mma16816(s[nt], qa, ld32(kr), upper ? ld32(kr + 8) : 0u);
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nt = 0; nt < KV / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (nt * 8 + tig * 2 + (e & 1) >= L) s[nt][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+      }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    }
+#pragma unroll
+    for (int nt = 0; nt < KV / 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = expf(s[nt][e] - mx[e >> 1]);
+        sum[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
+      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
+    }
+    float o[D / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < KV / 16; ++j) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * j][0] / sum[0], s[2 * j][1] / sum[0]),
+          pack_bf16(s[2 * j][2] / sum[1], s[2 * j][3] / sum[1]),
+          pack_bf16(s[2 * j + 1][0] / sum[0], s[2 * j + 1][1] / sum[0]),
+          pack_bf16(s[2 * j + 1][2] / sum[1], s[2 * j + 1][3] / sum[1])};
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const bf16* vr = vb + (size_t)(h * D + nt * 8 + g) * KV + j * 16 + tig * 2;
+        mma16816(o[nt], pa, ld32(vr), ld32(vr + 8));
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr)
+        *reinterpret_cast<__nv_bfloat162*>(Q + (rg * 16 + g + hr * 8) * LD + h * D + nt * 8 +
+                                           tig * 2) =
+            __floats2bfloat162_rn(o[nt][2 * hr], o[nt][2 * hr + 1]);
+  }
+  __syncthreads();
+
+  for (int n0 = 0; n0 < C; n0 += NC) {  // out = bf16(bf16(o Wo^T + bo) + x)
+    float acc[ROWS / 16][NC / 64][4];
+    zero<ROWS, NC>(acc);
+    gemm<ROWS, NC, C>(acc, Q, LD, [&](int c) { return p.wo + (size_t)min(n0 + c, C - 1) * C; },
+                      ring);
+    each_pair<ROWS, NC>(acc, [&](int r, int c, float v0, float v1) {
+      if (n0 + c >= C || r0 + r >= N) return;
+      const size_t off = (size_t)(r0 + r) * C + n0 + c;
+      *reinterpret_cast<__nv_bfloat162*>(ob + off) =
+          __hadd2(__floats2bfloat162_rn(v0 + p.bo[n0 + c], v1 + p.bo[n0 + c + 1]),
+                  *reinterpret_cast<const __nv_bfloat162*>(xb + off));
+    });
+  }
+}
+
+// The LayerNorm alone, 8 rows a block (one per warp), for the bit-exact
+// test of its roundings: out (N, C) bf16 and each row's fp32 (mean, inv).
+template <int C>
+__global__ void __launch_bounds__(THREADS) layer_norm_kernel(const bf16* __restrict__ x,
+                                                            const float* __restrict__ gamma,
+                                                            const float* __restrict__ beta,
+                                                            bf16* __restrict__ out,
+                                                            float2* __restrict__ stats, int N,
+                                                            float eps) {
+  constexpr int ROWS = THREADS / 32, LD = C + 8;
+  __shared__ __align__(16) unsigned char raw[ROWS * LD * 2];
+  __shared__ float2 st[ROWS];
+  bf16* T = reinterpret_cast<bf16*>(raw);
+  const int r0 = blockIdx.x * ROWS;
+  for (int idx = threadIdx.x; idx < ROWS * C / 8; idx += THREADS) {
+    const int r = idx / (C / 8), c8 = idx % (C / 8);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < N) v = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + c8 * 8);
+    *reinterpret_cast<uint4*>(T + r * LD + c8 * 8) = v;
+  }
+  __syncthreads();
+  layer_norm<ROWS, C>(T, T, LD, gamma, beta, eps, st);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < ROWS * C / 8; idx += THREADS) {
+    const int r = idx / (C / 8), c8 = idx % (C / 8);
+    if (r0 + r < N)
+      *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * C + c8 * 8) =
+          *reinterpret_cast<const uint4*>(T + r * LD + c8 * 8);
+  }
+  if (threadIdx.x < ROWS && r0 + threadIdx.x < N) stats[r0 + threadIdx.x] = st[threadIdx.x];
 }
 
 template <int C>
@@ -450,6 +498,26 @@ cudaError_t launch_tail(const void* x, const void* r, const void* g3, const void
       static_cast<const float*>(b3), static_cast<const bf16*>(w0), static_cast<const float*>(b0),
       static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<const bf16*>(wpo),
       static_cast<const float*>(bpo), static_cast<bf16*>(out), N, eps);
+  return cudaGetLastError();
+}
+
+template <int C, int D>
+cudaError_t launch_single(const void* x, const AttnArgs& a, void* out, int B, int N, int L,
+                          float scale, float eps, cudaStream_t st) {
+  cudaError_t err = prepare(single_kernel<C, D>, Single<C>::SMEM);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + Single<C>::ROWS - 1) / Single<C>::ROWS, B);
+  single_kernel<C, D><<<grid, THREADS, Single<C>::SMEM, st>>>(
+      static_cast<const bf16*>(x), a, static_cast<bf16*>(out), N, L, scale, eps);
+  return cudaGetLastError();
+}
+
+template <int C>
+cudaError_t launch_layer_norm(const void* x, const void* g, const void* b, void* out, void* stats,
+                              int N, float eps, cudaStream_t st) {
+  layer_norm_kernel<C><<<(N + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, st>>>(
+      static_cast<const bf16*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
+      static_cast<bf16*>(out), static_cast<float2*>(stats), N, eps);
   return cudaGetLastError();
 }
 
@@ -499,6 +567,47 @@ extern "C" int transformer_tail_bf16(const void* x, const void* r, const void* g
     case 128: return (int)launch_tail<128>(x, r, g3, b3, w0, b0, w2, b2, wpo, bpo, out, N, eps, st);
     case 256: return (int)launch_tail<256>(x, r, g3, b3, w0, b0, w2, b2, wpo, bpo, out, N, eps, st);
     case 512: return (int)launch_tail<512>(x, r, g3, b3, w0, b0, w2, b2, wpo, bpo, out, N, eps, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// x, out (B, N, C) bf16, any N >= 1; wq, wo (C, C) bf16; g, b, bo (C) fp32;
+// k (B, 80, C) bf16 zero-padded past L text keys; vt (B, C, 80) bf16 the
+// transposed, padded values. (C, D) in {(320, 40), (640, 80), (1024, 128),
+// (1280, 160), (512, 64)}, L <= 80. Returns cudaGetLastError().
+extern "C" int fused_ln_cross_attention_bf16(const void* x, const void* g, const void* b,
+                                             const void* wq, const void* wo, const void* bo,
+                                             const void* k, const void* vt, void* out, int B,
+                                             int N, int C, int D, int L, float scale, float eps,
+                                             void* stream) {
+  if (B < 1 || N < 1 || L < 1 || L > KV) return (int)cudaErrorInvalidValue;
+  const AttnArgs a = attn_args(g, b, wq, wo, bo, k, vt);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C == 320 && D == 40) return (int)launch_single<320, 40>(x, a, out, B, N, L, scale, eps, st);
+  if (C == 640 && D == 80) return (int)launch_single<640, 80>(x, a, out, B, N, L, scale, eps, st);
+  if (C == 1024 && D == 128)
+    return (int)launch_single<1024, 128>(x, a, out, B, N, L, scale, eps, st);
+  if (C == 1280 && D == 160)
+    return (int)launch_single<1280, 160>(x, a, out, B, N, L, scale, eps, st);
+  if (C == 512 && D == 64) return (int)launch_single<512, 64>(x, a, out, B, N, L, scale, eps, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The kernels' LayerNorm alone: x, out (N, C) bf16; g, b (C) fp32; stats
+// (N, 2) fp32 each row's (mean, inv). C in {128, 256, 320, 512, 640, 1024,
+// 1280}. Returns cudaGetLastError().
+extern "C" int layer_norm_bf16(const void* x, const void* g, const void* b, void* out,
+                               void* stats, int N, int C, float eps, void* stream) {
+  if (N < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 128: return (int)launch_layer_norm<128>(x, g, b, out, stats, N, eps, st);
+    case 256: return (int)launch_layer_norm<256>(x, g, b, out, stats, N, eps, st);
+    case 320: return (int)launch_layer_norm<320>(x, g, b, out, stats, N, eps, st);
+    case 512: return (int)launch_layer_norm<512>(x, g, b, out, stats, N, eps, st);
+    case 640: return (int)launch_layer_norm<640>(x, g, b, out, stats, N, eps, st);
+    case 1024: return (int)launch_layer_norm<1024>(x, g, b, out, stats, N, eps, st);
+    case 1280: return (int)launch_layer_norm<1280>(x, g, b, out, stats, N, eps, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -2,9 +2,9 @@
 
 Each `csrc/<name>.cu` has a plain C interface. At first use it is compiled
 with nvcc for Hopper (sm_90a) into `build/lib<name>-<hash>.so` at the root of
-the checkout and loaded with ctypes. The hash is of the source, so an edited
-kernel is rebuilt and a stale library is never loaded. Nothing here runs at
-import time.
+the checkout and loaded with ctypes. The hash is of the source and of the
+headers in csrc/ (`*.cuh`), so an edited kernel or header is rebuilt and a
+stale library is never loaded. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:12]
     return BUILD / f"lib{name}-{digest}.so"
 
 
@@ -89,6 +92,36 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _libs[name] = lib
     return lib
+
+
+def function(name: str, entry: str, n_ptr: int, n_int: int, n_float: int):
+    """The C entry point `entry` of csrc/<name>.cu, typed as n_ptr pointers,
+    n_int ints, n_float floats and the stream, returning a cudaError_t."""
+    fn = getattr(load(name), entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float] * n_float
+                   + [ctypes.c_void_p])
+    return fn
+
+
+def sass_op_counts(path) -> Dict[str, Dict[str, int]]:
+    """Instruction counts per kernel in the SASS of a built library
+    (`cuobjdump -sass`, from nvcc's toolkit): {mangled kernel name: {opcode
+    with its modifiers, e.g. "HFMA2.BF16_V2": count}}. Shows what ptxas
+    made of the source, such as a product and a sum fused into one fma."""
+    cuobjdump = Path(_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(path)], check=True, capture_output=True,
+                          text=True).stdout
+    counts: Dict[str, Dict[str, int]] = {}
+    ops = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            ops = counts.setdefault(line.split("Function : ", 1)[1].strip(), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and ops is not None:
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return counts
 
 
 def check(err: int, what: str) -> None:

@@ -1,27 +1,31 @@
 """The VSR only-cross transformer block as two fused passes around the
-frame-axis temporal attention (port of lavie_tpu.kernels.cross_block):
+frame-axis temporal attention, and the text cross-attention of every other
+block as one (port of lavie_tpu.kernels.cross_block):
 
-  cross_attention_head   xp = x·Wpiᵀ + bpi                  (proj_in)
-                         x1 = xp + Attn(LN1(xp); k1, v1)     (attn1, text kv)
-                         x2 = x1 + Attn(LN2(x1); k2, v2)     (attn2, text kv)
-  transformer_tail       y = proj_out(GEGLU_ff(LN3(x)) + x) + residual
+  cross_attention_head      xp = x·Wpiᵀ + bpi                  (proj_in)
+                            x1 = xp + Attn(LN1(xp); k1, v1)     (attn1, text kv)
+                            x2 = x1 + Attn(LN2(x1); k2, v2)     (attn2, text kv)
+  transformer_tail          y = proj_out(GEGLU_ff(LN3(x)) + x) + residual
+  fused_ln_cross_attention  y = x + Attn(LN(x); k, v)           (attn2, opt-in)
 
 x is (B, N, C) with N = F·S tokens per batch row; k/v are the projected
 text states (B, L, C), one row per video, shared by all its frames. Weights
 are nn.Linear (out, in). The CUDA kernels (csrc/cross_block.cu) replace
-`_head_kernel` and `_tail_kernel`; the plain versions repeat the TPU
-kernels' arithmetic: LayerNorm statistics in fp32 with the elementwise
-steps in the activation dtype, products accumulated in fp32, q scaled in
-fp32 then rounded, fp32 softmax whose probabilities are rounded before P·V,
-each residual added in the activation dtype.
+`_head_kernel`, `_tail_kernel` and `_single_kernel`; the plain versions
+repeat the TPU kernels' arithmetic: LayerNorm statistics in fp32 with the
+elementwise steps in the activation dtype, products accumulated in fp32, q
+scaled in fp32 then rounded, fp32 softmax whose probabilities are rounded
+before P·V, each residual added in the activation dtype.
 
   cross_attention_head(_reference)
   transformer_tail(_reference)
+  fused_ln_cross_attention(_reference)   head dims 40/80/128/160 (and 64) at
+                                         C = 8 heads × d, any N
+  layer_norm_on_card                     the kernels' LayerNorm alone (tests)
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -32,6 +36,8 @@ from lavie_tpu_torch.kernels import _build
 HEAD_DIM = 64
 MAX_KV = 80  # text keys, padded to 80 (5 k-steps of 16) inside the kernel
 KERNEL_WIDTHS = (128, 256, 512)
+FUSED_SHAPES = ((320, 40), (640, 80), (1024, 128), (1280, 160), (512, 64))  # (C, head dim)
+LN_WIDTHS = (128, 256, 320, 512, 640, 1024, 1280)
 _ROWS = 32768  # the plain tail takes this many tokens at a time (fp32 hidden ≤ 2 GB at C=512)
 
 AttnParams = Tuple[torch.Tensor, ...]  # (gamma, beta, wq, wo, bo, k, v)
@@ -52,7 +58,8 @@ def _linear32(x: torch.Tensor, w: torch.Tensor, b=None) -> torch.Tensor:
     return F.linear(x.float(), w.float(), None if b is None else b.float())
 
 
-def _attend(x: torch.Tensor, p: AttnParams, heads: int, scale: float, eps: float) -> torch.Tensor:
+def fused_ln_cross_attention_reference(x: torch.Tensor, p: AttnParams, heads: int, scale: float,
+                                       eps: float = 1e-5) -> torch.Tensor:
     """x + to_out(softmax(LN(x)·Wqᵀ·scale · kᵀ)·v), per batch row of k/v."""
     gamma, beta, wq, wo, bo, k, v = p
     b, n, c = x.shape
@@ -69,7 +76,8 @@ def cross_attention_head_reference(x: torch.Tensor, wpi: torch.Tensor, bpi: torc
                                    attn1: AttnParams, attn2: AttnParams, heads: int,
                                    scale: float, eps: float = 1e-5) -> torch.Tensor:
     xp = _linear32(x, wpi, bpi).to(x.dtype)
-    return _attend(_attend(xp, attn1, heads, scale, eps), attn2, heads, scale, eps)
+    attend = fused_ln_cross_attention_reference
+    return attend(attend(xp, attn1, heads, scale, eps), attn2, heads, scale, eps)
 
 
 def transformer_tail_reference(x: torch.Tensor, residual: torch.Tensor, g3: torch.Tensor,
@@ -94,7 +102,7 @@ def _check(name: str, x: torch.Tensor, weights, f32) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if any(t.dtype != torch.bfloat16 for t in weights):
-        raise TypeError(f"{name} kernel takes bf16 activations, weights and text keys/values")
+        raise TypeError(f"{name} kernel takes bf16 activations and weights")
     if any(t.dtype != torch.float32 for t in f32):
         raise TypeError(f"{name} kernel takes fp32 biases and LayerNorm parameters")
     if any(t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16
@@ -102,12 +110,15 @@ def _check(name: str, x: torch.Tensor, weights, f32) -> None:
         raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned tensors on one device")
 
 
-def _fn(entry: str, n_ptr: int, n_int: int, n_float: int):
-    fn = getattr(_build.load("cross_block"), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float] * n_float + [
-        ctypes.c_void_p]
-    return fn
+def _pad_kv(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """Keys padded to MAX_KV rows, values transposed to (B, C, MAX_KV): both
+    are then read along contiguous rows by the tensor-core fragments."""
+    b, lkv, c = k.shape
+    kp = x.new_zeros(b, MAX_KV, c)
+    kp[:, :lkv] = k
+    vt = x.new_zeros(b, c, MAX_KV)
+    vt[:, :, :lkv] = v.transpose(1, 2)
+    return kp, vt
 
 
 def cross_attention_head(x: torch.Tensor, wpi: torch.Tensor, bpi: torch.Tensor,
@@ -129,20 +140,12 @@ def cross_attention_head(x: torch.Tensor, wpi: torch.Tensor, bpi: torch.Tensor,
                                   or a[2].shape != (c, c) or a[3].shape != (c, c)
                                   for a in (attn1, attn2)):
         raise ValueError(f"{name}: weight or text key/value shapes do not match x")
-    # keys padded to MAX_KV rows, values transposed to (B, C, MAX_KV): both
-    # are then read along contiguous rows by the tensor-core fragments
-    kv = []
-    for a in (attn1, attn2):
-        kp = x.new_zeros(b, MAX_KV, c)
-        kp[:, :lkv] = a[5]
-        vt = x.new_zeros(b, c, MAX_KV)
-        vt[:, :, :lkv] = a[6].transpose(1, 2)
-        kv.append((kp, vt))
+    kv = [_pad_kv(x, a[5], a[6]) for a in (attn1, attn2)]
     bf = [x, wpi, attn1[2], attn1[3], attn2[2], attn2[3], *kv[0], *kv[1]]
     f32 = [bpi, attn1[0], attn1[1], attn1[4], attn2[0], attn2[1], attn2[4]]
     _check(name, x, bf, f32)
     out = torch.empty_like(x)
-    fn = _fn("cross_attention_head_bf16", 18, 4, 2)
+    fn = _build.function("cross_block", "cross_attention_head_bf16", 18, 4, 2)
     err = fn(x.data_ptr(), wpi.data_ptr(), bpi.data_ptr(),
              attn1[0].data_ptr(), attn1[1].data_ptr(), attn1[2].data_ptr(), attn1[3].data_ptr(),
              attn1[4].data_ptr(), kv[0][0].data_ptr(), kv[0][1].data_ptr(),
@@ -172,7 +175,7 @@ def transformer_tail(x: torch.Tensor, residual: torch.Tensor, g3: torch.Tensor, 
         raise ValueError(f"{name}: weight shapes do not match x")
     _check(name, x, [x, residual, w0, w2, wpo], [g3, b3, b0, b2, bpo])
     out = torch.empty_like(x)
-    fn = _fn("transformer_tail_bf16", 11, 2, 1)
+    fn = _build.function("cross_block", "transformer_tail_bf16", 11, 2, 1)
     err = fn(x.data_ptr(), residual.data_ptr(), g3.data_ptr(), b3.data_ptr(), w0.data_ptr(),
              b0.data_ptr(), w2.data_ptr(), b2.data_ptr(), wpo.data_ptr(), bpo.data_ptr(),
              out.data_ptr(), x.numel() // c, c, float(eps),
@@ -182,5 +185,53 @@ def transformer_tail(x: torch.Tensor, residual: torch.Tensor, g3: torch.Tensor, 
     return out
 
 
+def fused_ln_cross_attention(x: torch.Tensor, p: AttnParams, heads: int, scale: float,
+                             eps: float = 1e-5) -> torch.Tensor:
+    """x + to_out(Attn(LN(x)·Wq; k, v)) over x (B, N, C) with p = (gamma,
+    beta, wq, wo, bo, k, v), k and v (B, L, C) one row per batch row of x. On
+    a CUDA tensor this launches the kernel, or raises for what it does not
+    take ((C, head dim) not in FUSED_SHAPES, more than 80 text keys, dtypes
+    other than bf16 tensors with fp32 biases and LayerNorm parameters,
+    non-contiguous or misaligned tensors)."""
+    if x.device.type == "cpu":
+        return fused_ln_cross_attention_reference(x, p, heads, scale, eps)
+    name = "fused_ln_cross_attention"
+    gamma, beta, wq, wo, bo, k, v = p
+    b, n, c = x.shape
+    lkv = k.shape[1]
+    if (c, c // heads) not in FUSED_SHAPES or c % heads or lkv > MAX_KV or n < 1:
+        raise ValueError(f"{name} kernel: x {tuple(x.shape)}, heads={heads}, {lkv} text keys")
+    if wq.shape != (c, c) or wo.shape != (c, c) or k.shape != (b, lkv, c) or v.shape != k.shape:
+        raise ValueError(f"{name}: weight or text key/value shapes do not match x")
+    kp, vt = _pad_kv(x, k, v)
+    _check(name, x, [x, wq, wo, kp, vt], [gamma, beta, bo])
+    out = torch.empty_like(x)
+    fn = _build.function("cross_block", "fused_ln_cross_attention_bf16", 9, 5, 2)
+    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wq.data_ptr(), wo.data_ptr(),
+             bo.data_ptr(), kp.data_ptr(), vt.data_ptr(), out.data_ptr(), b, n, c, c // heads,
+             lkv, float(scale), float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, name)
+    fused_ln_cross_attention.launches += 1
+    return out
+
+
+def layer_norm_on_card(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                       eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' LayerNorm alone over x (N, C) bf16 on the card, C in
+    LN_WIDTHS: (the normalised rows, each row's fp32 (mean, inv) as (N, 2)),
+    for the test that holds its roundings against _layer_norm's."""
+    n, c = x.shape
+    if c not in LN_WIDTHS:
+        raise ValueError(f"layer_norm kernel: width {c}")
+    _check("layer_norm", x, [x], [gamma, beta])
+    out, stats = torch.empty_like(x), x.new_empty(n, 2, dtype=torch.float32)
+    fn = _build.function("cross_block", "layer_norm_bf16", 5, 2, 1)
+    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), stats.data_ptr(), n, c,
+             float(eps), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "layer_norm")
+    return out, stats
+
+
 cross_attention_head.launches = 0
 transformer_tail.launches = 0
+fused_ln_cross_attention.launches = 0

@@ -9,8 +9,9 @@ lavie_tpu.nn.attention):
   - TemporalAttention: frame-axis attention over (B, F, S, C), variant
     "rope_relbias" (partial RoPE on q/k + relative-position bias, base) or
     "plain" (interpolation), computed by the fused temporal kernel
-    (kernels/temporal_fused.py); LAVIE_TEMPORAL_KERNEL=1 takes the JAX
-    package's opt-in "folded" route instead (TemporalAttention.folded)
+    (kernels/temporal_fused.py) in TemporalAttention.core, between the
+    projections; LAVIE_TEMPORAL_KERNEL=1 takes the JAX package's opt-in
+    "folded" route instead (TemporalAttention.folded)
   - SparseCausalAttention: each frame attends to frames {0, i-1} of its
     video (interpolation), computed by the sparse-causal flash kernel
     (kernels/flash_attention.py)
@@ -55,8 +56,11 @@ class Attention(nn.Module):
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
 
     def forward(self, hidden_states: torch.Tensor,
-                encoder_hidden_states: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """hidden_states (B, S, C); encoder_hidden_states (B, L, D) or None."""
+                encoder_hidden_states: Optional[torch.Tensor] = None,
+                implementation: str = "auto") -> torch.Tensor:
+        """hidden_states (B, S, C); encoder_hidden_states (B, L, D) or None.
+        `implementation` goes to dot_product_attention ("cross": the
+        short-kv kernel, for a text cross-attention)."""
         context = hidden_states if encoder_hidden_states is None else encoder_hidden_states
         b, s, _ = hidden_states.shape
         sk = context.shape[1]
@@ -66,7 +70,7 @@ class Attention(nn.Module):
         if encoder_hidden_states is None and s >= FLASH_MIN_SEQ and self.head_dim % 128 == 0:
             out = flash_attention(q, k, v, scale=self.head_dim ** -0.5)
         else:
-            out = dot_product_attention(q, k, v)
+            out = dot_product_attention(q, k, v, implementation=implementation)
         return self.to_out[0](out.reshape(b, s, self.heads * self.head_dim))
 
 
@@ -150,24 +154,25 @@ class TemporalAttention(nn.Module):
         return self._tables[key]
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        """hidden_states (B, F, S, C) → (B, F, S, C). A rope_relbias call
-        with F ≤ 16 takes the folded route when LAVIE_TEMPORAL_KERNEL=1 is
-        in the environment, read at each call."""
-        if (self.variant == "rope_relbias" and hidden_states.shape[1] <= FOLDED_MAX_FRAMES
+        """hidden_states (B, F, S, C) → (B, F, S, C)."""
+        h = hidden_states
+        return self.to_out[0](self.core(self.to_q(h), self.to_k(h), self.to_v(h)))
+
+    def core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        """The attention between the projections, on q, k, v (B, F, S, C). A
+        rope_relbias call with F ≤ 16 takes the folded route when
+        LAVIE_TEMPORAL_KERNEL=1 is in the environment, read at each call."""
+        if (self.variant == "rope_relbias" and q.shape[1] <= FOLDED_MAX_FRAMES
                 and os.environ.get("LAVIE_TEMPORAL_KERNEL") == "1"):
-            return self.folded(hidden_states)
+            return self.folded(q, k, v)
         cos = sin = bias = None
         if self.variant == "rope_relbias":
-            cos, sin, buckets = self._frame_tables(hidden_states.shape[1], hidden_states.device)
+            cos, sin, buckets = self._frame_tables(q.shape[1], q.device)
             bias = self.time_rel_pos_bias(buckets).float().contiguous()  # (H, F, F)
-        out = temporal_attention(
-            self.to_q(hidden_states), self.to_k(hidden_states), self.to_v(hidden_states),
-            bias, cos, sin, scale=self.head_dim ** -0.5, rope_dim=self.rope_dim,
-            heads=self.heads,
-        )
-        return self.to_out[0](out)
+        return temporal_attention(q, k, v, bias, cos, sin, scale=self.head_dim ** -0.5,
+                                  rope_dim=self.rope_dim, heads=self.heads)
 
-    def folded(self, hidden_states: torch.Tensor) -> torch.Tensor:
+    def folded(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """The JAX package's opt-in route (lavie_tpu.nn.attention's
         TemporalAttention.folded): RoPE is applied to q and k here, in their
         dtype with the tables cast to it, then temporal_attention_folded
@@ -175,16 +180,13 @@ class TemporalAttention(nn.Module):
         own. On the TPU the channel-major route took precedence wherever its
         TPU-specific gate held; the port copies no TPU gate, so under the
         switch this route takes every rope_relbias call with F ≤ 16."""
-        b, f, s, c = hidden_states.shape
-        cos, sin, buckets = self._frame_tables(f, hidden_states.device)
+        b, f, s, c = q.shape
+        cos, sin, buckets = self._frame_tables(f, q.device)
         bias = self.time_rel_pos_bias(buckets).float().contiguous()  # (H, F, F)
         shape5 = (b, f, s, self.heads, self.head_dim)
-        q = self.to_q(hidden_states).view(shape5)
-        k = self.to_k(hidden_states).view(shape5)
         cs = cos.to(q.dtype)[:, None, None, :]  # (F, 1, 1, rot/2) onto (b, f, s, h, d)
         sn = sin.to(q.dtype)[:, None, None, :]
-        q = apply_rope_half(q, cs, sn).reshape(b, f, s, c)
-        k = apply_rope_half(k, cs, sn).reshape(b, f, s, c)
-        out = temporal_attention_folded(q, k, self.to_v(hidden_states), bias,
-                                        scale=self.head_dim ** -0.5, heads=self.heads)
-        return self.to_out[0](out)
+        q = apply_rope_half(q.view(shape5), cs, sn).reshape(b, f, s, c)
+        k = apply_rope_half(k.view(shape5), cs, sn).reshape(b, f, s, c)
+        return temporal_attention_folded(q, k, v, bias, scale=self.head_dim ** -0.5,
+                                         heads=self.heads)

@@ -13,20 +13,49 @@ residual, and its one-layer only-cross block runs as two fused passes
 around the temporal attention (kernels/cross_block.py): the head
 [proj_in → LN1+attn1 → LN2+attn2] and the tail [LN3 → GEGLU → proj_out →
 + residual].
+
+Two opt-in switches, read from the environment at each call and off by
+default, replace module boundaries with kernels (they change no parameter):
+  LAVIE_ATTN2=cross        attn2 runs its attention through the short-kv
+                           kernel (dot_product_attention "cross")
+  LAVIE_ATTN2=fused        norm2 + attn2 + residual run as one kernel
+                           (kernels/cross_block.fused_ln_cross_attention)
+  LAVIE_TEMPORAL_PROJ=1    norm_temp + attn_temp's q/k/v projections, and its
+                           out-projection + residual, run as the two kernels
+                           of kernels/temporal_proj.py around the attention
+                           core (TemporalAttention.core)
+The only-cross VSR blocks keep their head kernel for attn2.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
 from torch import nn
 
-from lavie_tpu_torch.kernels.cross_block import cross_attention_head, transformer_tail
+from lavie_tpu_torch.kernels.cross_block import (
+    cross_attention_head,
+    fused_ln_cross_attention,
+    transformer_tail,
+)
 from lavie_tpu_torch.kernels.geglu import geglu
+from lavie_tpu_torch.kernels.temporal_proj import ln_qkv, out_proj_residual
 from lavie_tpu_torch.nn.attention import Attention, SparseCausalAttention, TemporalAttention
 from lavie_tpu_torch.nn.layers import GroupNorm
 from lavie_tpu_torch.nn.resnet import ResnetBlock3DCNN
+
+ATTN2_ROUTES = ("", "cross", "fused")
+
+
+def attn2_route() -> str:
+    """LAVIE_ATTN2: "" (unset: PyTorch's attention operator), "cross" or
+    "fused"; any other value raises."""
+    route = os.environ.get("LAVIE_ATTN2", "")
+    if route not in ATTN2_ROUTES:
+        raise ValueError(f"LAVIE_ATTN2={route!r}: one of 'cross', 'fused', or unset")
+    return route
 
 
 class GEGLU(nn.Module):
@@ -106,7 +135,13 @@ class BasicTransformerBlock(nn.Module):
         else:
             x = self.attn1(self.norm1(hidden_states)) + hidden_states
         if self.attn2 is not None:
-            x = text(self.attn2, self.norm2, x)
+            route = attn2_route()
+            if route == "fused":
+                x = self.fused_attn2(x.view(b, video_length * s, c), encoder_hidden_states).view(bf, s, c)
+            elif route == "cross":
+                x = text(lambda h, e: self.attn2(h, e, implementation="cross"), self.norm2, x)
+            else:
+                x = text(self.attn2, self.norm2, x)
         if self.ff_before_temporal:
             x = self.ff(self.norm3(x)) + x
         x = self.apply_temporal(x, video_length)
@@ -114,11 +149,28 @@ class BasicTransformerBlock(nn.Module):
             x = self.ff(self.norm3(x)) + x
         return x
 
+    def fused_attn2(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+        """x + attn2(norm2(x)) in one kernel over x (B, F·S, C); the text keys
+        and values are projected once per video (B, L, C)."""
+        a = self.attn2
+        p = (self.norm2.weight.float(), self.norm2.bias.float(), a.to_q.weight, a.to_out[0].weight,
+             a.to_out[0].bias.float(), a.to_k(encoder_hidden_states), a.to_v(encoder_hidden_states))
+        return fused_ln_cross_attention(x, p, heads=a.heads, scale=a.head_dim ** -0.5,
+                                        eps=self.norm2.eps)
+
     def apply_temporal(self, x: torch.Tensor, video_length: int) -> torch.Tensor:
-        """x + attn_temp(norm_temp(x)) over (B·F, S, C) tokens."""
+        """x + attn_temp(norm_temp(x)) over (B·F, S, C) tokens; with
+        LAVIE_TEMPORAL_PROJ=1 (read at each call) the two projection kernels
+        around the attention core."""
         bf, s, c = x.shape
         x4 = x.view(bf // video_length, video_length, s, c)
-        return (self.attn_temp(self.norm_temp(x4)) + x4).view(bf, s, c)
+        if os.environ.get("LAVIE_TEMPORAL_PROJ") != "1":
+            return (self.attn_temp(self.norm_temp(x4)) + x4).view(bf, s, c)
+        at, norm = self.attn_temp, self.norm_temp
+        q, k, v = ln_qkv(x4, norm.weight.float(), norm.bias.float(), at.to_q.weight,
+                         at.to_k.weight, at.to_v.weight, eps=norm.eps)
+        out = out_proj_residual(at.core(q, k, v), x4, at.to_out[0].weight, at.to_out[0].bias.float())
+        return out.view(bf, s, c)
 
     def fused_only_cross(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor,
                          video_length: int, proj_in: nn.Linear, proj_out: nn.Linear,

@@ -97,3 +97,23 @@ def test_turbo_is_off_by_default_at_every_entry_point():
     for fn in (VideoCascadePipeline.init_random, Predictor.setup):
         params = inspect.signature(fn).parameters
         assert params["conv_quant"].default == "none" and params["conv_quant_exclude"].default == ()
+
+
+def test_every_new_module_is_checked():
+    """The text cross-attention, temporal projection and host codec modules
+    are among the files the import checks above walk."""
+    checked = {str(p.relative_to(ROOT)) for p in FILES}
+    for rel in ("kernels/cross_attention.py", "kernels/temporal_proj.py", "native/__init__.py",
+                "native/mjpeg.py"):
+        assert f"lavie_tpu_torch/{rel}" in checked
+
+
+def test_native_codec_builds_beside_the_kernels():
+    """The port's MJPEG/AVI loader compiles into build/ at the root of the
+    checkout, as the CUDA kernels do, never into the package directory."""
+    from lavie_tpu_torch.kernels import _build
+    from lavie_tpu_torch.native import mjpeg
+
+    assert mjpeg.BUILD == _build.BUILD == ROOT / "build"
+    assert mjpeg.library_path().parent == ROOT / "build"
+    assert mjpeg.SRC == ROOT / "csrc" / "mjpeg_avi.c"
