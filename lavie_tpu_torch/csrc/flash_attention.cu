@@ -28,35 +28,39 @@
 // What bounds it on the H100: tensor-core operations at the two large
 // interpolation levels (L0: S=2560, d=40, 4*S*2S*d flops per row and head,
 // 2.05 TFLOP per call, ~2.1 ms at 989 TFLOP/s; L1 0.26 ms), device-memory
-// bytes at the two small ones (each of q, k, v, out moved once). The fp32
-// score matrix (51 GB at L0) must never exist: the kernel streams it.
+// bytes at the two small ones (each of q, k, v, out moved once); at d=40
+// also the exponentials, one per 160 flops of the products. The fp32 score
+// matrix (51 GB at L0) must never exist: the kernel streams it.
 //
-// What the design does about it: one block of 4 warps per (query row,
-// head, 64 query positions); each warp owns 16 query positions. The loop
-// walks the keys in tiles of 64, double-buffered in shared memory with
-// cp.async; the tile's source row (r0 for the first S keys, rp for the rest)
-// is computed from the tile index inside the block, so the (rows, 2S, C)
-// concat is never materialised. QK^T and PV run on mma.sync m16n8k16 bf16
-// with fragments from ldmatrix (PV's B operand through ldmatrix.trans); the
-// 16x64 score tile stays in registers, is turned into the PV A operand in
-// place (the accumulator layout of two n8 tiles is the A layout of one k16
-// step), and never touches shared or device memory. Head dims that are not
-// multiples of 16 (d=40) are zero-padded in shared memory for the QK^T
-// k-steps; PV uses n-steps of 8, which fit any d % 8 == 0. Ragged key tails
-// are masked to -inf, ragged query tails are not stored. Shared rows are
-// padded by 16 bytes so that ldmatrix's eight row reads hit distinct banks.
-// Later work (ROADMAP): wgmma, TMA and warp specialisation.
+// What the design (d <= 160) does about it: persistent blocks of three
+// warpgroups, one an SM, walk work items of (query row, head, 128 query
+// positions). Warpgroup 0 is the producer: one thread issues TMA loads of
+// each item's Q and of each K and V tile into a ring of 2-4 stages guarded
+// by mbarriers (full: the tile arrived; empty: both consumers are done with
+// it; Q has its own pair), running ahead into the next item while the
+// consumers finish one; the tile's source row (r0 for the first S keys, rp
+// for the rest) is computed from the tile index, so the (rows, 2S, C)
+// concat is never materialised; setmaxnreg gives its registers to the
+// consumers. Warpgroups 1 and 2 each own 64 query rows and run wgmma:
+// S = Q K^T with both operands K-major in shared memory, and O += P V with P
+// from registers (the score accumulator converted in place to bf16) and V
+// MN-major through the instruction's transpose-B flag. Each loop step
+// issues tile t's Q K^T and tile t-1's P V back to back, then runs tile t's
+// softmax while P V is on the tensor cores; the two consumers take turns to
+// issue (ping-pong on two named barriers), so one's softmax runs under the
+// other's products. A consumer whose rows all lie past Sq only releases the
+// stages. Head slices are 64-column
+// slabs in 128-byte swizzled boxes of a 4-D tensor map over (d, H, S,
+// rows): TMA zero-fills the columns past d, and Q K^T walks ceil(d/16)
+// k-steps, the descriptor advanced 32 bytes a step inside the swizzle atom.
+// Ragged key tails are masked to -inf, ragged query tails are not stored.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int BM = 64;        // query positions per block
-constexpr int BN = 64;        // keys per tile
-constexpr int WARPS = 4;      // 16 query positions per warp
-constexpr int THREADS = 32 * WARPS;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -103,227 +107,551 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D: head dim (multiple of 8). DP: D rounded up to 16 (QK^T k-steps).
-// LDS: shared row stride in elements, DP + 8 (an odd number of 16-byte
-// chunks, so ldmatrix's eight rows fall in distinct bank groups).
-template <int D>
-__global__ void __launch_bounds__(THREADS) flash_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq, int Sk,
-    int H, int frames, float scale_log2) {
-  constexpr int DP = (D + 15) / 16 * 16;
-  constexpr int LDS = DP + 8;
-  constexpr int KSTEPS = DP / 16;  // QK^T k-steps
-  constexpr int NT = D / 8;        // PV n-tiles of 8 channels
-  constexpr int NC = D / 8;        // 16-byte chunks per row
+// ----------------------------------------------------------------------------
+// d <= 160: wgmma, a TMA ring and warp specialisation
+// ----------------------------------------------------------------------------
 
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][LDS]
-  __nv_bfloat16* ks = qs + BM * LDS;                               // [2][BN][LDS]
-  __nv_bfloat16* vs = ks + 2 * BN * LDS;                           // [2][BN][LDS]
+constexpr int BM = 128;        // query positions per block: 64 per consumer warpgroup
+constexpr int THREADS = 384;   // warpgroup 0 produces, 1 and 2 consume
+constexpr int CONSUMERS = 256;
+constexpr int SLAB = 64;       // columns per 128-byte swizzled slab
+constexpr int ROW_BYTES = 128; // a slab row in shared memory
+constexpr int SMEM_LIMIT = 232448;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int r = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BM;
-  const int C = H * D;
+// DP: the head dim rounded up to 16 (the template instance for every d of it)
+template <int DP>
+struct FlashCfg {
+  static constexpr int SLABS = (DP + SLAB - 1) / SLAB;
+  static constexpr int BN = DP <= 128 ? 128 : 64;  // keys per tile
+  static constexpr int KSTEPS = DP / 16;
+  static constexpr int Q_SLAB = BM * ROW_BYTES;
+  static constexpr int KV_SLAB = BN * ROW_BYTES;
+  static constexpr int Q_BYTES = SLABS * Q_SLAB;
+  static constexpr int KV_BYTES = SLABS * KV_SLAB;  // K or V of one stage
+  static constexpr int FIT = (SMEM_LIMIT - 1280 - Q_BYTES) / (2 * KV_BYTES);
+  static constexpr int STAGES = FIT < 4 ? FIT : 4;
+  // 1024 bytes of slack to align the ring to the swizzle atom, 256 for barriers
+  static constexpr int SMEM = 1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 256;
+  // P V's width in slabs 0, 1, 2: 64, or the last slab's columns
+  static constexpr int LAST = DP - SLAB * (SLABS - 1);
+  static constexpr int NW0 = SLABS > 1 ? SLAB : LAST;
+  static constexpr int NW1 = SLABS > 2 ? SLAB : LAST;
+  static constexpr int NW2 = LAST;
+  static_assert(NW0 + NW1 + NW2 >= 0, "");  // each is used by some instance
+  static_assert(STAGES >= 2, "the ring needs two stages");
+  static_assert(SMEM <= SMEM_LIMIT, "shared memory");
+};
 
-  // key/value source rows: sparse-causal (frames > 0) walks two halves of
-  // Sk keys each, frame 0 of the video then frame i-1; otherwise one half
-  // over the row's own keys
-  int src0 = r, src1 = r, halves = 1;
-  if (frames > 0) {
-    const int i = r % frames;
-    src0 = r - i;
-    src1 = i == 0 ? r : r - 1;
-    halves = 2;
+template <int N>
+struct Gmma;
+template <int N>
+struct GmmaRs;
+
+template <>
+struct Gmma<64> {
+  // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
-  const int tiles_per_half = (Sk + BN - 1) / BN;
-  const int ntiles = halves * tiles_per_half;
+};
 
-  // zero the padding columns D..DP-1 once (never written by the loads)
-  if (DP > D) {
-    for (int row = tid; row < 5 * BM; row += THREADS)
-      *reinterpret_cast<uint4*>(qs + row * LDS + D) = make_uint4(0, 0, 0, 0);
+template <>
+struct Gmma<128> {
+  // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
+};
 
-  // Q tile, zero rows past Sq
-  {
-    const __nv_bfloat16* qb = q + ((size_t)r * Sq) * C + (size_t)h * D;
-    for (int idx = tid; idx < BM * NC; idx += THREADS) {
-      const int row = idx / NC, c8 = idx - row * NC;
-      const bool ok = q0 + row < Sq;
-      cp_async16(qs + row * LDS + c8 * 8, ok ? qb + (size_t)(q0 + row) * C + c8 * 8 : qb, ok);
-    }
+template <>
+struct GmmaRs<16> {
+  // D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
+};
 
-  auto load_tile = [&](int t, int stage) {
-    const int half = t / tiles_per_half;
-    const int k0 = (t - half * tiles_per_half) * BN;
-    const size_t base = ((size_t)(half ? src1 : src0) * Sk) * C + (size_t)h * D;
-    __nv_bfloat16* kd = ks + stage * BN * LDS;
-    __nv_bfloat16* vd = vs + stage * BN * LDS;
-    for (int idx = tid; idx < BN * NC; idx += THREADS) {
-      const int row = idx / NC, c8 = idx - row * NC;
-      const bool ok = k0 + row < Sk;
-      const size_t off = ok ? base + (size_t)(k0 + row) * C + c8 * 8 : base;
-      cp_async16(kd + row * LDS + c8 * 8, k + off, ok);
-      cp_async16(vd + row * LDS + c8 * 8, v + off, ok);
-    }
-  };
-
-  load_tile(0, 0);
-  cp_async_commit();  // group 0: Q and tile 0
-
-  float o[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY};  // running max, scaled log2 units
-  float l_run[2] = {0.f, 0.f};              // this thread's partial row sums
-
-  const __nv_bfloat16* qw = qs + (warp * 16) * LDS;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < ntiles) {
-      load_tile(t + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    const __nv_bfloat16* kt = ks + stage * BN * LDS;
-    const __nv_bfloat16* vt = vs + stage * BN * LDS;
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[BN / 8][4];
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      uint32_t a0, a1, a2, a3;
-      ldsm_x4(a0, a1, a2, a3, qw + (lane & 15) * LDS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < BN / 16; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3,
-                kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
-                    ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * np], a0, a1, a2, a3, b0, b1);
-        mma16816(s[2 * np + 1], a0, a1, a2, a3, b2, b3);
-      }
-    }
-
-    // online softmax over the tile; keys past Sk in this half are masked
-    const int kbase = (t % tiles_per_half) * BN;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kbase + n * 8 + tig * 2 + (e & 1);
-        float x = col < Sk ? s[n][e] * scale_log2 : -INFINITY;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-      const float m_new = fmaxf(m_run[hr], mx[hr]);
-      corr[hr] = exp2f(m_run[hr] - m_new);
-      m_run[hr] = m_new;
-      l_run[hr] *= corr[hr];
-    }
-#pragma unroll
-    for (int n = 0; n < BN / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m_run[e >> 1]);
-        s[n][e] = p;
-        l_run[e >> 1] += p;
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
-    }
-
-    // O += P V: P's accumulator layout is the A operand of the k16 step
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      const uint32_t a0 = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      const uint32_t a1 = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      const uint32_t a2 = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int np = 0; np < (NT + 1) / 2; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(b0, b1, b2, b3,
-                  vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS + np * 16 +
-                      (lane >> 4) * 8);
-        mma16816(o[2 * np], a0, a1, a2, a3, b0, b1);
-        if (2 * np + 1 < NT) mma16816(o[2 * np + 1], a0, a1, a2, a3, b2, b3);
-      }
-    }
-    __syncthreads();  // the stage is overwritten by the next iteration's load
+template <>
+struct GmmaRs<32> {
+  // D[64 x 32] += A[64 x 16] B[16 x 32], A in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
+};
 
-  // normalise and store; rows past Sq are not stored
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
-    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
+template <>
+struct GmmaRs<48> {
+  // D[64 x 48] += A[64 x 16] B[16 x 48], A in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
   }
-  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  __nv_bfloat16* ob = out + ((size_t)r * Sq) * C + (size_t)h * D;
+};
+
+template <>
+struct GmmaRs<64> {
+  // D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
+  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving reads of wgmma accumulators across a wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + tig * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + col) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + col) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs_u(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero (they
+// are far below what a bf16 probability or an fp32 row sum can carry)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle; both strides 1024 bytes
+// (8 rows of 128 bytes): the stride between 8-row groups, whichever field the
+// layout reads it from
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// wait for the completion of the barrier's phase of this parity; a wait that
+// never ends (a lost arrival) traps instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (uint32_t i = 0;; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (i == (1u << 22)) __trap();
   }
 }
 
-template <int D>
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+struct FlashArgs {
+  __nv_bfloat16* out;
+  int Sq, Sk, H, d, frames, rows;
+  float scale_log2;
+};
+
+// One work item: 128 query positions of one (row, head); consecutive items
+// walk the query blocks, then the heads, then the rows.
+struct Item {
+  int qb, h, r, src0, src1, ntiles, tiles_per_half;
+};
+
+template <int BN>
+__device__ __forceinline__ Item item_at(const FlashArgs& a, int w) {
+  Item it;
+  const int qblocks = (a.Sq + BM - 1) / BM;
+  it.qb = w % qblocks;
+  it.h = (w / qblocks) % a.H;
+  it.r = w / (qblocks * a.H);
+  // key/value source rows: sparse-causal (frames > 0) walks two halves of
+  // Sk keys each, frame 0 of the video then frame i-1; otherwise one half
+  // over the row's own keys
+  it.src0 = it.r, it.src1 = it.r;
+  int halves = 1;
+  if (a.frames > 0) {
+    const int i = it.r % a.frames;
+    it.src0 = it.r - i;
+    it.src1 = i == 0 ? it.r : it.r - 1;
+    halves = 2;
+  }
+  it.tiles_per_half = (a.Sk + BN - 1) / BN;
+  it.ntiles = halves * it.tiles_per_half;
+  return it;
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1) flash_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const FlashArgs a) {
+  using Cfg = FlashCfg<DP>;
+  constexpr int BN = Cfg::BN, SLABS = Cfg::SLABS, STAGES = Cfg::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t q_smem = (raw + 1023) & ~1023u;  // the swizzle atom is 1024 bytes
+  const uint32_t kv_smem = q_smem + Cfg::Q_BYTES;  // stage s: K, then V
+  const uint32_t bars = kv_smem + STAGES * 2 * Cfg::KV_BYTES;
+  const uint32_t q_full = bars + 16 * STAGES, q_empty = q_full + 8;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const int items = (a.Sq + BM - 1) / BM * a.H * a.rows;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS);
+    }
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, CONSUMERS);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full, across work items ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int g = 0;  // tiles issued by this block
+      for (int n = 0, w = blockIdx.x; w < items; ++n, w += gridDim.x) {
+        const Item it = item_at<BN>(a, w);
+        for (int t = 0; t < it.ntiles; ++t, ++g) {
+          const int stage = g % STAGES;
+          if (g >= STAGES) mbar_wait(empty(stage), ((g / STAGES) - 1) & 1);
+          const int half = t / it.tiles_per_half;
+          const int k0 = (t - half * it.tiles_per_half) * BN;
+          const int src = half ? it.src1 : it.src0;
+          const uint32_t kd = kv_smem + stage * 2 * Cfg::KV_BYTES, vd = kd + Cfg::KV_BYTES;
+          mbar_expect_tx(full(stage), 2 * Cfg::KV_BYTES);
+          for (int sl = 0; sl < SLABS; ++sl) {
+            tma_load_4d(kd + sl * Cfg::KV_SLAB, &tm_k, full(stage), sl * SLAB, it.h, k0, src);
+            tma_load_4d(vd + sl * Cfg::KV_SLAB, &tm_v, full(stage), sl * SLAB, it.h, k0, src);
+          }
+          if (t == 0) {  // Q after the first K/V tile: the previous item's
+                         // last Q K^T frees it
+            if (n > 0) mbar_wait(q_empty, (n - 1) & 1);
+            mbar_expect_tx(q_full, Cfg::Q_BYTES);
+            for (int sl = 0; sl < SLABS; ++sl)
+              tma_load_4d(q_smem + sl * Cfg::Q_SLAB, &tm_q, q_full, sl * SLAB, it.h, it.qb * BM,
+                          it.r);
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int c = wg - 1, tw = threadIdx.x - 128 * wg;
+    const int warp = tw >> 5, lane = tw & 31, g = lane >> 2, tig = lane & 3;
+    const uint32_t q_mine = q_smem + c * 64 * ROW_BYTES;
+
+    float o[DP / 2];
+    float s[BN / 2];
+    uint32_t p[BN / 16][4];
+    float m_run[2], l_run[2], corr[2];
+
+    auto qk = [&](int stage) {  // S = Q K^T, this warpgroup's 64 rows x BN keys
+      const uint32_t kd = kv_smem + stage * 2 * Cfg::KV_BYTES;
+      fence_regs<BN / 2>(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < Cfg::KSTEPS; ++kk)
+        Gmma<BN>::ss(s, gmma_desc(q_mine + (kk / 4) * Cfg::Q_SLAB + (kk % 4) * 32),
+                     gmma_desc(kd + (kk / 4) * Cfg::KV_SLAB + (kk % 4) * 32), kk > 0);
+      wgmma_commit();
+      fence_regs<BN / 2>(s);
+    };
+    auto pv = [&](int stage) {  // O += P V over the stage's V tile
+      const uint32_t vd = kv_smem + stage * 2 * Cfg::KV_BYTES + Cfg::KV_BYTES;
+      fence_regs_u<BN / 4>(&p[0][0]);
+      fence_regs<DP / 2>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+        GmmaRs<Cfg::NW0>::rs(o, p[j], gmma_desc(vd + j * 16 * ROW_BYTES));
+        if constexpr (SLABS > 1)
+          GmmaRs<Cfg::NW1>::rs(o + 32, p[j], gmma_desc(vd + Cfg::KV_SLAB + j * 16 * ROW_BYTES));
+        if constexpr (SLABS > 2)
+          GmmaRs<Cfg::NW2>::rs(o + 64, p[j], gmma_desc(vd + 2 * Cfg::KV_SLAB + j * 16 * ROW_BYTES));
+      }
+      wgmma_commit();
+      fence_regs<DP / 2>(o);
+      fence_regs_u<BN / 4>(&p[0][0]);
+    };
+    // online softmax over tile t's scores (keys past Sk in its half masked):
+    // s becomes exp2(s - max), m_run, l_run and corr move on
+    auto softmax = [&](int kbase) {
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (kbase + BN <= a.Sk) {  // every key of the tile is valid
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          s[i] *= a.scale_log2;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int col = kbase + (i >> 2) * 8 + tig * 2 + (i & 1);
+          s[i] = col < a.Sk ? s[i] * a.scale_log2 : -INFINITY;
+          mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+        }
+      }
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+        const float m_new = fmaxf(m_run[hr], mx[hr]);
+        corr[hr] = ex2(m_run[hr] - m_new);
+        m_run[hr] = m_new;
+        l_run[hr] *= corr[hr];
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        const float e = ex2(s[i] - m_run[(i >> 1) & 1]);
+        s[i] = e;
+        l_run[(i >> 1) & 1] += e;
+      }
+    };
+    // P in bf16: the accumulator layout of two n8 chunks is the A fragment
+    // of one k16 step
+    auto pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < BN / 16; ++j) {
+        p[j][0] = pack_bf16(s[8 * j + 0], s[8 * j + 1]);
+        p[j][1] = pack_bf16(s[8 * j + 2], s[8 * j + 3]);
+        p[j][2] = pack_bf16(s[8 * j + 4], s[8 * j + 5]);
+        p[j][3] = pack_bf16(s[8 * j + 6], s[8 * j + 7]);
+      }
+    };
+    auto rescale = [&]() {
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    };
+
+    int gt = 0;  // tiles consumed by this block
+    for (int n = 0, w = blockIdx.x; w < items; ++n, w += gridDim.x) {
+      const Item it = item_at<BN>(a, w);
+      mbar_wait(q_full, n & 1);
+      if (it.qb * BM + 64 * c >= a.Sq) {
+        // every row of this warpgroup lies past Sq (only the second one's
+        // can): release each tile and Q without computing
+        for (int t = 0; t < it.ntiles; ++t, ++gt) {
+          const int stage = gt % STAGES;
+          mbar_wait(full(stage), (gt / STAGES) & 1);
+          mbar_arrive(empty(stage));
+        }
+        mbar_arrive(q_empty);
+        continue;
+      }
+      // ping-pong: where both warpgroups compute, they take turns to issue
+      // their products, so that one's softmax runs under the other's wgmma.
+      // Each has ntiles + 1 turns an item; the second lets the first go
+      // first and skips its last hand-over, so both barriers balance.
+      const bool pingpong = it.qb * BM + 64 < a.Sq;
+      auto turn = [&]() {
+        if (pingpong) asm volatile("bar.sync %0, 256;\n" ::"r"(3 + c));
+      };
+      auto pass = [&](bool last) {
+        if (pingpong && !(c == 1 && last)) asm volatile("bar.arrive %0, 256;\n" ::"r"(4 - c));
+      };
+      if (pingpong && c == 1) asm volatile("bar.arrive 3, 256;\n");
+#pragma unroll
+      for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+      m_run[0] = m_run[1] = -INFINITY;  // running max, scaled log2 units
+      l_run[0] = l_run[1] = 0.f;        // this thread's partial row sums
+
+      // tile 0: Q K^T, then its softmax
+      int prev = gt % STAGES;
+      mbar_wait(full(prev), (gt / STAGES) & 1);
+      turn();
+      qk(prev);
+      pass(false);
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(s);
+      softmax(0);
+      pack();
+      ++gt;
+      // each later tile: its Q K^T and the previous tile's P V back to back,
+      // then its softmax while P V runs
+      for (int t = 1; t < it.ntiles; ++t, ++gt) {
+        const int stage = gt % STAGES;
+        mbar_wait(full(stage), (gt / STAGES) & 1);
+        turn();
+        qk(stage);
+        rescale();
+        pv(prev);
+        pass(false);
+        wgmma_wait<1>();
+        fence_regs<BN / 2>(s);
+        softmax((t % it.tiles_per_half) * BN);
+        wgmma_wait<0>();
+        fence_regs<DP / 2>(o);
+        mbar_arrive(empty(prev));
+        pack();
+        prev = stage;
+      }
+      mbar_arrive(q_empty);  // the item's last Q K^T is done
+      rescale();
+      turn();
+      pv(prev);
+      pass(true);
+      wgmma_wait<0>();
+      fence_regs<DP / 2>(o);
+      mbar_arrive(empty(prev));
+
+      // normalise and store; rows past Sq and columns past d are not stored
+      float l0 = l_run[0], l1 = l_run[1];
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+      l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+      const int row0 = it.qb * BM + 64 * c + 16 * warp + g, row1 = row0 + 8;
+      const size_t C = (size_t)a.H * a.d;
+      __nv_bfloat16* ob = a.out + (size_t)it.r * a.Sq * C + (size_t)it.h * a.d;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        // o[4i..4i+3]: columns 8i + 2tig (+1) of rows row0 and row1
+        const int col = (i / 8) * SLAB + (i % 8) * 8 + tig * 2;
+        if (col < a.d) {
+          if (row0 < a.Sq)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + col) =
+                __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+          if (row1 < a.Sq)
+            *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + col) =
+                __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over one (rows, S, H*d) tensor as (d, H, S, rows), whose boxes
+// are one head's 64-column slab of box_rows positions, 128-byte swizzled;
+// the columns past d are zero-filled, so every k-step past d adds zero.
+bool make_map(CUtensorMap* map, const void* ptr, int d, int H, int S, int rows, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t C = (cuuint64_t)H * d;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)rows};
+  cuuint64_t strides[3] = {(cuuint64_t)d * 2, C * 2, (cuuint64_t)S * C * 2};
+  cuuint32_t box[4] = {SLAB, 1, (cuuint32_t)box_rows, 1}, elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int rows, int Sq,
-                   int Sk, int H, int frames, float scale, cudaStream_t stream) {
-  constexpr int LDS = (D + 15) / 16 * 16 + 8;
-  const size_t smem = (size_t)(BM + 4 * BN) * LDS * 2;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   int Sk, int H, int d, int frames, float scale, cudaStream_t stream) {
+  using Cfg = FlashCfg<DP>;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, d, H, Sq, rows, BM) || !make_map(&mk, k, d, H, Sk, rows, Cfg::BN) ||
+      !make_map(&mv, v, d, H, Sk, rows, Cfg::BN))
+    return cudaErrorNotSupported;
+  cudaError_t err = cudaFuncSetAttribute(flash_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
   if (err != cudaSuccess) return err;
-  dim3 grid((Sq + BM - 1) / BM, H, rows);
-  flash_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H, frames,
-      scale * 1.4426950408889634f);
+  // persistent blocks, one an SM (the ring takes most of its shared memory)
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long long items = (long long)((Sq + BM - 1) / BM) * H * rows;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int grid = (int)(items < sms ? items : sms);
+  const FlashArgs a{static_cast<__nv_bfloat16*>(out), Sq, Sk, H, d, frames, rows,
+                    scale * 1.4426950408889634f};
+  flash_kernel<DP><<<grid, THREADS, Cfg::SMEM, stream>>>(mq, mk, mv, a);
   return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int rows, int Sq,
                      int Sk, int H, int d, int frames, float scale, cudaStream_t st) {
-  if (rows < 1 || rows > 65535 || Sq < 1 || Sk < 1 || H < 1 || H > 65535)
+  if (rows < 1 || rows > 65535 || Sq < 1 || Sk < 1 || H < 1 || H > 65535 || d < 8 || d % 8 ||
+      d > 160)
     return cudaErrorInvalidValue;
-  switch (d) {
-#define FLASH_CASE(D) \
-  case D:             \
-    return launch<D>(q, k, v, out, rows, Sq, Sk, H, frames, scale, st);
-    FLASH_CASE(8) FLASH_CASE(16) FLASH_CASE(24) FLASH_CASE(32) FLASH_CASE(40)
-    FLASH_CASE(48) FLASH_CASE(56) FLASH_CASE(64) FLASH_CASE(72) FLASH_CASE(80)
-    FLASH_CASE(88) FLASH_CASE(96) FLASH_CASE(104) FLASH_CASE(112) FLASH_CASE(120)
-    FLASH_CASE(128) FLASH_CASE(136) FLASH_CASE(144) FLASH_CASE(152) FLASH_CASE(160)
+  switch ((d + 15) / 16 * 16) {
+#define FLASH_CASE(DP) \
+  case DP:             \
+    return launch<DP>(q, k, v, out, rows, Sq, Sk, H, d, frames, scale, st);
+    FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(48) FLASH_CASE(64) FLASH_CASE(80)
+    FLASH_CASE(96) FLASH_CASE(112) FLASH_CASE(128) FLASH_CASE(144) FLASH_CASE(160)
 #undef FLASH_CASE
     default:
       return cudaErrorInvalidValue;

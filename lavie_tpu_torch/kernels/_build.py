@@ -53,9 +53,9 @@ def library_path(name: str) -> Path:
 
 def _start_build(name: str):
     """Start nvcc for one source; returns (process, temp output, final path),
-    or None when the library is already built."""
+    or None when the library and its compiler log are already built."""
     out = library_path(name)
-    if out.exists():
+    if out.exists() and out.with_suffix(".log").exists():
         return None
     BUILD.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
@@ -66,19 +66,22 @@ def _start_build(name: str):
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Compile the named kernels, one nvcc each, all started together.
-    Returns each new build's compiler log (ptxas register/shared-memory
-    report); raises with the log on a failed build."""
+    """Compile the named kernels that are not built yet, one nvcc each, all
+    started together. Returns every named library's compiler log (ptxas
+    register, spill and shared-memory report), kept beside the library as
+    lib<name>-<hash>.log; raises with the log on a failed build."""
     jobs = {n: _start_build(n) for n in names}
     logs = {}
     for name, job in jobs.items():
         if job is None:
+            logs[name] = library_path(name).with_suffix(".log").read_text()
             continue
         proc, tmp, out = job
         log, _ = proc.communicate()
         if proc.returncode != 0:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         logs[name] = log
     return logs

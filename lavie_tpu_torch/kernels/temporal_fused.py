@@ -20,17 +20,84 @@ and its channel-major (C, B, F, S) re-layout are both gone.
                                        bias and no RoPE inside; it launches
                                        the same kernel with rope_dim = 0 and
                                        counts its launches on its own
+
+  launch_plan                   the kernel's launch plan for one call: tile,
+                                ring depth, threads, grid and shared bytes,
+                                computed here so that the CPU tests can hold
+                                it against the card's limits
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
 from lavie_tpu_torch.kernels import _build
 from lavie_tpu_torch.nn.embeddings import apply_rope_half
+
+SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
+SMEM_PER_SM = 233_472  # an SM's shared memory, each block reserving 1 KB of it
+MAX_WARPS = 8
+MAX_STAGES = 4
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How csrc/temporal_fused.cu runs one call. A tile is `tile_s`
+    positions of one (batch, head); each position's frames take
+    `frames_pad` rows (8 for F <= 8, two positions to a 16-row mma tile,
+    else F rounded up to 16) of q, k and v in a ring of `stages` tiles."""
+    tile_s: int
+    frames_pad: int
+    row_elems: int  # shared row stride in elements: d rounded up to 16, + 8
+    stages: int
+    threads: int
+    tiles: int
+    grid: int
+    smem_bytes: int
+    blocks_per_sm: int
+
+
+def launch_plan(b: int, f: int, s: int, heads: int, d: int, sm_count: int) -> LaunchPlan:
+    """The launch plan of one temporal attention call over (B, F, S, H·d)
+    on a card of `sm_count` SMs.
+    Eight warps' worth of 16-row tiles a stage where the shared memory
+    holds three such stages, fewer positions where the grid would leave SMs
+    idle; persistent blocks, two an SM each with a ring of two to four
+    stages where those fit in half the SM's shared memory, else one with a
+    ring as deep as the shared memory allows, up to four. Raises for what
+    the kernel cannot take."""
+    if not 1 <= f <= 64 or d < 8 or d % 8 or min(b, s, heads) < 1:
+        raise ValueError(f"temporal attention kernel: frames={f}, head_dim={d}")
+    fr = 8 if f <= 8 else -(-f // 16) * 16
+    row_elems = -(-d // 16) * 16 + 8  # an odd number of 16-byte chunks
+    pos_bytes = 3 * fr * row_elems * 2
+    unit = 2 if fr == 8 else 1  # positions per 16-row tile pairing
+    tiles_per_unit = 1 if fr == 8 else fr // 16
+    units = max(1, MAX_WARPS // tiles_per_unit)
+    units = min(units, -(-s // unit))
+    while units > 1 and b * heads * -(-s // (units * unit)) < sm_count:
+        units -= 1
+    while units > 1 and 3 * units * unit * pos_bytes > SMEM_MAX:
+        units -= 1
+    tile_s = units * unit
+    stage = tile_s * pos_bytes
+    # two blocks an SM where two rings of two stages fit, else one deeper ring
+    half = SMEM_PER_SM // 2 - 1024
+    stages = min(MAX_STAGES, (half if 2 * stage <= half else SMEM_MAX) // stage)
+    if stages < 1:
+        raise ValueError(f"temporal attention kernel: frames={f}, head_dim={d} need {stage} "
+                         f"shared bytes a position, above {SMEM_MAX}")
+    warps = min(MAX_WARPS, units * tiles_per_unit)
+    smem = stages * stage
+    tiles = b * heads * -(-s // tile_s)
+    blocks_per_sm = max(1, min(SMEM_PER_SM // (smem + 1024), 2048 // (32 * warps)))
+    return LaunchPlan(tile_s=tile_s, frames_pad=fr, row_elems=row_elems, stages=stages,
+                      threads=32 * warps, tiles=tiles, grid=min(tiles, sm_count * blocks_per_sm),
+                      smem_bytes=smem, blocks_per_sm=blocks_per_sm)
 
 
 def temporal_attention_reference(
@@ -134,10 +201,13 @@ def _launch(name, q, k, v, bias, cos, sin, scale, rope_dim, heads) -> torch.Tens
                     or not t.is_contiguous() or t.device != q.device):
                 raise ValueError(f"{name} kernel takes contiguous fp32 (F, rope_dim/2) tables")
 
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = launch_plan(b, f, s, heads, d, sms)
     lib = _build.load("temporal_fused")
     fn = lib.temporal_attention_bf16
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     out = torch.empty_like(q)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -145,6 +215,7 @@ def _launch(name, q, k, v, bias, cos, sin, scale, rope_dim, heads) -> torch.Tens
         cos.data_ptr() if rope_dim else None,
         sin.data_ptr() if rope_dim else None,
         b, f, s, heads, d, rope_dim // 2, float(scale),
+        plan.tile_s, plan.frames_pad, plan.stages, plan.threads, plan.grid, plan.smem_bytes,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, name)
