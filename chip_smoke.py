@@ -6,8 +6,11 @@ its result line:
   2. build      every CUDA kernel from lavie_tpu_torch/csrc, one nvcc each,
                 started together; registers and spills of every kernel, read
                 from ptxas's report (kept beside each library, so a cached
-                build is checked too); a kernel the report does not cover, or
-                a spill outside the sources in SPILLS_KNOWN, fails the phase
+                build is checked too); a kernel the report does not cover, a
+                spill outside the sources in SPILLS_KNOWN, or ptxas's C7514
+                (wgmma serialised) fails the phase; so does a flash, geglu or
+                cross-attention instance whose SASS lacks an op of
+                SASS_REQUIRED (wgmma or mma, and TMA loads)
   3. kernels    each kernel at every base-path and TSR-path shape against its
                 plain PyTorch version in bf16 (tolerance relative to
                 max|plain|), timed with CUDA events beside the plain version
@@ -153,9 +156,8 @@ def bound(n_bytes: float, ops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-# the times of the temporal and flash bodies before their redesign to
-# mma.sync and wgmma (chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W),
-# printed beside each new time as prev_ms
+# the times of the redesigned kernels before their redesign (chip_smoke.py on
+# an NVIDIA H100 80GB HBM3 at 700 W), printed beside each new time as prev_ms
 PREV_MS = {
     ("temporal_attention", 2, 16, 2560, 40): 0.262, ("temporal_attention", 2, 16, 640, 80): 0.194,
     ("temporal_attention", 2, 16, 160, 160): 0.163, ("temporal_attention", 2, 16, 40, 160): 0.070,
@@ -173,6 +175,18 @@ PREV_MS = {
     ("flash_sparse_causal", 122, 61, 2560, 40): 12.232, ("flash_sparse_causal", 122, 61, 640, 80): 1.189,
     ("flash_sparse_causal", 122, 61, 160, 160): 0.241, ("flash_sparse_causal", 122, 61, 40, 160): 0.040,
     ("flash_attention_kv", 122, 2560, 5120, 40): 12.420, ("flash_attention", 8, 2560, 128): 0.928,
+    # GEGLU (one wmma kernel) and the short-kv cross attention before their
+    # redesign to wgmma GEMMs and a persistent TMA-fed kernel
+    ("geglu", 81920, 320, 1280): 3.610, ("geglu", 20480, 640, 2560): 3.475,
+    ("geglu", 5120, 1280, 5120): 4.666, ("geglu", 1280, 1280, 5120): 1.563,
+    ("geglu", 312320, 320, 1280): 13.026, ("geglu", 78080, 640, 2560): 13.081,
+    ("geglu", 19520, 1280, 5120): 15.401, ("geglu", 4880, 1280, 5120): 4.748,
+    ("geglu", 81920, 512, 2048): 9.858, ("geglu", 20480, 1024, 4096): 11.440,
+    ("cross_attention", "base", 2, 40960, 40, 77): 0.144,
+    ("cross_attention", "base", 2, 10240, 80, 77): 0.069,
+    ("cross_attention", "base", 2, 2560, 160, 77): 0.047,
+    ("cross_attention", "base", 2, 640, 160, 77): 0.028,
+    ("cross_attention", "VSR L3", 1, 20480, 128, 77): 0.089,
 }
 
 
@@ -219,7 +233,22 @@ def phase_device() -> str:
 
 # sources whose ptxas report shows spills today (their redesign is on the
 # ROADMAP); a spill in any other source fails the build phase
-SPILLS_KNOWN = {"geglu", "temporal_resblock"}
+SPILLS_KNOWN = {"temporal_resblock"}
+# kernels that must run their products on wgmma fed by TMA: (source, kernel
+# name substring, SASS opcode prefixes each instance must hold)
+SASS_REQUIRED = (("flash_attention", "flash_kernel", ("HGMMA.64", "UTMALDG.4D")),
+                 ("geglu", "geglu_", ("HGMMA", "UTMALDG")),
+                 ("cross_attention", "cross_kernel", ("HGMMA", "UTMALDG.4D")),
+                 ("cross_attention", "cross_long_kernel", ("HMMA", "UTMALDG.4D")))
+
+
+def sass_summary(path, kernel: str, prefixes) -> dict:
+    """{kernel instance: {opcode prefix: count}} in a built library's SASS,
+    for the instances whose name holds `kernel`."""
+    from lavie_tpu_torch.kernels import _build
+
+    return {name: {p: sum(n for op, n in ops.items() if op.startswith(p)) for p in prefixes}
+            for name, ops in _build.sass_op_counts(path).items() if kernel in name}
 
 
 def ptxas_report(text: str) -> list:
@@ -257,6 +286,13 @@ def phase_build() -> None:
             log(f"[build]   {fn}: {r} registers, spill stores {st} B, loads {ld} B")
             if (st or ld) and name not in SPILLS_KNOWN:
                 raise AssertionError(f"{fn} spills: {st} B stored, {ld} B loaded")
+        if "C7514" in text:  # ptxas serialised a wgmma batch
+            raise AssertionError(f"{name}: ptxas warns that wgmma is serialised (C7514)")
+    for name, kernel, prefixes in SASS_REQUIRED:
+        summary = sass_summary(_build.library_path(name), kernel, prefixes)
+        log(json.dumps({"sass": name, "instances": len(summary), "counts": summary}))
+        if not summary or any(not all(ops.values()) for ops in summary.values()):
+            raise AssertionError(f"{name}: an instance of {kernel} lacks one of {prefixes}")
     log(f"[build] {time.time() - t0:.1f} s")
 
 
@@ -317,9 +353,10 @@ def phase_temporal(f: int, rope: int, levels=ATTENTION_LEVELS, b: int = 2,
 def phase_geglu(f: int, shapes=None) -> list:
     """GEGLU at N = 2·F·S tokens of width C, the shapes of a path with F
     frames, or at the given (N, C) shapes."""
-    from lavie_tpu_torch.kernels.geglu import geglu, geglu_reference
+    from lavie_tpu_torch.kernels import geglu as gg
 
     g = torch.Generator(device="cuda").manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
     shapes = shapes or [(2 * f * s, c) for (s, _), c in zip(ATTENTION_LEVELS, GEGLU_WIDTHS)]
     for n, c in shapes:
@@ -330,10 +367,10 @@ def phase_geglu(f: int, shapes=None) -> list:
         w2, b2 = r(c, inner, sd=inner**-0.5), r(c, sd=0.1)
         args = (x, w0, b0, w2, b2)
         rows.append(check_row(
-            "geglu", {"N": n, "C": c, "I": inner}, geglu(*args), geglu_reference(*args), GEGLU_TOL,
-            lambda: geglu(*args), lambda: geglu_reference(*args), None,
+            "geglu", {"N": n, "C": c, "I": inner}, gg.geglu(*args), gg.geglu_reference(*args),
+            GEGLU_TOL, lambda: gg.geglu(*args), lambda: gg.geglu_reference(*args), None,
             (2 * n * c + 3 * inner * c + 2 * inner + c) * 2, ((6 * n * c * inner, BF16_FLOPS),),
-            plain_iters=20))
+            plain_iters=20, out_width=gg.launch_plan(n, c, sms).out.width))
     return rows
 
 
@@ -458,7 +495,8 @@ def phase_model(phase: str, cfg, frames: int, batch: int = 2, h: int = 40, w: in
 
 KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("temporal_attention", ("temporal_attention_kernel",)),
-    ("geglu", ("geglu_kernel",)),
+    ("geglu", ("geglu_pingpong_kernel<", "geglu_coop_kernel<")),
+    ("cross_attention (attn2=cross)", ("cross_kernel<", "cross_long_kernel<")),
     ("gn_silu_tconv", ("tconv_kernel",)),
     ("cross_attention_head", ("head_kernel<",)),
     ("transformer_tail", ("tail_kernel<",)),
@@ -469,6 +507,20 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90", "cublas", "splitk")),
     ("norm and elementwise", ("",)),
 )
+
+
+def device_kernels(prof):
+    """(event, device µs) of every device kernel a torch.profiler run
+    recorded, by name."""
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0.0)
+        # "Command Buffer Full" is the profiler's record of a stalled launch
+        # queue, not device work: counting it put the busy share above 1
+        if us <= 0 or e.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "Command Buffer Full")):
+            continue
+        yield e, us
 
 
 def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w: int = 64,
@@ -494,14 +546,7 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
             torch.cuda.synchronize()
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     top = []
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0.0)
-        # "Command Buffer Full" is the profiler's record of a stalled launch
-        # queue, not device work: counting it put the busy share above 1
-        if us <= 0 or e.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "Command Buffer Full")):
-            continue
+    for e, us in device_kernels(prof):
         top.append((us / 1e3, e.key[:80], e.count))
         name = e.key.lower()
         group = next(g_ for g_, subs in KERNEL_GROUPS if any(s_ in name for s_ in subs))
@@ -896,10 +941,14 @@ def phase_ab(phase: str, cfg, frames: int, switch: str, routes: dict, tol: float
              h: int, w: int, ctx_dim: int) -> dict:
     """One full-width UNet forward with the opt-in `switch` unset and set to
     each value of `routes` (value → the counters its route launches), same
-    weights and inputs: device ms of each (CUDA events; one warm-up each,
-    then unset, each value, each value in reverse, unset), each route's
-    launches (its own counters, and no other route's), and each output
-    against the unset one."""
+    weights and inputs: ms of each (one warm-up each, then unset, each value,
+    each value in reverse, unset) between CUDA events, which a host-bound
+    forward fills with launch overhead, and the device time of its kernels
+    under torch.profiler (device_ms), each route's launches (its own
+    counters, and no other route's), and each output against the unset
+    one."""
+    from torch.profiler import ProfilerActivity, profile
+
     from lavie_tpu_torch.nn.unet import UNet3D
     from lavie_tpu_torch.pipelines.t2v import random_init_
 
@@ -909,7 +958,7 @@ def phase_ab(phase: str, cfg, frames: int, switch: str, routes: dict, tol: float
     x, ts, ctx, labels = unet_inputs(cfg, batch, frames, h, w, ctx_dim, seed=3, t=981.0)
     values = [None, *routes]
     watched = sorted({n for names in routes.values() for n in names})
-    outs, times, counts = {}, {v: [] for v in values}, {}
+    outs, times, device, counts = {}, {v: [] for v in values}, {v: [] for v in values}, {}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
         for value in values + values[:1] + values[1:] + values[1:][::-1] + values[:1]:
@@ -921,6 +970,11 @@ def phase_ab(phase: str, cfg, frames: int, switch: str, routes: dict, tol: float
                 end.record()
                 torch.cuda.synchronize()
                 launches = read_launches()
+                if value in outs:
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        unet(x, ts, ctx, labels)
+                        torch.cuda.synchronize()
+                    device[value].append(sum(us for _, us in device_kernels(prof)) / 1e3)
             if value not in outs:  # the first run of each setting is its warm-up
                 outs[value] = out.float()
                 counts[value] = {name: launches[name] for name in watched}
@@ -936,6 +990,8 @@ def phase_ab(phase: str, cfg, frames: int, switch: str, routes: dict, tol: float
     row = {"phase": phase, "switch": switch, "shape": list(x.shape),
            "ms": {label(v): times[v] for v in values},
            "mean_ms": {label(v): sum(times[v]) / len(times[v]) for v in values},
+           "device_ms": {label(v): device[v] for v in values},
+           "mean_device_ms": {label(v): sum(device[v]) / len(device[v]) for v in values},
            "max_abs_diff": diffs, "max_abs_ref": scale,
            "launches": {label(v): counts[v] for v in values}}
     log(json.dumps(row))
@@ -951,7 +1007,8 @@ def phase_cross_kernels() -> dict:
     """The text cross-attention at every base level (B=2, the 16 frames
     folded into the queries) and at VSR L3 (one CFG half of one window),
     77 text keys: cross_attention (LAVIE_ATTN2=cross) against its plain
-    version and SDPA on tensors transposed beforehand; then
+    version and SDPA on tensors transposed beforehand (and the kernel
+    launched under a plan computed once, launch_ms); then
     fused_ln_cross_attention (LAVIE_ATTN2=fused) against its plain version,
     timed beside the default path it replaces (LayerNorm, q projection, SDPA,
     out-projection, residual: eager, cuBLAS and SDPA)."""
@@ -969,12 +1026,16 @@ def phase_cross_kernels() -> dict:
         q, k, v = bf(b, n, h, d), bf(b, lkv, h, d), bf(b, lkv, h, d)
         ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         args = (q, k, v, scale)
+        # the kernel alone, its plan computed once: the wrapper's checks and
+        # plan lookup cost host time a call, which the small levels expose
+        plan = ca.launch_plan(b, n, h, d, lkv, torch.cuda.get_device_properties(0).multi_processor_count)
         rows["cross_attention"].append(check_row(
             "cross_attention", {"where": where, "B": b, "S": n, "H": h, "d": d, "L": lkv},
             ca.cross_attention(*args), ca.cross_attention_reference(*args), ATTN_TOL,
             lambda: ca.cross_attention(*args), lambda: ca.cross_attention_reference(*args),
             lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
-            (2 * b * n * c + 2 * b * lkv * c) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),)))
+            (2 * b * n * c + 2 * b * lkv * c) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),),
+            launch_ms=time_ms(lambda: ca._launch(*args, plan))))
         del q, ql, kl, vl, args
         x = bf(b, n, c)
         p = (f32(c, m=1.0), f32(c), bf(c, c, sd=c ** -0.5), bf(c, c, sd=c ** -0.5), f32(c),

@@ -55,16 +55,11 @@
 // k-steps, the descriptor advanced 32 bytes a step inside the swizzle atom.
 // Ragged key tails are masked to -inf, ragged query tails are not stored.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using namespace hopper;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
@@ -114,8 +109,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 constexpr int BM = 128;        // query positions per block: 64 per consumer warpgroup
 constexpr int THREADS = 384;   // warpgroup 0 produces, 1 and 2 consume
 constexpr int CONSUMERS = 256;
-constexpr int SLAB = 64;       // columns per 128-byte swizzled slab
-constexpr int ROW_BYTES = 128; // a slab row in shared memory
 constexpr int SMEM_LIMIT = 232448;
 
 // DP: the head dim rounded up to 16 (the template instance for every d of it)
@@ -141,160 +134,6 @@ struct FlashCfg {
   static_assert(STAGES >= 2, "the ring needs two stages");
   static_assert(SMEM <= SMEM_LIMIT, "shared memory");
 };
-
-template <int N>
-struct Gmma;
-template <int N>
-struct GmmaRs;
-
-template <>
-struct Gmma<64> {
-  // D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
-  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct Gmma<128> {
-  // D[64 x 128] (+)= A[64 x 16] B[16 x 128], A and B K-major in shared memory
-  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
-  }
-};
-
-template <>
-struct GmmaRs<16> {
-  // D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B MN-major in shared memory
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct GmmaRs<32> {
-  // D[64 x 32] += A[64 x 16] B[16 x 32], A in registers, B MN-major in shared memory
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct GmmaRs<48> {
-  // D[64 x 48] += A[64 x 16] B[16 x 48], A in registers, B MN-major in shared memory
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-template <>
-struct GmmaRs<64> {
-  // D[64 x 64] += A[64 x 16] B[16 x 64], A in registers, B MN-major in shared memory
-  static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-  }
-};
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving reads of wgmma accumulators across a wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs_u(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// 2^x on the special-function unit, subnormal results flushed to zero (they
-// are far below what a bf16 probability or an fp32 row sum can carry)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle; both strides 1024 bytes
-// (8 rows of 128 bytes): the stride between 8-row groups, whichever field the
-// layout reads it from
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (64ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// wait for the completion of the barrier's phase of this parity; a wait that
-// never ends (a lost arrival) traps instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (uint32_t i = 0;; ++i) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (i == (1u << 22)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 struct FlashArgs {
   __nv_bfloat16* out;
@@ -577,43 +416,6 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map over one (rows, S, H*d) tensor as (d, H, S, rows), whose boxes
-// are one head's 64-column slab of box_rows positions, 128-byte swizzled;
-// the columns past d are zero-filled, so every k-step past d adds zero.
-bool make_map(CUtensorMap* map, const void* ptr, int d, int H, int S, int rows, int box_rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t C = (cuuint64_t)H * d;
-  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)rows};
-  cuuint64_t strides[3] = {(cuuint64_t)d * 2, C * 2, (cuuint64_t)S * C * 2};
-  cuuint32_t box[4] = {SLAB, 1, (cuuint32_t)box_rows, 1}, elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int rows, int Sq,
                    int Sk, int H, int d, int frames, float scale, cudaStream_t stream) {
@@ -626,12 +428,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int r
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
   if (err != cudaSuccess) return err;
   // persistent blocks, one an SM (the ring takes most of its shared memory)
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  const int sms = sm_count();
   const long long items = (long long)((Sq + BM - 1) / BM) * H * rows;
   if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int grid = (int)(items < sms ? items : sms);

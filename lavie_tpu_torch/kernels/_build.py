@@ -10,6 +10,7 @@ stale library is never loaded. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -27,6 +28,7 @@ NVCC_FLAGS = [
 ]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[str, object] = {}
 
 
 def _nvcc() -> str:
@@ -97,14 +99,27 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def function(name: str, entry: str, n_ptr: int, n_int: int, n_float: int):
+def function(name: str, entry: str, n_ptr: int, n_int: int, n_float: int, n_int_after: int = 0):
     """The C entry point `entry` of csrc/<name>.cu, typed as n_ptr pointers,
-    n_int ints, n_float floats and the stream, returning a cudaError_t."""
-    fn = getattr(load(name), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float] * n_float
-                   + [ctypes.c_void_p])
+    n_int ints, n_float floats, n_int_after ints and the stream, returning a
+    cudaError_t."""
+    fn = _functions.get(entry)
+    if fn is None:
+        fn = getattr(load(name), entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_float] * n_float + [ctypes.c_int] * n_int_after
+                       + [ctypes.c_void_p])
+        _functions[entry] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of a CUDA device, read once."""
+    import torch
+
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def sass_op_counts(path) -> Dict[str, Dict[str, int]]:

@@ -12,9 +12,16 @@ before P·V, P·V accumulated in fp32 and rounded once. The CUDA kernel
   cross_attention            the wrapper: the CUDA kernel for a CUDA
                              tensor, the plain version for a CPU tensor
   cross_attention_reference  the plain PyTorch version of the same math
+  launch_plan                the kernel's launch plan for one call: query
+                             tile, ring depth, threads, persistent grid and
+                             shared bytes, computed here so that the CPU
+                             tests can hold it against the card's limits
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -22,6 +29,67 @@ from lavie_tpu_torch.kernels import _build
 
 MAX_KV = 256
 MAX_HEAD_DIM = 160
+SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
+MAX_STAGES = 8
+TILE = 64  # queries a work item
+SLAB_BYTES = 128  # a 64-column row of a 128-byte swizzled TMA box
+# the kernel's shared memory besides its tiles: 1 KB to align them to the
+# swizzle atom, and the mbarriers
+RESERVED = 1024 + 16 * (MAX_STAGES + 1)
+WIDE_KEYS = 80  # L up to this: the wgmma kernel; above it the mma.sync kernel
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How csrc/cross_attention.cu runs one call. A work item is `tile`
+    queries of one (batch, head); items are numbered head fastest, then query
+    tile, then batch, and block i of the `grid` persistent blocks (one an SM)
+    takes items i, i + grid, ...; each holds its head's K and V (`kv_rows`
+    rows each: 80 for L <= 80, the rows the wgmma products read, zero-filled
+    past L; else L rounded up to 16) and a ring of `stages` query tiles. `key_regs` names the
+    kernel: 80, the wgmma one (a producer warpgroup and two consumer
+    warpgroups taking the items in turn, L <= 80; each consumer holds up to
+    two stages, the second until its output store has read it), or 256, the
+    mma.sync one (four warps of 16 queries and a producer warp)."""
+    tile: int
+    kv_rows: int
+    key_regs: int
+    slabs: int  # 64-column slabs of the head dim
+    stages: int
+    threads: int
+    items: int
+    grid: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(b: int, s: int, heads: int, d: int, lkv: int, sm_count: int) -> LaunchPlan:
+    """The launch plan of one call over q (B, S, H, d) and k, v (B, L, H, d)
+    on a card of `sm_count` SMs: a ring as deep as the shared memory left
+    beside K and V allows, up to eight tiles; one block an SM, a grid that is
+    a multiple of H where it can be. Raises for what the kernel cannot
+    take."""
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM or not 1 <= lkv <= MAX_KV or min(b, s, heads) < 1:
+        raise ValueError(f"cross attention kernel: head dim {d}, {lkv} keys, {s} queries")
+    if b > 65535 or heads > 65535:
+        raise ValueError(f"cross attention kernel: batch {b}, heads {heads}")
+    slabs = -(-d // 64)
+    key_regs = WIDE_KEYS if lkv <= WIDE_KEYS else MAX_KV
+    kv_rows = WIDE_KEYS if lkv <= WIDE_KEYS else -(-lkv // 16) * 16
+    kv_bytes = 2 * slabs * kv_rows * SLAB_BYTES
+    stage = slabs * TILE * SLAB_BYTES
+    stages = min(MAX_STAGES, (SMEM_MAX - RESERVED - kv_bytes) // stage)
+    if stages < (4 if key_regs == WIDE_KEYS else 1):
+        raise ValueError(f"cross attention kernel: {kv_bytes + stage + RESERVED} shared bytes")
+    items = b * heads * -(-s // TILE)
+    if items > 2**31 - 1:
+        raise ValueError(f"cross attention kernel: {items} work items")
+    grid = min(items, sm_count)
+    if grid >= heads:  # a multiple of H: each block keeps one head
+        grid -= grid % heads
+    return LaunchPlan(tile=TILE, kv_rows=kv_rows, key_regs=key_regs, slabs=slabs, stages=stages,
+                      threads=384 if key_regs == WIDE_KEYS else (TILE // 16 + 1) * 32,
+                      items=items, grid=grid, smem_bytes=RESERVED + kv_bytes + stages * stage)
 
 
 def cross_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -51,12 +119,21 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         raise ValueError(f"{name} kernel: head dim {d}, {lkv} keys, {s} queries")
     if any(t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned q/k/v on one device")
-    fn = _build.function("cross_attention", "cross_attention_bf16", 4, 5, 1)
-    out = torch.empty_like(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, lkv,
-             float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, name)
+    sms = _build.sm_count(q.device.index if q.device.index is not None else torch.cuda.current_device())
+    out = _launch(q, k, v, scale, launch_plan(b, s, h, d, lkv, sms))
     cross_attention.launches += 1
+    return out
+
+
+def _launch(q, k, v, scale: float, plan: LaunchPlan) -> torch.Tensor:
+    """One kernel launch on the current stream, under `plan`."""
+    b, s, h, d = q.shape
+    fn = _build.function("cross_attention", "cross_attention_bf16", 4, 5, 1, n_int_after=4)
+    out = torch.empty_like(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, k.shape[1],
+             float(scale), plan.tile, plan.stages, plan.grid, plan.smem_bytes,
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "cross_attention")
     return out
 
 
