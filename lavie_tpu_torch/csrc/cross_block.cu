@@ -1,9 +1,8 @@
-// The VSR only-cross transformer block as two fused passes around the
-// frame-axis temporal attention (the temporal attention needs the frame
-// axis and forces the boundary):
+// The VSR only-cross transformer block's head, the fused pass before the
+// frame-axis temporal attention (which needs the frame axis and forces the
+// boundary; the tail after it is csrc/transformer_tail.cu):
 //   head: xp = x Wpi^T + bpi; x1 = xp + Attn(LN1(xp); k1, v1);
 //         x2 = x1 + Attn(LN2(x1); k2, v2)           (8 heads x 64, 77 text keys)
-//   tail: y = (GEGLU(LN3(x)) + x) Wpo^T + bpo + r   (hidden|gate, erf gelu)
 // and, for the text cross-attention (attn2) of every other transformer
 // block, the head's second half alone:
 //   single: y = x + Attn(LN(x); k, v) Wo^T + bo     (8 heads x 40/80/128/160)
@@ -13,11 +12,10 @@
 // add.rn, so that no compiler fuses gamma's product and beta's sum into one
 // fma), products accumulated in fp32, q scaled in fp32 then rounded, fp32
 // softmax whose probabilities are rounded to bf16 before P.V, each residual
-// added in bf16. layer_norm_bf16 runs the LayerNorm alone, for its test.
+// added in bf16.
 //
 // Replaces: lavie_tpu/kernels/cross_block.py
 //   cross_attention_head     (_head_3d, body _head_kernel)     -> cross_attention_head_bf16
-//   transformer_tail         (_tail_3d, body _tail_kernel)     -> transformer_tail_bf16
 //   fused_ln_cross_attention (_single_3d, body _single_kernel) -> fused_ln_cross_attention_bf16
 //
 // The single kernel at the base L0 level (81,920 tokens of C = 320): 4*N*C^2
@@ -30,30 +28,24 @@
 //
 // What bounds them on the H100: tensor-core operations. At the VSR L1 level
 // (327,680 tokens of C = 512) the head is 5 C x C products, 2*5*N*C^2 = 0.86
-// TFLOP plus 2 x 4*N*77*C of attention (0.10), ~1.0 ms at 989 TFLOP/s; the
-// tail is 2*N*C*(2I + I + C) with I = 4C = 2.2 TFLOP, ~2.3 ms. The
-// activation bytes (2 reads and 1 write of N*C bf16, 1 GB) take ~0.3 ms.
+// TFLOP plus 2 x 4*N*77*C of attention (0.10), ~1.0 ms at 989 TFLOP/s. The
+// activation bytes (a read and a write of N*C bf16, 0.67 GB) take ~0.2 ms.
 //
 // What the design does about it: every intermediate (the projections, the
-// normalised rows, q, the scores and probabilities, the GEGLU hidden) stays
-// on chip. A head block owns 64 tokens and keeps three (64, C) bf16 tiles
-// in shared memory (the residual stream, the normalised/attention-output
-// tile and q): 224 KB at C = 512, one block per SM. The four projections
-// are (64, C) x (C, C) products on mma.sync m16n8k16 whose weights stream
-// through a double-buffered cp.async ring in chunks of 16 input channels;
-// each warp owns a band of output columns, in two passes of 256 so the fp32
-// accumulators stay in registers. The attention is per (16 tokens, head):
-// q fragments from shared memory, the padded (80, C) keys and the
-// transposed (C, 80) values read as fragments straight from L2 (one row
-// per video, shared by every token block of that video), all 80 scores of
-// a row in registers, exact softmax, P.V on the tensor cores. A tail block
-// owns 32 tokens: LN3 into shared memory, then for each 128-wide chunk of
-// the 4C hidden width the hidden|gate product (fp32, to shared memory), the
-// erf-gelu gate into a bf16 chunk, and its product with the matching
-// columns of W2 accumulated into the (32, C) fp32 output in registers; then
-// + b2 + x and proj_out + bpo + r. The weights are read once per block from
-// L2, the cost this simple design pays (ROADMAP: wgmma, TMA multicast of
-// the weight tiles across a cluster, larger token tiles).
+// normalised rows, q, the scores and probabilities) stays on chip. A head
+// block owns 64 tokens and keeps three (64, C) bf16 tiles in shared memory
+// (the residual stream, the normalised/attention-output tile and q): 224 KB
+// at C = 512, one block per SM. The four projections are (64, C) x (C, C)
+// products on mma.sync m16n8k16 whose weights stream through a
+// double-buffered cp.async ring in chunks of 16 input channels; each warp
+// owns a band of output columns, in two passes of 256 so the fp32
+// accumulators stay in registers. The attention is per (16 tokens, head): q
+// fragments from shared memory, the padded (80, C) keys and the transposed
+// (C, 80) values read as fragments straight from L2 (one row per video,
+// shared by every token block of that video), all 80 scores of a row in
+// registers, exact softmax, P.V on the tensor cores. The weights are read
+// once per block from L2, the cost this simple design pays (ROADMAP: the
+// wgmma GEMMs of csrc/wgmma_gemm.cuh).
 
 #include "mma_tiles.cuh"
 
@@ -220,85 +212,6 @@ __global__ void __launch_bounds__(THREADS, 1) head_kernel(
 }
 
 // ----------------------------------------------------------------------------
-// tail
-// ----------------------------------------------------------------------------
-
-constexpr int TROWS = 32;
-constexpr int BI = 128;  // hidden columns per chunk
-
-template <int C>
-struct Tail {
-  static constexpr int LD = C + 8, HLD = 2 * BI + 4, ALD = BI + 8;
-  static constexpr int RING_COLS = C > 2 * BI ? C : 2 * BI;
-  static constexpr size_t SMEM = 2 * (size_t)TROWS * LD * 2 + (size_t)TROWS * HLD * 4 +
-                                 (size_t)TROWS * ALD * 2 + 2 * (size_t)RING_COLS * WLD * 2;
-};
-
-template <int C>
-__global__ void __launch_bounds__(THREADS, 1) tail_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ res, const float* __restrict__ g3,
-    const float* __restrict__ b3, const bf16* __restrict__ w0, const float* __restrict__ b0,
-    const bf16* __restrict__ w2, const float* __restrict__ b2, const bf16* __restrict__ wpo,
-    const float* __restrict__ bpo, bf16* __restrict__ out, int N, float eps) {
-  constexpr int LD = Tail<C>::LD, HLD = Tail<C>::HLD, ALD = Tail<C>::ALD, I = 4 * C;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* X = reinterpret_cast<bf16*>(smem);
-  bf16* XN = X + TROWS * LD;
-  float* HG = reinterpret_cast<float*>(XN + TROWS * LD);
-  bf16* ACT = reinterpret_cast<bf16*>(HG + TROWS * HLD);
-  bf16* ring = ACT + TROWS * ALD;
-  const int row0 = blockIdx.x * TROWS;
-
-  for (int idx = threadIdx.x; idx < TROWS * C / 8; idx += THREADS) {
-    const int r = idx / (C / 8), c8 = idx % (C / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < N) v = *reinterpret_cast<const uint4*>(x + (size_t)(row0 + r) * C + c8 * 8);
-    *reinterpret_cast<uint4*>(X + r * LD + c8 * 8) = v;
-  }
-  __syncthreads();
-  layer_norm<TROWS, C>(X, XN, LD, g3, b3, eps);
-
-  float oacc[TROWS / 16][C / 64][4];
-  zero<TROWS, C>(oacc);
-  for (int i0 = 0; i0 < I; i0 += BI) {
-    {  // hidden | gate chunk (fp32, + b0) into HG
-      auto row = [&](int c) { return c < BI ? i0 + c : I + i0 + c - BI; };
-      float hacc[TROWS / 16][2 * BI / 64][4];
-      zero<TROWS, 2 * BI>(hacc);
-      gemm<TROWS, 2 * BI, C>(hacc, XN, LD, [&](int c) { return w0 + (size_t)row(c) * C; }, ring);
-      each_pair<TROWS, 2 * BI>(hacc, [&](int r, int c, float v0, float v1) {
-        HG[r * HLD + c] = v0 + b0[row(c)];
-        HG[r * HLD + c + 1] = v1 + b0[row(c + 1)];
-      });
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < TROWS * BI; idx += THREADS) {
-      const int r = idx / BI, c = idx % BI;
-      const float gt = HG[r * HLD + BI + c];
-      ACT[r * ALD + c] =
-          __float2bfloat16(HG[r * HLD + c] * (0.5f * gt * (1.f + erff(gt * 0.70710678118654752f))));
-    }
-    gemm<TROWS, C, BI>(oacc, ACT, ALD, [&](int c) { return w2 + (size_t)c * I + i0; }, ring);
-  }
-  // y = bf16(bf16(acc + b2) + x) into XN (free once the chunks are done)
-  each_pair<TROWS, C>(oacc, [&](int r, int c, float v0, float v1) {
-    *reinterpret_cast<__nv_bfloat162*>(XN + r * LD + c) =
-        __hadd2(__floats2bfloat162_rn(v0 + b2[c], v1 + b2[c + 1]),
-                *reinterpret_cast<const __nv_bfloat162*>(X + r * LD + c));
-  });
-  float pacc[TROWS / 16][C / 64][4];
-  zero<TROWS, C>(pacc);
-  gemm<TROWS, C, C>(pacc, XN, LD, [&](int c) { return wpo + (size_t)c * C; }, ring);
-  each_pair<TROWS, C>(pacc, [&](int r, int c, float v0, float v1) {
-    if (row0 + r >= N) return;
-    const size_t off = (size_t)(row0 + r) * C + c;
-    *reinterpret_cast<__nv_bfloat162*>(out + off) =
-        __hadd2(__floats2bfloat162_rn(v0 + bpo[c], v1 + bpo[c + 1]),
-                *reinterpret_cast<const __nv_bfloat162*>(res + off));
-  });
-}
-
-// ----------------------------------------------------------------------------
 // single: x + to_out(Attn(LN(x); k, v)) for the attn2 of every other block
 // ----------------------------------------------------------------------------
 
@@ -442,38 +355,6 @@ __global__ void __launch_bounds__(THREADS, 1) single_kernel(const bf16* __restri
   }
 }
 
-// The LayerNorm alone, 8 rows a block (one per warp), for the bit-exact
-// test of its roundings: out (N, C) bf16 and each row's fp32 (mean, inv).
-template <int C>
-__global__ void __launch_bounds__(THREADS) layer_norm_kernel(const bf16* __restrict__ x,
-                                                            const float* __restrict__ gamma,
-                                                            const float* __restrict__ beta,
-                                                            bf16* __restrict__ out,
-                                                            float2* __restrict__ stats, int N,
-                                                            float eps) {
-  constexpr int ROWS = THREADS / 32, LD = C + 8;
-  __shared__ __align__(16) unsigned char raw[ROWS * LD * 2];
-  __shared__ float2 st[ROWS];
-  bf16* T = reinterpret_cast<bf16*>(raw);
-  const int r0 = blockIdx.x * ROWS;
-  for (int idx = threadIdx.x; idx < ROWS * C / 8; idx += THREADS) {
-    const int r = idx / (C / 8), c8 = idx % (C / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < N) v = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + c8 * 8);
-    *reinterpret_cast<uint4*>(T + r * LD + c8 * 8) = v;
-  }
-  __syncthreads();
-  layer_norm<ROWS, C>(T, T, LD, gamma, beta, eps, st);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < ROWS * C / 8; idx += THREADS) {
-    const int r = idx / (C / 8), c8 = idx % (C / 8);
-    if (r0 + r < N)
-      *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * C + c8 * 8) =
-          *reinterpret_cast<const uint4*>(T + r * LD + c8 * 8);
-  }
-  if (threadIdx.x < ROWS && r0 + threadIdx.x < N) stats[r0 + threadIdx.x] = st[threadIdx.x];
-}
-
 template <int C>
 cudaError_t launch_head(const void* x, const void* wpi, const void* bpi, const AttnArgs& a1,
                         const AttnArgs& a2, void* out, long long rows, int N, int L, float scale,
@@ -486,21 +367,6 @@ cudaError_t launch_head(const void* x, const void* wpi, const void* bpi, const A
   return cudaGetLastError();
 }
 
-template <int C>
-cudaError_t launch_tail(const void* x, const void* r, const void* g3, const void* b3,
-                        const void* w0, const void* b0, const void* w2, const void* b2,
-                        const void* wpo, const void* bpo, void* out, int N, float eps,
-                        cudaStream_t st) {
-  cudaError_t err = prepare(tail_kernel<C>, Tail<C>::SMEM);
-  if (err != cudaSuccess) return err;
-  tail_kernel<C><<<(N + TROWS - 1) / TROWS, THREADS, Tail<C>::SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(r), static_cast<const float*>(g3),
-      static_cast<const float*>(b3), static_cast<const bf16*>(w0), static_cast<const float*>(b0),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<const bf16*>(wpo),
-      static_cast<const float*>(bpo), static_cast<bf16*>(out), N, eps);
-  return cudaGetLastError();
-}
-
 template <int C, int D>
 cudaError_t launch_single(const void* x, const AttnArgs& a, void* out, int B, int N, int L,
                           float scale, float eps, cudaStream_t st) {
@@ -509,15 +375,6 @@ cudaError_t launch_single(const void* x, const AttnArgs& a, void* out, int B, in
   const dim3 grid((N + Single<C>::ROWS - 1) / Single<C>::ROWS, B);
   single_kernel<C, D><<<grid, THREADS, Single<C>::SMEM, st>>>(
       static_cast<const bf16*>(x), a, static_cast<bf16*>(out), N, L, scale, eps);
-  return cudaGetLastError();
-}
-
-template <int C>
-cudaError_t launch_layer_norm(const void* x, const void* g, const void* b, void* out, void* stats,
-                              int N, float eps, cudaStream_t st) {
-  layer_norm_kernel<C><<<(N + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
-      static_cast<bf16*>(out), static_cast<float2*>(stats), N, eps);
   return cudaGetLastError();
 }
 
@@ -554,23 +411,6 @@ extern "C" int cross_attention_head_bf16(
   }
 }
 
-// x, r, out (N, C) bf16; w0 (8C, C), w2 (C, 4C), wpo (C, C) bf16; g3, b3,
-// b0 (8C), b2, bpo fp32. C in {128, 256, 512}. Returns cudaGetLastError().
-extern "C" int transformer_tail_bf16(const void* x, const void* r, const void* g3,
-                                     const void* b3, const void* w0, const void* b0,
-                                     const void* w2, const void* b2, const void* wpo,
-                                     const void* bpo, void* out, int N, int C, float eps,
-                                     void* stream) {
-  if (N < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 128: return (int)launch_tail<128>(x, r, g3, b3, w0, b0, w2, b2, wpo, bpo, out, N, eps, st);
-    case 256: return (int)launch_tail<256>(x, r, g3, b3, w0, b0, w2, b2, wpo, bpo, out, N, eps, st);
-    case 512: return (int)launch_tail<512>(x, r, g3, b3, w0, b0, w2, b2, wpo, bpo, out, N, eps, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 // x, out (B, N, C) bf16, any N >= 1; wq, wo (C, C) bf16; g, b, bo (C) fp32;
 // k (B, 80, C) bf16 zero-padded past L text keys; vt (B, C, 80) bf16 the
 // transposed, padded values. (C, D) in {(320, 40), (640, 80), (1024, 128),
@@ -591,23 +431,4 @@ extern "C" int fused_ln_cross_attention_bf16(const void* x, const void* g, const
     return (int)launch_single<1280, 160>(x, a, out, B, N, L, scale, eps, st);
   if (C == 512 && D == 64) return (int)launch_single<512, 64>(x, a, out, B, N, L, scale, eps, st);
   return (int)cudaErrorInvalidValue;
-}
-
-// The kernels' LayerNorm alone: x, out (N, C) bf16; g, b (C) fp32; stats
-// (N, 2) fp32 each row's (mean, inv). C in {128, 256, 320, 512, 640, 1024,
-// 1280}. Returns cudaGetLastError().
-extern "C" int layer_norm_bf16(const void* x, const void* g, const void* b, void* out,
-                               void* stats, int N, int C, float eps, void* stream) {
-  if (N < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 128: return (int)launch_layer_norm<128>(x, g, b, out, stats, N, eps, st);
-    case 256: return (int)launch_layer_norm<256>(x, g, b, out, stats, N, eps, st);
-    case 320: return (int)launch_layer_norm<320>(x, g, b, out, stats, N, eps, st);
-    case 512: return (int)launch_layer_norm<512>(x, g, b, out, stats, N, eps, st);
-    case 640: return (int)launch_layer_norm<640>(x, g, b, out, stats, N, eps, st);
-    case 1024: return (int)launch_layer_norm<1024>(x, g, b, out, stats, N, eps, st);
-    case 1280: return (int)launch_layer_norm<1280>(x, g, b, out, stats, N, eps, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the kernels that feed their
-// products from a TMA ring (flash_attention.cu, geglu.cu, cross_attention.cu):
+// products from a TMA ring (flash_attention.cu, cross_attention.cu and,
+// through wgmma_gemm.cuh, geglu.cu, transformer_tail.cu, temporal_resblock.cu):
 // shared-memory addresses, mbarriers, TMA tile loads and stores, the
 // tensor-map encoder cuTensorMapEncodeTiled (reached through the runtime, so
 // no -lcuda), wgmma instructions and their shared-memory descriptors.
@@ -319,6 +320,23 @@ inline bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, i
   cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
   cuuint32_t box[2] = {SLAB, (cuuint32_t)box_rows}, elem[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D map over a contiguous bf16 tensor of dims (d0, d1, d2, d3), d0
+// innermost, whose boxes are one 64-column slab of d0 by box_rows along d1
+// (one along d2 and d3), 128-byte swizzled; elements past any dim are
+// zero-filled on a load and not written by a store. d0 * 2 must be a
+// multiple of 16 bytes.
+inline bool make_map_4d(CUtensorMap* map, const void* ptr, int d0, int d1, int d2, int d3,
+                        int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
+  cuuint64_t strides[3] = {(cuuint64_t)d0 * 2, (cuuint64_t)d0 * d1 * 2, (cuuint64_t)d0 * d1 * d2 * 2};
+  cuuint32_t box[4] = {SLAB, (cuuint32_t)box_rows, 1, 1}, elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

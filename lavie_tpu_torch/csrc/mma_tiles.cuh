@@ -2,7 +2,8 @@
 // temporal_proj.cu): cp.async and ldmatrix wrappers, the bf16 mma.sync
 // m16n8k16 tile, a (ROWS, K) x (K, NCOLS) product whose weights stream
 // through a double-buffered cp.async ring, and the TPU kernels' LayerNorm
-// (fp32 statistics, elementwise steps rounded to bf16 one by one).
+// (fp32 statistics, elementwise steps rounded to bf16 one by one), which
+// transformer_tail.cu's LayerNorm pass runs too.
 // Every block that uses them has THREADS = 256 threads (8 warps).
 
 #pragma once

@@ -10,8 +10,10 @@ block as one (port of lavie_tpu.kernels.cross_block):
 
 x is (B, N, C) with N = F·S tokens per batch row; k/v are the projected
 text states (B, L, C), one row per video, shared by all its frames. Weights
-are nn.Linear (out, in). The CUDA kernels (csrc/cross_block.cu) replace
-`_head_kernel`, `_tail_kernel` and `_single_kernel`; the plain versions
+are nn.Linear (out, in). The CUDA kernels replace `_head_kernel` and
+`_single_kernel` (csrc/cross_block.cu) and `_tail_kernel`
+(csrc/transformer_tail.cu: a LayerNorm pass and three wgmma GEMMs, GEGLU's,
+under a plan from `tail_launch_plan`); the plain versions
 repeat the TPU kernels' arithmetic: LayerNorm statistics in fp32 with the
 elementwise steps in the activation dtype, products accumulated in fp32, q
 scaled in fp32 then rounded, fp32 softmax whose probabilities are rounded
@@ -22,16 +24,20 @@ before P·V, each residual added in the activation dtype.
   fused_ln_cross_attention(_reference)   head dims 40/80/128/160 (and 64) at
                                          C = 8 heads × d, any N
   layer_norm_on_card                     the kernels' LayerNorm alone (tests)
+  tail_launch_plan                       the tail GEMMs' launch plan for one call
 """
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels import geglu as _geglu
 
 HEAD_DIM = 64
 MAX_KV = 80  # text keys, padded to 80 (5 k-steps of 16) inside the kernel
@@ -157,6 +163,30 @@ def cross_attention_head(x: torch.Tensor, wpi: torch.Tensor, bpi: torch.Tensor,
     return out
 
 
+@dataclass(frozen=True)
+class TailPlan:
+    """How csrc/transformer_tail.cu runs one call: after the LayerNorm pass,
+    GEGLU's gate GEMM (`gate`) and its out GEMM over K = 4C (`out`, + b2 +
+    x), then the same out GEMM over K = C (`proj`, + bpo + residual), each on
+    at most `grid` persistent blocks."""
+    gate: _geglu.GemmPlan
+    out: _geglu.GemmPlan
+    proj: _geglu.GemmPlan
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def tail_launch_plan(n: int, c: int, sm_count: int) -> TailPlan:
+    """The plan of one call over x (N, C) on a card of `sm_count` SMs: GEGLU's
+    (geglu.launch_plan), and for the projection the out GEMM's tile width and
+    ring over K = C. Raises for what the kernels cannot take."""
+    if c not in KERNEL_WIDTHS:
+        raise ValueError(f"transformer_tail kernel: width {c}")
+    p = _geglu.launch_plan(n, c, sm_count)
+    proj = _geglu._gemm(p.out.width, c, c // p.out.width, p.out.stages)
+    return TailPlan(gate=p.gate, out=p.out, proj=proj, grid=p.grid)
+
+
 def transformer_tail(x: torch.Tensor, residual: torch.Tensor, g3: torch.Tensor, b3: torch.Tensor,
                      w0: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                      wpo: torch.Tensor, bpo: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -174,11 +204,17 @@ def transformer_tail(x: torch.Tensor, residual: torch.Tensor, g3: torch.Tensor, 
     if w0.shape != (2 * inner, c) or w2.shape != (c, inner) or wpo.shape != (c, c):
         raise ValueError(f"{name}: weight shapes do not match x")
     _check(name, x, [x, residual, w0, w2, wpo], [g3, b3, b0, b2, bpo])
-    out = torch.empty_like(x)
-    fn = _build.function("cross_block", "transformer_tail_bf16", 11, 2, 1)
+    n = x.numel() // c
+    sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    plan = tail_launch_plan(n, c, sms)
+    # four launches; the LayerNorm output, act and y are scratch of this call
+    out, xn, y = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    act = x.new_empty(n, 4 * c)
+    fn = _build.function("transformer_tail", "transformer_tail_bf16", 14, 7, 1)
     err = fn(x.data_ptr(), residual.data_ptr(), g3.data_ptr(), b3.data_ptr(), w0.data_ptr(),
              b0.data_ptr(), w2.data_ptr(), b2.data_ptr(), wpo.data_ptr(), bpo.data_ptr(),
-             out.data_ptr(), x.numel() // c, c, float(eps),
+             out.data_ptr(), xn.data_ptr(), act.data_ptr(), y.data_ptr(), n, c, plan.gate.stages,
+             plan.out.width, plan.out.stages, plan.proj.stages, plan.grid, float(eps),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, name)
     transformer_tail.launches += 1
@@ -217,15 +253,17 @@ def fused_ln_cross_attention(x: torch.Tensor, p: AttnParams, heads: int, scale: 
 
 def layer_norm_on_card(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                        eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernels' LayerNorm alone over x (N, C) bf16 on the card, C in
-    LN_WIDTHS: (the normalised rows, each row's fp32 (mean, inv) as (N, 2)),
-    for the test that holds its roundings against _layer_norm's."""
+    """The kernels' LayerNorm alone (the tail's LayerNorm pass,
+    csrc/transformer_tail.cu, over the shared csrc/mma_tiles.cuh LayerNorm)
+    over x (N, C) bf16 on the card, C in LN_WIDTHS: (the normalised rows,
+    each row's fp32 (mean, inv) as (N, 2)), for the test that holds its
+    roundings against _layer_norm's."""
     n, c = x.shape
     if c not in LN_WIDTHS:
         raise ValueError(f"layer_norm kernel: width {c}")
     _check("layer_norm", x, [x], [gamma, beta])
     out, stats = torch.empty_like(x), x.new_empty(n, 2, dtype=torch.float32)
-    fn = _build.function("cross_block", "layer_norm_bf16", 5, 2, 1)
+    fn = _build.function("transformer_tail", "layer_norm_bf16", 5, 2, 1)
     err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), out.data_ptr(), stats.data_ptr(), n, c,
              float(eps), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "layer_norm")

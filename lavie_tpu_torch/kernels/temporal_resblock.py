@@ -18,6 +18,11 @@ emit_stats the function also returns per-(batch, output channel) Σ y and
 Σ y² over (F, S), in fp32, of y as stored (rounded to its dtype): a
 following GroupNorm's moments without a second read of y.
 
+The float kernel (csrc/temporal_resblock.cu) is an activation pass, then one
+implicit GEMM on wgmma fed by TMA: output tiles of 128 positions × `width`
+output channels of one (batch, frame), K the valid taps × 64-channel slabs
+of C. Its launch plan comes from `launch_plan`.
+
 quant="int8" is the int8 variant of `_kernel_sfc` (the JAX package's turbo
 mode): act is quantised to int8 with one symmetric scale per (batch, block
 of `block` positions), a_scale = max(max|act|, 1e-12) / 127 over all F
@@ -37,11 +42,19 @@ The taps are (k, O, C): W[j] is tap j's (O, C) matrix, nn.Linear layout.
                            the int8 products exact, in fp64)
   resblock_conv_supported  the JAX package's gate of the fused kernel, which
                            also gates its int8 variant
+  launch_plan              the float kernel's launch plan for one call: tile
+                           width, ring depth, tiles, grid and shared bytes,
+                           computed here so that the CPU tests can hold it
+                           against the card's limits
+  valid_taps               the taps an output frame sums, as the kernel
+                           bounds them
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -77,6 +90,68 @@ def _pick_block(s: int, frames: int, cin: int, cout: int, ktaps: int, with_res: 
                 return blk
         blk //= 2
     return 0
+
+
+SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
+TILE_ROWS = 128  # positions of an output tile
+SLAB = 64  # channels a ring stage: one 128-byte swizzled box row
+SLAB_BYTES = 128
+WIDTHS = (256, 128)  # output channels of a tile, widest first
+MAX_STAGES = 8  # the kernel's barrier slots
+STAGES_MAX = 6  # the deepest ring the plan takes
+STAGING_ROWS = 64  # a consumer warpgroup's rows of an output tile
+# the kernel's shared memory besides the ring: 1 KB to align it to the
+# swizzle atom, the ring's mbarriers and the two residual mbarriers
+RESERVED = 1024 + 16 * MAX_STAGES + 16
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """How csrc/temporal_resblock.cu's float GEMM runs one call: output
+    tiles of TILE_ROWS positions × `width` channels, `c_blocks` 64-channel
+    slabs of C a tap, a ring of `stages` stages (an A slab of TILE_ROWS rows
+    and a B slab of `width` rows), two staging boxes of `staging_bytes`
+    together, `tiles` tiles walked by `grid` persistent blocks."""
+    width: int
+    c_blocks: int
+    stages: int
+    s_tiles: int
+    o_tiles: int
+    tiles: int
+    grid: int
+    staging_bytes: int
+    smem_bytes: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(b: int, f: int, s: int, c: int, o: int, k: int, sm_count: int) -> LaunchPlan:
+    """The float kernel's plan for x (B, F, S, C) and taps (k, O, C) on a
+    card of `sm_count` SMs: tiles 256 channels wide where O allows, else
+    128; as many ring stages (up to six) as fit beside the staging boxes;
+    a persistent grid no larger than the tiles. Raises for what the kernel
+    cannot take."""
+    if (min(b, f, s, sm_count) < 1 or c < 32 or c % 32 or c > 1024 or o < 128 or o % 128
+            or k < 1 or k % 2 == 0 or k > 7):
+        raise ValueError(f"gn_silu_tconv kernel: B={b}, F={f}, S={s}, C={c}, O={o}, k={k}")
+    width = next(w for w in WIDTHS if o % w == 0)
+    stage = (TILE_ROWS + width) * SLAB_BYTES
+    staging = 2 * STAGING_ROWS * width * 2
+    stages = min(STAGES_MAX, (SMEM_MAX - RESERVED - staging) // stage)
+    s_tiles = -(-s // TILE_ROWS)
+    tiles = b * s_tiles * f * (o // width)
+    if tiles >= 2**31:
+        raise ValueError(f"gn_silu_tconv kernel: {tiles} tiles")
+    return LaunchPlan(width=width, c_blocks=-(-c // SLAB), stages=stages, s_tiles=s_tiles,
+                      o_tiles=o // width, tiles=tiles, grid=min(sm_count, tiles),
+                      staging_bytes=staging, smem_bytes=RESERVED + stages * stage + staging)
+
+
+def valid_taps(frame: int, frames: int, k: int) -> range:
+    """The taps j that output frame `frame` of `frames` sums, as the float
+    kernel bounds them (its source frame frame + j - k//2 inside the
+    window)."""
+    pad = k // 2
+    return range(max(0, pad - frame), min(k, frames + pad - frame))
 
 
 def resblock_conv_supported(frames: int, s: int, cin: int, cout: int, ktaps: int,
@@ -213,11 +288,12 @@ def gn_silu_tconv(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.
         err = fn(*head, wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), ptr(residual),
                  out.data_ptr(), *dims, blk, scales.data_ptr(), ptr(ws), ptr(s1), ptr(s2), stream)
     else:
-        fn = lib.gn_silu_tconv_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 4
-        err = fn(*head, weight.data_ptr(), bias.data_ptr(), ptr(residual), out.data_ptr(), *dims,
-                 ptr(ws), ptr(s1), ptr(s2), stream)
+        sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
+        plan = launch_plan(b, f, s, c, o, k, sms)
+        act = torch.empty_like(x) if silu else None
+        fn = _build.function("temporal_resblock", "gn_silu_tconv_bf16", 11, 10, 0)
+        err = fn(*head, weight.data_ptr(), bias.data_ptr(), ptr(residual), out.data_ptr(), ptr(act),
+                 ptr(ws), ptr(s1), ptr(s2), *dims, plan.width, plan.stages, plan.grid, stream)
     _build.check(err, name)
     gn_silu_tconv.launches += 1
     gn_silu_tconv.int8_launches += int8
