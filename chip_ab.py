@@ -2,24 +2,32 @@
 
     python3 chip_ab.py ROOT TAG          # once per checkout, in turns
     python3 chip_ab.py --compare TAG1 TAG2
+    python3 chip_ab.py --cluster4 ROOT DEST
 
 The first form imports chip_smoke.py and lavie_tpu_torch from the checkout
 at ROOT, builds that checkout's kernels there and prints one JSON line for
-TAG: the SASS op counts of each GEGLU instance (all ops, HGMMA, UTMALDG),
-and the ms per call (CUDA events, chip_smoke.time_ms) of GEGLU at the base
-L0, TSR L0 and the two VSR shapes, of transformer_tail at VSR L1 and L2, of
+TAG: the SASS op counts (all ops, HGMMA, UTMALDG) of each instance of
+GEGLU's GEMMs, of the transformer tail's LayerNorm pass and GEMMs and of the
+d <= 160 flash body, and the ms per call (CUDA events, chip_smoke.time_ms)
+of GEGLU at the base L0, TSR L0 and the two VSR shapes, of
+cross_attention_head and transformer_tail at VSR L1 and L2, of the f4 VAE's
+d=512 flash attention over one 8-frame window (one timed call), of
 gn_silu_tconv at the eight VSR shapes (one CFG half of an 8-frame window)
 and of its int8 variant at three VSR shapes. The inputs come from fixed
 seeds, so every checkout sees the same ones; the int8 outputs are saved to
 build/ab_int8_TAG.pt beside this script. Run parent, change, change, parent
 in one call: two versions are compared only on one card. The second form
-says whether the int8 outputs of two tags are equal bit for bit.
+says whether the int8 outputs of two tags are equal bit for bit. The
+third copies the checkout at ROOT to DEST with the d=512 flash kernel's
+cluster of 2 CTAs set to 4 (csrc/flash_attention.cu's W_CLUSTER), a
+variant for the first form to time beside the checkout.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import sys
 
 import torch
@@ -37,20 +45,25 @@ def run(root: str, tag: str) -> None:
     import chip_smoke as cs
     from lavie_tpu_torch.kernels import _build
     from lavie_tpu_torch.kernels import cross_block as cb
+    from lavie_tpu_torch.kernels import flash_attention as fa
     from lavie_tpu_torch.kernels import geglu as gg
     from lavie_tpu_torch.kernels import temporal_resblock as tr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     row = {"tag": tag, "root": root, "device": torch.cuda.get_device_name(0)}
-    _build.build(["geglu", "temporal_resblock", "cross_block"])
-    sass = {}
-    for name, ops in _build.sass_op_counts(_build.library_path("geglu")).items():
-        if "geglu_" in name and "kernel" in name:
-            key = name[name.index("geglu_"):name.index("v14CUtensorMap")]
-            sass[key] = {"all": sum(ops.values()),
-                         **{p: sum(n for op, n in ops.items() if op.startswith(p)) for p in ("HGMMA", "UTMALDG")}}
-    row["geglu_sass"] = sass
+    _build.build(["geglu", "temporal_resblock", "transformer_tail", "flash_attention"])
+    # keyed by the kernel's own name (the mangled prefix holds a hash of the source file)
+    for lib, subs in (("geglu", ("geglu_pingpong_kernel", "geglu_coop_kernel")),
+                      ("transformer_tail", ("tail_gemm_", "tail_ln_kernel")),
+                      ("flash_attention", ("flash_kernel",))):
+        sass = {}
+        for name, ops in _build.sass_op_counts(_build.library_path(lib)).items():
+            if any(sub in name for sub in subs):
+                key = name[name.index(next(sub for sub in subs if sub in name)):]
+                sass[key] = {"all": sum(ops.values()),
+                             **{p: sum(n for op, n in ops.items() if op.startswith(p)) for p in ("HGMMA", "UTMALDG")}}
+        row[f"{lib}_sass"] = sass
 
     g = torch.Generator(device="cuda").manual_seed(5)
     bf = lambda *shape, sd=1.0: (sd * torch.randn(*shape, generator=g, device="cuda")).bfloat16()  # noqa: E731
@@ -61,13 +74,21 @@ def run(root: str, tag: str) -> None:
                 bf(c, sd=0.1))
         row["geglu_ms"][f"N={n} C={c}"] = cs.time_ms(lambda: gg.geglu(*args))
         del args
-    row["tail_ms"] = {}
+    row["tail_ms"], row["head_ms"] = {}, {}
     for s, c in VSR_LEVELS[1:3]:
         n = 8 * s
         targs = (bf(n, c), bf(n, c), f32(c, m=1.0), f32(c), bf(8 * c, c, sd=c ** -0.5), f32(8 * c),
                  bf(c, 4 * c, sd=(4 * c) ** -0.5), f32(c), bf(c, c, sd=c ** -0.5), f32(c))
         row["tail_ms"][f"N={n}"] = cs.time_ms(lambda: cb.transformer_tail(*targs))
         del targs
+        attn = lambda: (f32(c, m=1.0), f32(c), bf(c, c, sd=c ** -0.5), bf(c, c, sd=c ** -0.5),  # noqa: E731
+                        f32(c), bf(1, 77, c), bf(1, 77, c))
+        hargs = (bf(1, n, c), bf(c, c, sd=c ** -0.5), f32(c), attn(), attn(), c // 64, 0.125)
+        row["head_ms"][f"N={n}"] = cs.time_ms(lambda: cb.cross_attention_head(*hargs))
+        del hargs
+    q, k, v = (bf(8, VSR_LEVELS[0][0], 1, 512) for _ in range(3))
+    row["flash_d512_ms"] = cs.time_ms(lambda: fa.flash_attention(q, k, v, 512 ** -0.5), 1, 1)
+    del q, k, v
     row["tconv_ms"] = {}
     for s, c in VSR_LEVELS:
         for k, res in ((5, False), (3, True)):
@@ -97,8 +118,22 @@ def compare(a: str, b: str) -> None:
         sys.exit(1)
 
 
+def cluster4(root: str, dest: str) -> None:
+    shutil.copytree(root, dest, ignore=shutil.ignore_patterns(".git", "build", "chiprun_out"))
+    path = os.path.join(dest, "lavie_tpu_torch", "csrc", "flash_attention.cu")
+    with open(path) as f:
+        text = f.read()
+    line = "constexpr int W_CLUSTER = 2;"
+    if line not in text:
+        sys.exit(f"chip_ab: {line!r} not in {path}")
+    with open(path, "w") as f:
+        f.write(text.replace(line, "constexpr int W_CLUSTER = 4;"))
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         compare(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--cluster4":
+        cluster4(sys.argv[2], sys.argv[3])
     else:
         run(sys.argv[1], sys.argv[2])

@@ -9,9 +9,10 @@ its result line:
                 build is checked too); a kernel the report does not cover, a
                 spill outside the kernel instances in SPILLS_KNOWN, or
                 ptxas's C7514 (wgmma serialised) fails the phase; so does a
-                flash, geglu, cross-attention, transformer-tail GEMM or float
-                temporal-conv GEMM instance whose SASS lacks an op of
-                SASS_REQUIRED (wgmma or mma, and TMA loads)
+                flash, geglu, cross-attention, head GEMM or attention,
+                transformer-tail GEMM or float temporal-conv GEMM instance
+                whose SASS lacks an op of SASS_REQUIRED (wgmma or mma, and TMA
+                loads; multicast TMA loads in the d=512 flash kernel)
   3. kernels    each kernel at every base-path and TSR-path shape against its
                 plain PyTorch version in bf16 (tolerance relative to
                 max|plain|), timed with CUDA events beside the plain version
@@ -34,10 +35,11 @@ its result line:
  10. vsr_kernels  the VSR slice's kernels at every VSR shape against their
                 plain versions (gn_silu_tconv, cross_attention_head,
                 transformer_tail, flash_attention at d=128 and d=512, and
-                temporal attention and GEGLU at the VSR widths); the tail
-                rows also time the eager path (F.layer_norm, three cuBLAS
-                F.linear, F.gelu, the adds) as a yardstick the port never
-                calls
+                temporal attention and GEGLU at the VSR widths); the head
+                and tail rows also time the eager path (head: F.linear, then
+                twice F.layer_norm, F.linear, SDPA, F.linear and the add;
+                tail: F.layer_norm, three cuBLAS F.linear, F.gelu, the adds)
+                as a yardstick the port never calls
  11. model_vsr  one full-width VSR UNet half-forward (1x8x320x512x7, text and
                 noise level) with the kernels and with the plain versions
  12. vsr        VideoSuperResolutionPipeline at full width upscales the first
@@ -187,11 +189,13 @@ PREV_MS = {
     ("geglu", 312320, 320, 1280): 13.026, ("geglu", 78080, 640, 2560): 13.081,
     ("geglu", 19520, 1280, 5120): 15.401, ("geglu", 4880, 1280, 5120): 4.748,
     ("geglu", 81920, 512, 2048): 9.858, ("geglu", 20480, 1024, 4096): 11.440,
-    ("cross_attention", "base", 2, 40960, 40, 77): 0.144,
-    ("cross_attention", "base", 2, 10240, 80, 77): 0.069,
+    # the short-kv cross attention before its probabilities were divided by
+    # their sum instead of multiplied by its reciprocal (PERF.md, row 13)
+    ("cross_attention", "base", 2, 40960, 40, 77): 0.087,
+    ("cross_attention", "base", 2, 10240, 80, 77): 0.046,
     ("cross_attention", "base", 2, 2560, 160, 77): 0.047,
-    ("cross_attention", "base", 2, 640, 160, 77): 0.028,
-    ("cross_attention", "VSR L3", 1, 20480, 128, 77): 0.089,
+    ("cross_attention", "base", 2, 640, 160, 77): 0.033,
+    ("cross_attention", "VSR L3", 1, 20480, 128, 77): 0.036,
     # the VSR transformer tail (mma.sync, weights streamed per 32 rows) and
     # the float GN·SiLU·temporal conv (mma.sync, the activation recomputed
     # per tap and output tile) before their redesign to wgmma GEMMs fed by TMA
@@ -209,6 +213,13 @@ PREV_MS = {
     ("gn_silu_tconv (emit_stats)", 1, 8, 10240, 512, 512, 5): 1.861,
     ("gn_silu_tconv (emit_stats)", 1, 8, 2560, 1024, 1024, 5): 1.876,
     ("gn_silu_tconv (activation none)", 1, 8, 10240, 512, 512, 3, True): 0.552,
+    # the VSR only-cross head (mma.sync, the five weights streamed per 64
+    # rows through a cp.async ring) and the d=512 flash body (mma.sync, two
+    # warps a 16-query band, K and V re-read by every 64-query block) before
+    # their redesign to wgmma fed by TMA
+    ("cross_attention_head", 1, 327680, 512, 8, 77): 8.327,
+    ("cross_attention_head", 1, 81920, 512, 8, 77): 2.194,
+    ("flash_attention", 8, 163840, 512): 2631.6,
 }
 
 
@@ -260,9 +271,12 @@ SPILLS_KNOWN = {("temporal_resblock", "tconv_int8_kernelILb1E")}  # the int8 ker
 # kernels that must run their products on wgmma fed by TMA: (source, kernel
 # name substring, SASS opcode prefixes each instance must hold)
 SASS_REQUIRED = (("flash_attention", "flash_kernel", ("HGMMA.64", "UTMALDG.4D")),
+                 ("flash_attention", "flash_d512_kernel", ("HGMMA.64", "UTMALDG.4D.MULTICAST")),
                  ("geglu", "geglu_", ("HGMMA", "UTMALDG")),
                  ("cross_attention", "cross_kernel", ("HGMMA", "UTMALDG.4D")),
                  ("cross_attention", "cross_long_kernel", ("HMMA", "UTMALDG.4D")),
+                 ("cross_head", "head_gemm_kernel", ("HGMMA", "UTMALDG.2D", "UTMASTG.2D")),
+                 ("cross_head", "head_attn_kernel", ("HGMMA", "UTMALDG.4D")),
                  ("transformer_tail", "tail_gemm_", ("HGMMA", "UTMALDG")),
                  ("temporal_resblock", "tconv_gemm_kernel", ("HGMMA", "UTMALDG")))
 
@@ -297,7 +311,8 @@ def phase_build() -> None:
 
     t0 = time.time()
     logs = _build.build(["temporal_fused", "geglu", "flash_attention", "temporal_resblock",
-                         "cross_block", "transformer_tail", "cross_attention", "temporal_proj"])
+                         "cross_block", "cross_head", "transformer_tail", "cross_attention",
+                         "temporal_proj"])
     for name, text in logs.items():
         report = ptxas_report(text)
         entries, spill_lines = text.count("Compiling entry function"), text.count("spill stores")
@@ -523,9 +538,9 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("geglu", ("geglu_pingpong_kernel<", "geglu_coop_kernel<")),
     ("cross_attention (attn2=cross)", ("cross_kernel<", "cross_long_kernel<")),
     ("gn_silu_tconv", ("tconv_", "colsum_kernel", "act_scale_kernel")),
-    ("cross_attention_head", ("head_kernel<",)),
+    ("cross_attention_head", ("head_ln_kernel<", "head_gemm_kernel<", "head_attn_kernel")),
     ("transformer_tail", ("tail_gemm_", "tail_ln_kernel<")),
-    ("flash d=512", ("flash_wide_kernel",)),
+    ("flash d=512", ("flash_d512_kernel",)),
     ("flash d<=160 (sparse-causal, explicit kv, VSR L3)", ("flash_kernel<",)),
     ("attention (SDPA)", ("flash", "fmha", "attention", "softmax")),
     ("convolution", ("conv", "implicit", "winograd", "dgrad", "wgrad", "nhwc", "nchw")),
@@ -785,12 +800,26 @@ def phase_vsr_kernels() -> dict:
         attn = lambda: (f32(c, m=1.0), f32(c), bf(c, c, sd=c ** -0.5), bf(c, c, sd=c ** -0.5),  # noqa: E731
                         f32(c), bf(1, lkv, c), bf(1, lkv, c))
         hargs = (x, bf(c, c, sd=c ** -0.5), f32(c), attn(), attn(), c // 64, 0.125)
+        heads = c // 64
+        # yardstick: the eager path on the module's own bf16 parameters
+        wpi_b, bpi_b = hargs[1], hargs[2].bfloat16()
+        layers_b = [tuple(t.bfloat16() for t in a) for a in hargs[3:5]]
+
+        def head_eager():
+            h = F.linear(x, wpi_b, bpi_b)
+            for g1, b1, wq, wo, bo, kt, vt in layers_b:
+                split = lambda t: t.view(1, -1, heads, 64).transpose(1, 2)  # noqa: E731
+                o = F.scaled_dot_product_attention(
+                    split(F.linear(F.layer_norm(h, (c,), g1, b1), wq)), split(kt), split(vt))
+                h = F.linear(o.transpose(1, 2).reshape(1, n, c), wo, bo) + h
+            return h
+
         rows["cross_attention_head"].append(check_row(
-            "cross_attention_head", {"B": 1, "N": n, "C": c, "heads": c // 64, "L": lkv},
+            "cross_attention_head", {"B": 1, "N": n, "C": c, "heads": heads, "L": lkv},
             cb.cross_attention_head(*hargs), cb.cross_attention_head_reference(*hargs), CROSS_TOL,
             lambda: cb.cross_attention_head(*hargs), lambda: cb.cross_attention_head_reference(*hargs),
             None, 2 * n * c * 2 + 5 * c * c * 2 + 4 * lkv * c * 2,
-            ((2 * 5 * n * c * c + 2 * 2 * 2 * n * lkv * c, BF16_FLOPS),)))
+            ((2 * 5 * n * c * c + 2 * 2 * 2 * n * lkv * c, BF16_FLOPS),), eager_ms=time_ms(head_eager)))
         targs = (x, r, f32(c, m=1.0), f32(c), bf(8 * c, c, sd=c ** -0.5), f32(8 * c),
                  bf(c, 4 * c, sd=(4 * c) ** -0.5), f32(c), bf(c, c, sd=c ** -0.5), f32(c))
         # yardstick: the eager path on the module's own bf16 parameters
@@ -1543,7 +1572,7 @@ def main() -> int:
         entry("flash_attention", "lavie_tpu_torch/csrc/flash_attention.cu",
               "lavie_tpu/kernels/flash_attention.py:453", vsr_rows["flash_attention"][1],
               note="the VAE's d=512 shape; the L3 d=128 row is in the vsr_kernels phase"),
-        entry("cross_attention_head", "lavie_tpu_torch/csrc/cross_block.cu",
+        entry("cross_attention_head", "lavie_tpu_torch/csrc/cross_head.cu",
               "lavie_tpu/kernels/cross_block.py:383", vsr_rows["cross_attention_head"][0]),
         entry("transformer_tail", "lavie_tpu_torch/csrc/transformer_tail.cu",
               "lavie_tpu/kernels/cross_block.py:441", vsr_rows["transformer_tail"][0]),

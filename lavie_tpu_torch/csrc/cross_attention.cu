@@ -11,8 +11,9 @@
 //            the scores, not on q; here folded with log2(e) into one
 //            multiply, for ex2);
 //   p = exact max-subtracted softmax over j in one pass (the whole kv is
-//       resident, so no online rescale), one reciprocal per row, rounded to
-//       bf16;
+//       resident, so no online rescale), e_j / sum_j e_j (a division
+//       rounded to nearest, as the TPU body divides: csrc/cross_attn.cuh's
+//       div_by_sum at L <= 80, div.rn.f32 above), rounded to bf16;
 //   out = p v accumulated in fp32, rounded once to bf16.
 // Layout: q, out (B, S, H, D) and k, v (B, L, H, D), as the projections
 // produce them; D a multiple of 8 up to 160; any S (the last tile is
@@ -36,7 +37,8 @@
 // one 128-byte swizzled TMA box per 64 columns of a 4-D map over (D, H, S,
 // B) (the flash kernel's map; TMA zero-fills the columns past D and the rows
 // past S or L).
-//   L <= 80 (the 77 text tokens; cross_kernel): two consumer warpgroups
+//   L <= 80 (the 77 text tokens; cross_kernel, on the body in
+//     csrc/cross_attn.cuh that csrc/cross_head.cu shares): two consumer warpgroups
 //     take the block's items in turn, on wgmma like the flash body: S = Q K^T
 //     (m64n80k16, both operands K-major in the swizzled boxes), the softmax
 //     in the accumulator registers with quad shuffles and ex2, then O = P V
@@ -52,17 +54,14 @@
 //     the score registers, and stores from registers.
 // The next tiles' loads are in flight meanwhile.
 
-#include "hopper.cuh"
+#include "cross_attn.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
 
-using namespace hopper;
-using tiles::bf16;
+using namespace xattn;
 using tiles::mma16816;
-using tiles::pack_bf16;
 
-constexpr int MAX_STAGES = 8;
 constexpr int LONG_KEYS = 256;  // keys a thread's scores cover in cross_long_kernel
 
 __device__ __forceinline__ void ldsm4(uint32_t* r, uint32_t addr) {
@@ -76,251 +75,14 @@ __device__ __forceinline__ void ldsm4_t(uint32_t* r, uint32_t addr) {
                : "r"(addr));
 }
 
-struct CrossArgs {
-  bf16* out;
-  int S, H, D, L;
-  int kv_rows;    // the K and V rows in shared memory: KEYS for L <= KEYS
-                  // (every row the wgmma products read), else L rounded up to 16
-  int tile;       // queries per work item
-  int stages;     // query tiles in the ring
-  int items;
-  float scale_log2;
-};
-
-// Shared memory: K and V (SLABS slabs of kv_rows 128-byte rows each), the
-// ring of query tiles, then the barriers: full[MAX_STAGES],
-// empty[MAX_STAGES], kv_full, kv_empty.
-struct Smem {
-  uint32_t k, v, q, bars, kv_slab, q_slab;
-  __device__ Smem(const CrossArgs& a, int slabs, const void* raw) {
-    k = (smem_u32(raw) + 1023) & ~1023u;  // the swizzle atom is 1024 bytes
-    kv_slab = a.kv_rows * ROW_BYTES;
-    q_slab = a.tile * ROW_BYTES;
-    v = k + slabs * kv_slab;
-    q = v + slabs * kv_slab;
-    bars = q + a.stages * slabs * q_slab;
-  }
-  __device__ uint32_t full(int s) const { return bars + 8 * s; }
-  __device__ uint32_t empty(int s) const { return bars + 8 * (MAX_STAGES + s); }
-  __device__ uint32_t kv_full() const { return bars + 16 * MAX_STAGES; }
-  __device__ uint32_t kv_empty() const { return bars + 16 * MAX_STAGES + 8; }
-  __device__ uint32_t stage(int s, int slabs) const { return q + s * slabs * q_slab; }
-};
-
-// Item w of a call: head w % H, query tile (w / H) % tiles, batch
-// w / (H * tiles).
-struct Item {
-  int h, qt, b, bh;
-  __device__ Item(const CrossArgs& a, int w) {
-    const int qtiles = (a.S + a.tile - 1) / a.tile;
-    h = w % a.H;
-    qt = (w / a.H) % qtiles;
-    b = w / (a.H * qtiles);
-    bh = b * a.H + h;
-  }
-};
-
-__device__ __forceinline__ void init_barriers(const Smem& m, int stages, int stage_readers,
-                                              int kv_readers) {
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < stages; ++s) {
-      mbar_init(m.full(s), 1);
-      mbar_init(m.empty(s), stage_readers);
-    }
-    mbar_init(m.kv_full(), 1);
-    mbar_init(m.kv_empty(), kv_readers);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-}
-
-// The producer thread: K and V when the block's (b, h) changes (once its
-// readers released the previous pair), and each item's query tile into the
-// ring.
-template <int SLABS>
-__device__ __forceinline__ void produce(const CUtensorMap* tm_q, const CUtensorMap* tm_k,
-                                        const CUtensorMap* tm_v, const CrossArgs& a,
-                                        const Smem& m) {
-  int bh_prev = -1;
-  int kvn = 0;
-  for (int w = blockIdx.x, n = 0; w < a.items; w += gridDim.x, ++n) {
-    const Item it(a, w);
-    if (it.bh != bh_prev) {
-      if (kvn > 0) mbar_wait(m.kv_empty(), (kvn - 1) & 1);
-      mbar_expect_tx(m.kv_full(), 2 * SLABS * m.kv_slab);
-      for (int sl = 0; sl < SLABS; ++sl) {
-        tma_load_4d(m.k + sl * m.kv_slab, tm_k, m.kv_full(), sl * SLAB, it.h, 0, it.b);
-        tma_load_4d(m.v + sl * m.kv_slab, tm_v, m.kv_full(), sl * SLAB, it.h, 0, it.b);
-      }
-      ++kvn;
-      bh_prev = it.bh;
-    }
-    const int s = n % a.stages;
-    if (n >= a.stages) mbar_wait(m.empty(s), ((n / a.stages) - 1) & 1);
-    const uint32_t qd = m.stage(s, SLABS);
-    mbar_expect_tx(m.full(s), SLABS * m.q_slab);
-    for (int sl = 0; sl < SLABS; ++sl)
-      tma_load_4d(qd + sl * m.q_slab, tm_q, m.full(s), sl * SLAB, it.h, it.qt * a.tile, it.b);
-  }
-}
-
 // ---- L <= 80: wgmma -------------------------------------------------------
-
-constexpr int KEYS = 80;         // the score tile's width: L <= 80 keys, the rest masked
-constexpr int WG_ROWS = 64;      // queries an item: one consumer warpgroup's
-
-constexpr int THREADS = 384;     // warpgroup 0 produces, 1 and 2 consume
-constexpr int CW = 2;            // consumer warpgroups
-
-// DP: D rounded up to 16 (the instance for every D of it)
-template <int DP>
-struct Cfg {
-  static constexpr int SLABS = (DP + SLAB - 1) / SLAB;
-  // P V's width in slabs 0, 1, 2: 64, or the last slab's columns
-  static constexpr int LAST = DP - SLAB * (SLABS - 1);
-  static constexpr int NW0 = SLABS > 1 ? SLAB : LAST;
-  static constexpr int NW1 = SLABS > 2 ? SLAB : LAST;
-  static constexpr int NW2 = LAST;
-  static_assert(NW0 + NW1 + NW2 >= 0, "");  // each is used by some instance
-};
 
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1) cross_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
     const CrossArgs a) {
-  constexpr int SLABS = Cfg<DP>::SLABS;
-  extern __shared__ unsigned char smem_raw[];
-  const Smem m(a, SLABS, smem_raw);
-  // a stage is released by the thread that stores its item's output from
-  // it; K and V by every consumer thread
-  init_barriers(m, a.stages, 1, 128 * CW);
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) produce<SLABS>(&tm_q, &tm_k, &tm_v, a, m);
-    return;
-  }
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int c = wg - 1, tw = threadIdx.x - 128 * wg;
-  const int warp = tw >> 5, lane = tw & 31, g = lane >> 2, tig = lane & 3;
-  float sc[KEYS / 2];        // this thread's scores: rows g, g + 8 of its warp's 16
-  uint32_t p[KEYS / 16][4];  // the probabilities in bf16, as wgmma's A fragments
-  float o[DP / 2];
-  int bh_prev = -1;
-  int kvn = 0;
-  int pending = -1;  // the stage whose output store this warpgroup issued last
-  // every consumer warpgroup walks every item, so each sees every (b, h)
-  // change; each computes one item in CW
-  for (int w = blockIdx.x, n = 0; w < a.items; w += gridDim.x, ++n) {
-    const Item it(a, w);
-    if (it.bh != bh_prev) {
-      if (kvn > 0) mbar_arrive(m.kv_empty());  // done with the previous head's K and V
-      mbar_wait(m.kv_full(), kvn & 1);
-      ++kvn;
-      bh_prev = it.bh;
-    }
-    if (n % CW != c) continue;
-    const int s = n % a.stages;
-    mbar_wait(m.full(s), (n / a.stages) & 1);
-    const uint32_t qd = m.stage(s, SLABS);
-
-    // S = Q K^T over ceil(D / 16) k-steps (the columns past D are zeros)
-    fence_regs<KEYS / 2>(sc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      Gmma<KEYS>::ss(sc, gmma_desc(qd + (kk / 4) * m.q_slab + (kk % 4) * 32),
-                     gmma_desc(m.k + (kk / 4) * m.kv_slab + (kk % 4) * 32), kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<KEYS / 2>(sc);
-
-    // exact softmax over the L keys, in log2 units; sc[i] is column
-    // 8 * (i / 4) + 2 * tig + i % 2 of row g + 8 * ((i / 2) % 2)
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int i = 0; i < KEYS / 2; ++i) {
-      const int col = (i >> 2) * 8 + tig * 2 + (i & 1);
-      sc[i] = col < a.L ? sc[i] * a.scale_log2 : -INFINITY;
-      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-    }
-#pragma unroll
-    for (int i = 0; i < KEYS / 2; ++i) {
-      sc[i] = ex2(sc[i] - mx[(i >> 1) & 1]);
-      sum[(i >> 1) & 1] += sc[i];
-    }
-    float inv[2];
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
-      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
-      inv[hr] = 1.f / sum[hr];
-    }
-    // P in bf16: the accumulator layout of two n8 chunks is the A fragment
-    // of one k16 step
-#pragma unroll
-    for (int j = 0; j < KEYS / 16; ++j) {
-      p[j][0] = pack_bf16(sc[8 * j + 0] * inv[0], sc[8 * j + 1] * inv[0]);
-      p[j][1] = pack_bf16(sc[8 * j + 2] * inv[1], sc[8 * j + 3] * inv[1]);
-      p[j][2] = pack_bf16(sc[8 * j + 4] * inv[0], sc[8 * j + 5] * inv[0]);
-      p[j][3] = pack_bf16(sc[8 * j + 6] * inv[1], sc[8 * j + 7] * inv[1]);
-    }
-
-    // O = P V, V MN-major in its slabs
-#pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
-    fence_regs_u<KEYS / 4>(&p[0][0]);
-    fence_regs<DP / 2>(o);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < KEYS / 16; ++j) {
-      GmmaRs<Cfg<DP>::NW0>::rs(o, p[j], gmma_desc(m.v + j * 16 * ROW_BYTES));
-      if constexpr (SLABS > 1)
-        GmmaRs<Cfg<DP>::NW1>::rs(o + 32, p[j], gmma_desc(m.v + m.kv_slab + j * 16 * ROW_BYTES));
-      if constexpr (SLABS > 2)
-        GmmaRs<Cfg<DP>::NW2>::rs(o + 64, p[j], gmma_desc(m.v + 2 * m.kv_slab + j * 16 * ROW_BYTES));
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs<DP / 2>(o);
-    fence_regs_u<KEYS / 4>(&p[0][0]);
-
-    // store: the output tile goes into the query tile's stage, laid out as
-    // the TMA box it was loaded from, and one thread stores it by TMA (the
-    // rows past S and the columns past D are not written); the stage is
-    // released once a later store shows this one read
-    const int r0 = 16 * warp + g;
-#pragma unroll
-    for (int i = 0; i < DP / 8; ++i) {
-      // o[4i..4i+3]: columns 8(i % 8) + 2tig (+1) of slab i / 8, rows r0 and r0 + 8
-      const uint32_t at = qd + (i / 8) * m.q_slab + tig * 4;
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + swizzled(r0, i % 8)),
-                   "r"(pack_bf16(o[4 * i], o[4 * i + 1])));
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(at + swizzled(r0 + 8, i % 8)),
-                   "r"(pack_bf16(o[4 * i + 2], o[4 * i + 3])));
-    }
-    fence_proxy_async();
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c));
-    if (tw == 0) {
-      for (int sl = 0; sl < SLABS; ++sl)
-        tma_store_4d(&tm_o, qd + sl * m.q_slab, sl * SLAB, it.h, it.qt * a.tile, it.b);
-      tma_store_commit();
-      if (pending >= 0) {
-        tma_store_wait_read<1>();
-        mbar_arrive(m.empty(pending));
-      }
-      pending = s;
-    }
-  }
-  if (tw == 0) tma_store_wait<0>();
+  cross_body<DP>(&tm_q, &tm_k, &tm_v, &tm_o, a);
 }
 
 // ---- 80 < L <= 256: mma.sync ----------------------------------------------
@@ -411,25 +173,23 @@ __global__ void __launch_bounds__(LONG_THREADS, 1) cross_long_kernel(
         sc[nt][e] = ex2(sc[nt][e] - mx[e >> 1]);
         sum[e >> 1] += sc[nt][e];
       }
-    float inv[2];
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
       sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
       sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
-      inv[hr] = 1.f / sum[hr];
     }
 
-    // out = P V, P from the score registers, V by ldmatrix.trans
+    // out = P V, P = e / sum from the score registers, V by ldmatrix.trans
     float o[DP / 8][4];
 #pragma unroll
     for (int nt = 0; nt < DP / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
 #pragma unroll
     for (int j = 0; j < LP / 16; ++j) {
       if (j * 16 < a.kv_rows) {
-        const uint32_t pa[4] = {pack_bf16(sc[2 * j][0] * inv[0], sc[2 * j][1] * inv[0]),
-                                pack_bf16(sc[2 * j][2] * inv[1], sc[2 * j][3] * inv[1]),
-                                pack_bf16(sc[2 * j + 1][0] * inv[0], sc[2 * j + 1][1] * inv[0]),
-                                pack_bf16(sc[2 * j + 1][2] * inv[1], sc[2 * j + 1][3] * inv[1])};
+        const uint32_t pa[4] = {pack_bf16(sc[2 * j][0] / sum[0], sc[2 * j][1] / sum[0]),
+                                pack_bf16(sc[2 * j][2] / sum[1], sc[2 * j][3] / sum[1]),
+                                pack_bf16(sc[2 * j + 1][0] / sum[0], sc[2 * j + 1][1] / sum[0]),
+                                pack_bf16(sc[2 * j + 1][2] / sum[1], sc[2 * j + 1][3] / sum[1])};
         const int vrow = j * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
         for (int np = 0; np < DP / 16; ++np) {
@@ -461,14 +221,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const CrossArgs&
                    int grid, int smem, cudaStream_t st) {
   constexpr int SLABS = Cfg<DP>::SLABS;
   const bool wide = a.L <= KEYS;
-  const int need = 1024 + 2 * SLABS * a.kv_rows * ROW_BYTES + a.stages * SLABS * a.tile * ROW_BYTES +
-                   16 * (MAX_STAGES + 1);
   // the wide kernel holds up to two stages a consumer warpgroup
-  if (smem < need || (wide && a.stages < 2 * CW)) return cudaErrorInvalidValue;
+  if (smem < smem_need(SLABS, a.kv_rows, a.stages, a.tile) || (wide && a.stages < 2 * CW))
+    return cudaErrorInvalidValue;
   CUtensorMap mq, mk, mv, mo;
-  if (!make_map(&mq, q, a.D, a.H, a.S, B, a.tile) || !make_map(&mk, k, a.D, a.H, a.L, B, a.kv_rows) ||
-      !make_map(&mv, v, a.D, a.H, a.L, B, a.kv_rows) || !make_map(&mo, a.out, a.D, a.H, a.S, B, a.tile))
-    return cudaErrorNotSupported;
+  if (!make_maps(&mq, &mk, &mv, &mo, q, k, v, a, B)) return cudaErrorNotSupported;
   cudaError_t err;
   if (wide) {
     err = cudaFuncSetAttribute(cross_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -497,6 +254,13 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const CrossArg
   }
 }
 
+// div_by_sum elementwise, for the test that holds it to e / sum
+__global__ void div_by_sum_kernel(const float* __restrict__ e, const float* __restrict__ sum,
+                                  float* __restrict__ out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = div_by_sum(e[i], sum[i], rcp_of_sum(sum[i]));
+}
+
 }  // namespace
 
 // q, out (B, S, H, D) bf16; k, v (B, L, H, D) bf16; all contiguous and
@@ -521,4 +285,14 @@ extern "C" int cross_attention_bf16(const void* q, const void* k, const void* v,
   const CrossArgs a{static_cast<bf16*>(out), S, H, D, L, kv_rows, tile, stages, (int)items,
                     scale * 1.4426950408889634f};
   return (int)dispatch(q, k, v, a, B, grid, smem, static_cast<cudaStream_t>(stream));
+}
+
+// out[i] = div_by_sum(e[i], sum[i]) over n fp32 pairs (e = 0 or a normal
+// number <= 1, 1 <= sum), the softmax's division alone, for the test that
+// holds it to e / sum. Returns cudaGetLastError().
+extern "C" int div_by_sum_f32(const void* e, const void* sum, void* out, int n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  div_by_sum_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(e), static_cast<const float*>(sum), static_cast<float*>(out), n);
+  return (int)cudaGetLastError();
 }

@@ -61,42 +61,6 @@ namespace {
 
 using namespace hopper;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const int n = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                          const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -458,200 +422,343 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int
 // ----------------------------------------------------------------------------
 // d = 512: the f4 VAE decoder's mid attention, one head over all 163,840
 // latent positions of a 320x512 frame (4*S^2*d = 5.5e13 flops per frame,
-// 56 ms at 989 TFLOP/s; the fp32 scores would be 107 GB per frame). A
-// 16 x 512 fp32 output tile is 256 registers a thread, above the limit, so
-// the output columns are split: a block of 8 warps owns 64 queries; warps
-// w and w^4 share 16 of them and each keeps the output for its half of d
-// (16 x 256 fp32, 128 registers). Each computes Q.K^T over its half of d
-// for the 32-key tile; the two partial score tiles are summed through
-// shared memory (in the same order on both sides, so both hold the same
-// scores and take identical online-softmax steps); then each multiplies
-// P by its half of V. Q (64 x 512) stays in shared memory; K and V tiles
-// of 32 keys are double-buffered by cp.async (216 KB in all).
+// 56 ms at 989 TFLOP/s; the fp32 scores would be 107 GB per frame; one
+// exponential per 2048 flops, so the special-function unit does not bind).
+//
+// A 64-row fp32 output tile of 512 columns is 256 registers a thread in one
+// warpgroup, above the limit, so a block of two warpgroups ("consumers")
+// owns 64 queries and splits d: consumer c (0, 1) owns output columns
+// 256c.. (an m64n256 fp32 accumulator, 128 registers a thread, as four
+// m64n64 wgmma a k-step). Each tile of 32 keys:
+//   - each consumer computes its half-d partial of S = Q K^T on wgmma, Q
+//     (64 x 512, loaded once) and the K tile both K-major in shared memory
+//     (m64n32k16: 47 B of shared-memory reads a KFLOP, above the 31 of a
+//     64-key tile, but a 64-key tile leaves room for one K and one V slot
+//     only, and no second score tile in registers);
+//   - both write their partials to shared memory and meet at a named
+//     barrier of the two consumer warpgroups (not the block); each adds the
+//     other's partial to its own (fp32 addition commutes, so both hold the
+//     same scores) and takes the same online-softmax step: s = dot *
+//     scale in log2 units, m_new = max(m, rowmax s), corr = 2^(m - m_new),
+//     p = 2^(s - m_new), l = l corr + sum p;
+//   - each rescales its O half by corr and adds bf16(p) V over its 256
+//     columns on wgmma, P from registers (the score accumulator converted in
+//     place to bf16 A fragments), V MN-major through the transpose-B flag.
+// The steps overlap across tiles: tile t+1's Q K^T is issued before tile
+// t's softmax and runs under it, and tile t+1's exchange runs under tile
+// t's P V; the partials alternate between two buffers, so one barrier a
+// tile suffices. out = bf16(acc / l), a division as in the TPU body; rows
+// past Sq are not stored. Shared memory: Q 64 KB, two K and two V slots of
+// 32 KB each and two buffers of both consumers' 8 KB partials, 225 KB.
+//
+// K and V are what bounds a 64-query block: every block reads all of its
+// frame's K and V (335 MB a frame), 6.9 TB of L2-to-SM traffic per 8-frame
+// decode. Blocks on W_CLUSTER = 2 neighbouring query tiles of the same
+// (frame, head) run as one thread-block cluster: the CTA of rank r loads
+// 8/W_CLUSTER of each tile's eight 64-column slabs and multicasts them to
+// every CTA of the cluster, so each L2 read serves W_CLUSTER blocks (4
+// timed alike on the H100: chip_ab.py's --cluster4 variant). A K slot is
+// refilled once both consumers of every CTA of the cluster passed their
+// exchange (one remote mbarrier arrival per CTA), a V slot once each
+// consumer of every CTA finished its P V (one arrival per consumer); a CTA
+// past the last query tile still takes part in the loads, computes on the
+// zeros TMA fills in for its queries, and stores nothing.
 // ----------------------------------------------------------------------------
 
-constexpr int WBM = 64, WBN = 32, WD = 512, WLDS = WD + 8, WTHREADS = 256;
-constexpr size_t WSMEM = (size_t)(WBM + 4 * WBN) * WLDS * 2 + 8 * 32 * 16 * 4;
+constexpr int WD = 512, WBQ = 64;       // head dim, queries a block
+constexpr int WSLABS = WD / SLAB;       // 64-column slabs of a row
+constexpr int W_QSLAB = WBQ * ROW_BYTES;  // one slab of Q's rows
+constexpr int W_QTILE = WSLABS * W_QSLAB;  // Q: 64 KB
+// two warpgroups and no producer warp: a ninth warp would put three warps
+// on one of the SM's four register-file quarters and cap every thread at
+// 168 registers, below what the accumulator and two score tiles need (ptxas
+// spilled there); thread 0 issues the K loads and thread 128 the V loads
+// between their products
+constexpr int W_THREADS = 256;
+constexpr int W_KEYS = 32, W_SLOTS = 2;  // keys a tile, ring slots of K and of V
+constexpr int W_CLUSTER = 2;             // CTAs that share each K and V tile by multicast
 
-__global__ void __launch_bounds__(WTHREADS, 1) flash_wide_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H,
-    float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [WBM][WLDS]
-  __nv_bfloat16* ks = qs + WBM * WLDS;                             // [2][WBN][WLDS]
-  __nv_bfloat16* vs = ks + 2 * WBN * WLDS;                         // [2][WBN][WLDS]
-  float* xch = reinterpret_cast<float*>(vs + 2 * WBN * WLDS);      // [8 warps][32 lanes][16]
+constexpr int W_KSLAB = W_KEYS * ROW_BYTES;        // one slab of a K or V tile
+constexpr int W_KTILE = WSLABS * W_KSLAB;          // a K or V tile
+constexpr int W_XCH = 128 * (W_KEYS / 2) * 4;      // one consumer's partial scores
+// 1 KB of slack to align the tiles to the swizzle atom, Q, the K and V
+// slots, two buffers of both consumers' partials, the mbarriers
+constexpr int W_SMEM = 1024 + W_QTILE + 2 * W_SLOTS * W_KTILE + 4 * W_XCH + 128;
+static_assert(W_SMEM <= SMEM_LIMIT, "shared memory");
+static_assert(1 + 4 * W_SLOTS <= 16, "mbarriers");
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int rg = warp & 3, hf = warp >> 2;  // query rows rg*16.., channels hf*256..
-  const int r = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * WBM;
-  const size_t C = (size_t)H * WD;
-  constexpr int NC = WD / 8;  // 16-byte chunks per row
+struct WideArgs {
+  __nv_bfloat16* out;
+  int Sq, Sk, H;
+  float scale_log2;
+};
+
+__global__ void __launch_bounds__(W_THREADS, 1) flash_d512_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const WideArgs a) {
+  constexpr int BK = W_KEYS, NS = W_SLOTS, CL = W_CLUSTER;
+  constexpr int SPC = WSLABS / CL;  // slabs of each K and V tile this CTA loads for the cluster
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t q_smem = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_smem = q_smem + W_QTILE;        // slot i at k_smem + i * W_KTILE
+  const uint32_t v_smem = k_smem + NS * W_KTILE;
+  const uint32_t xch = v_smem + NS * W_KTILE;   // buffer j of consumer c at xch + (2j + c) * W_XCH
+  const uint32_t bars = xch + 4 * W_XCH;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int i) { return bars + 8 * (1 + i); };
+  auto k_empty = [&](int i) { return bars + 8 * (1 + NS + i); };
+  auto v_full = [&](int i) { return bars + 8 * (1 + 2 * NS + i); };
+  auto v_empty = [&](int i) { return bars + 8 * (1 + 3 * NS + i); };
+  const int qt = blockIdx.x, h = blockIdx.y, r = blockIdx.z;
+  const int ntiles = (a.Sk + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(k_full(i), 1);
+      mbar_init(v_full(i), 1);
+      mbar_init(k_empty(i), CL);      // one arrival from each CTA of the cluster
+      mbar_init(v_empty(i), 2 * CL);  // one from each consumer of each CTA
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
 
   {
-    const __nv_bfloat16* qb = q + (size_t)r * Sq * C + (size_t)h * WD;
-    for (int idx = tid; idx < WBM * NC; idx += WTHREADS) {
-      const int row = idx / NC, c8 = idx - row * NC;
-      const bool ok = q0 + row < Sq;
-      cp_async16(qs + row * WLDS + c8 * 8, ok ? qb + (size_t)(q0 + row) * C + c8 * 8 : qb, ok);
-    }
-  }
-  const size_t kvbase = (size_t)r * Sk * C + (size_t)h * WD;
-  auto load_tile = [&](int t, int stage) {
-    const int k0 = t * WBN;
-    for (int idx = tid; idx < WBN * NC; idx += WTHREADS) {
-      const int row = idx / NC, c8 = idx - row * NC;
-      const bool ok = k0 + row < Sk;
-      const size_t off = ok ? kvbase + (size_t)(k0 + row) * C + c8 * 8 : kvbase;
-      cp_async16(ks + (stage * WBN + row) * WLDS + c8 * 8, k + off, ok);
-      cp_async16(vs + (stage * WBN + row) * WLDS + c8 * 8, v + off, ok);
-    }
-  };
-  const int ntiles = (Sk + WBN - 1) / WBN;
-  load_tile(0, 0);
-  cp_async_commit();
+    // ---- each warpgroup ("consumer"): half of d ----
+    const int c = threadIdx.x / 128, tw = threadIdx.x % 128;
+    const int warp = tw >> 5, lane = tw & 31, g = lane >> 2, tig = lane & 3;
+    const uint32_t q_mine = q_smem + c * (WSLABS / 2) * W_QSLAB;
+    // float4 j of this thread's partials at (j * 128 + tw) * 16: conflict-free
+    const uint32_t x_mine = xch + c * W_XCH + tw * 16;
+    const uint32_t x_theirs = xch + (1 - c) * W_XCH + tw * 16;
 
-  float o[WD / 2 / 8][4];
-#pragma unroll
-  for (int n = 0; n < WD / 2 / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-  const __nv_bfloat16* qw = qs + (rg * 16) * WLDS + hf * (WD / 2);
-  float* mine = xch + (warp * 32 + lane) * 16;
-  const float* theirs = xch + ((warp ^ 4) * 32 + lane) * 16;
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < ntiles) {
-      load_tile(t + 1, stage ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    // K tile t into slot t % NS for the cluster (thread 0) once every CTA's
+    // consumers released the slot's previous tile; the same for V (thread
+    // 128): this CTA multicasts its SPC slabs of the tile to the cluster
+    const uint32_t rank = cluster_ctarank();
+    const uint16_t mask = (uint16_t)((1u << CL) - 1);
+    auto load = [&](const CUtensorMap* map, uint32_t base, uint32_t full, uint32_t empty, int t) {
+      if (t >= NS) mbar_wait(empty, (t / NS - 1) & 1);
+      mbar_expect_tx(full, W_KTILE);  // every CTA's slabs land here
+      const uint32_t dst = base + (t % NS) * W_KTILE;
+      for (int sl = rank * SPC; sl < (int)(rank + 1) * SPC; ++sl)
+        tma_load_4d_multicast(dst + sl * W_KSLAB, map, full, sl * SLAB, h, t * BK, r, mask);
+    };
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, W_QTILE);
+      for (int sl = 0; sl < WSLABS; ++sl)
+        tma_load_4d(q_smem + sl * W_QSLAB, &tm_q, q_full, sl * SLAB, h, qt * WBQ, r);
+      for (int t = 0; t < NS && t < ntiles; ++t) load(&tm_k, k_smem, k_full(t), k_empty(t), t);
     }
-    __syncthreads();
-    const __nv_bfloat16* kt = ks + stage * WBN * WLDS + hf * (WD / 2);
-    const __nv_bfloat16* vt = vs + stage * WBN * WLDS + hf * (WD / 2);
+    if (threadIdx.x == 128) load(&tm_v, v_smem, v_full(0), v_empty(0), 0);
 
-    float s[WBN / 8][4];
+    float o[WD / 4];  // columns 256c + 64i + 8j + 2tig (+1) at o[32i + 4j + e]
+    float s[BK / 2], sn[BK / 2];  // tile t's scores, tile t + 1's partial
+    uint32_t p[BK / 16][4];
+    float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 #pragma unroll
-    for (int n = 0; n < WBN / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll 4
-    for (int kk = 0; kk < WD / 2 / 16; ++kk) {
-      uint32_t a0, a1, a2, a3;
-      ldsm_x4(a0, a1, a2, a3, qw + (lane & 15) * WLDS + kk * 16 + (lane >> 4) * 8);
+    for (int i = 0; i < WD / 4; ++i) o[i] = 0.f;
+
+    // issue this half of d's partial S = Q K^T of tile t into d over 16
+    // k-steps; the caller waits. The descriptors (a descriptor counts
+    // 16-byte units) are made opaque each tile so that none is held across
+    // the loop.
+    auto qk = [&](float* d, int t) {
+      const int i = t % NS;
+      uint32_t qa = q_mine, ka = k_smem + i * W_KTILE + c * (WSLABS / 2) * W_KSLAB;
+      asm volatile("" : "+r"(qa), "+r"(ka));
+      const uint64_t dq = gmma_desc(qa), dk = gmma_desc(ka);
+      mbar_wait(k_full(i), (t / NS) & 1);
+      fence_regs<BK / 2>(d);
+      wgmma_fence();
 #pragma unroll
-      for (int np = 0; np < WBN / 16; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3,
-                kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * WLDS + kk * 16 +
-                    ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * np], a0, a1, a2, a3, b0, b1);
-        mma16816(s[2 * np + 1], a0, a1, a2, a3, b2, b3);
+      for (int kk = 0; kk < WD / 2 / 16; ++kk)
+        Gmma<BK>::ss(d, dq + (((kk / 4) * W_QSLAB + (kk % 4) * 32) >> 4),
+                     dk + (((kk / 4) * W_KSLAB + (kk % 4) * 32) >> 4), kk > 0);
+      wgmma_commit();
+    };
+    // once tile t's partial is in d: add the other consumer's (fp32
+    // addition commutes, so both hold the same scores), through buffer t % 2
+    // of each; after the barrier both are done with K tile t
+    auto exchange = [&](float* d, int t) {
+      fence_regs<BK / 2>(d);
+      const uint32_t off = (t & 1) * 2 * W_XCH;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(x_mine + off + j * 128 * 16),
+                     "f"(d[4 * j]), "f"(d[4 * j + 1]), "f"(d[4 * j + 2]), "f"(d[4 * j + 3])
+                     : "memory");
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
+      if (c == 0 && tw < CL && t + NS < ntiles) mbar_arrive_cluster(k_empty(t % NS), tw);
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        float x0, x1, x2, x3;
+        asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                     : "=f"(x0), "=f"(x1), "=f"(x2), "=f"(x3)
+                     : "r"(x_theirs + off + j * 128 * 16)
+                     : "memory");
+        d[4 * j] += x0;
+        d[4 * j + 1] += x1;
+        d[4 * j + 2] += x2;
+        d[4 * j + 3] += x3;
       }
-    }
-    // sum the two halves of d through shared memory
+    };
+    // the online-softmax step of tile t on its scores d, in log2 units:
+    // d[e] is key 8(e/4) + 2tig + e%2 of the tile, row g + 8((e/2)%2) of
+    // this warp's 16; keys past Sk masked. P in bf16 into p (the
+    // accumulator layout of two n8 chunks is the A fragment of one k16
+    // step); O rescaled by corr unless no row of the warp moved its max
+    // (a product by 1 changes nothing)
+    auto softmax = [&](float* d, int t) {
+      const int kbase = t * BK;
+      float mx[2] = {-INFINITY, -INFINITY};
+      if (kbase + BK <= a.Sk) {
 #pragma unroll
-    for (int n = 0; n < WBN / 8; ++n)
-      *reinterpret_cast<float4*>(mine + n * 4) = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
-    __syncthreads();
-    const int kbase = t * WBN;
-    float mx[2] = {-INFINITY, -INFINITY};
+        for (int e = 0; e < BK / 2; ++e) {
+          d[e] *= a.scale_log2;
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], d[e]);
+        }
+      } else {
 #pragma unroll
-    for (int n = 0; n < WBN / 8; ++n) {
-      const float4 p = *reinterpret_cast<const float4*>(theirs + n * 4);
-      const float pe[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = kbase + n * 8 + tig * 2 + (e & 1);
-        const float x = col < Sk ? (s[n][e] + pe[e]) * scale_log2 : -INFINITY;
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        for (int e = 0; e < BK / 2; ++e) {
+          const int col = kbase + (e >> 2) * 8 + tig * 2 + (e & 1);
+          d[e] = col < a.Sk ? d[e] * a.scale_log2 : -INFINITY;
+          mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], d[e]);
+        }
       }
+      float corr[2];
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+        mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+        const float m_new = fmaxf(m_run[hr], mx[hr]);
+        corr[hr] = ex2(m_run[hr] - m_new);
+        m_run[hr] = m_new;
+        l_run[hr] *= corr[hr];
+      }
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const float pe = ex2(d[e] - m_run[(e >> 1) & 1]);
+        d[e] = pe;
+        l_run[(e >> 1) & 1] += pe;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        p[j][0] = pack_bf16(d[8 * j + 0], d[8 * j + 1]);
+        p[j][1] = pack_bf16(d[8 * j + 2], d[8 * j + 3]);
+        p[j][2] = pack_bf16(d[8 * j + 4], d[8 * j + 5]);
+        p[j][3] = pack_bf16(d[8 * j + 6], d[8 * j + 7]);
+      }
+      if (!__all_sync(0xffffffffu, corr[0] == 1.f && corr[1] == 1.f)) {
+#pragma unroll
+        for (int e = 0; e < WD / 4; ++e) o[e] *= corr[(e >> 1) & 1];
+      }
+    };
+    // issue O += P V of tile t over this half's 256 columns, four 64-column
+    // slabs, P from registers, V MN-major; the caller waits
+    auto pv = [&](int t) {
+      const int i = t % NS;
+      uint32_t va = v_smem + i * W_KTILE + c * (WSLABS / 2) * W_KSLAB;
+      asm volatile("" : "+r"(va));
+      const uint64_t dv = gmma_desc(va);
+      mbar_wait(v_full(i), (t / NS) & 1);
+      fence_regs_u<BK / 4>(&p[0][0]);
+      fence_regs<WD / 4>(o);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+        for (int sl = 0; sl < 4; ++sl)
+          GmmaRs<64>::rs(o + 32 * sl, p[j], dv + ((sl * W_KSLAB + j * 16 * ROW_BYTES) >> 4));
+      wgmma_commit();
+    };
+
+    mbar_wait(q_full, 0);
+    qk(s, 0);
+    wgmma_wait<0>();
+    exchange(s, 0);
+    // each step issues tile t + 1's Q K^T, runs tile t's softmax under it,
+    // issues tile t's P V, and exchanges tile t + 1's partials under that
+    for (int t = 0; t + 1 < ntiles; ++t) {
+      // the slots of K tile t + NS and V tile t + 1 were released a step ago
+      if (threadIdx.x == 0 && t + NS < ntiles)
+        load(&tm_k, k_smem, k_full(t % NS), k_empty(t % NS), t + NS);
+      if (threadIdx.x == 128)
+        load(&tm_v, v_smem, v_full((t + 1) % NS), v_empty((t + 1) % NS), t + 1);
+      qk(sn, t + 1);
+      softmax(s, t);
+      pv(t);
+      wgmma_wait<1>();  // Q K^T of tile t + 1 (P V of tile t may still run)
+      exchange(sn, t + 1);
+      wgmma_wait<0>();
+      fence_regs<WD / 4>(o);
+      fence_regs_u<BK / 4>(&p[0][0]);
+      if (tw < CL && t + NS < ntiles) mbar_arrive_cluster(v_empty(t % NS), tw);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) s[e] = sn[e];
     }
-    float corr[2];
+    softmax(s, ntiles - 1);
+    pv(ntiles - 1);
+    wgmma_wait<0>();
+    fence_regs<WD / 4>(o);
+    fence_regs_u<BK / 4>(&p[0][0]);
+
+    // out = bf16(acc / l); rows past Sq (and every row of a CTA past the
+    // last query tile) are not stored
 #pragma unroll
     for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-      const float m_new = fmaxf(m_run[hr], mx[hr]);
-      corr[hr] = exp2f(m_run[hr] - m_new);
-      m_run[hr] = m_new;
-      l_run[hr] *= corr[hr];
+      l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
+      l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
     }
+    const int row0 = qt * WBQ + 16 * warp + g, row1 = row0 + 8;
+    const size_t C = (size_t)a.H * WD;
+    __nv_bfloat16* ob = a.out + (size_t)r * a.Sq * C + (size_t)h * WD + c * (WD / 2);
 #pragma unroll
-    for (int n = 0; n < WBN / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m_run[e >> 1]);
-        s[n][e] = p;
-        l_run[e >> 1] += p;
-      }
-#pragma unroll
-    for (int n = 0; n < WD / 2 / 8; ++n) {
-      o[n][0] *= corr[0];
-      o[n][1] *= corr[0];
-      o[n][2] *= corr[1];
-      o[n][3] *= corr[1];
+    for (int e = 0; e < WD / 2 / 8; ++e) {
+      // o[4e..4e+3]: columns 8e + 2tig (+1) of this half, rows row0 and row1
+      const int col = e * 8 + tig * 2;
+      if (row0 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + col) =
+            __floats2bfloat162_rn(o[4 * e] / l_run[0], o[4 * e + 1] / l_run[0]);
+      if (row1 < a.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + col) =
+            __floats2bfloat162_rn(o[4 * e + 2] / l_run[1], o[4 * e + 3] / l_run[1]);
     }
-#pragma unroll
-    for (int j = 0; j < WBN / 16; ++j) {
-      const uint32_t a0 = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      const uint32_t a1 = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      const uint32_t a2 = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int np = 0; np < WD / 2 / 16; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(b0, b1, b2, b3,
-                  vt + (j * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * WLDS + np * 16 +
-                      (lane >> 4) * 8);
-        mma16816(o[2 * np], a0, a1, a2, a3, b0, b1);
-        mma16816(o[2 * np + 1], a0, a1, a2, a3, b2, b3);
-      }
-    }
-    __syncthreads();  // the stage and the exchange slots are reused next
   }
+  // no CTA leaves while a peer may still address its shared memory
+  cluster_sync();
+}
 
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 1);
-    l_run[hr] += __shfl_xor_sync(0xffffffffu, l_run[hr], 2);
-  }
-  const float inv0 = 1.f / l_run[0], inv1 = 1.f / l_run[1];
-  const int row0 = q0 + rg * 16 + g, row1 = row0 + 8;
-  __nv_bfloat16* ob = out + (size_t)r * Sq * C + (size_t)h * WD + hf * (WD / 2);
-#pragma unroll
-  for (int n = 0; n < WD / 2 / 8; ++n) {
-    const int col = n * 8 + tig * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + col) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + col) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
-  }
+cudaError_t launch_d512(const void* q, const void* k, const void* v, void* out, int B, int Sq,
+                        int Sk, int H, float scale, cudaStream_t st) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, WD, H, Sq, B, WBQ) || !make_map(&mk, k, WD, H, Sk, B, W_KEYS) ||
+      !make_map(&mv, v, WD, H, Sk, B, W_KEYS))
+    return cudaErrorNotSupported;
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_d512_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (err != cudaSuccess) return err;
+  // one CTA a query tile, the tiles rounded up to whole clusters
+  const int qtiles = (Sq + WBQ - 1) / WBQ;
+  const dim3 grid((qtiles + W_CLUSTER - 1) / W_CLUSTER * W_CLUSTER, H, B);
+  WideArgs a{static_cast<__nv_bfloat16*>(out), Sq, Sk, H, scale * 1.4426950408889634f};
+  void* args[] = {&mq, &mk, &mv, &a};
+  return launch_cluster((const void*)flash_d512_kernel, grid, W_THREADS, W_SMEM, W_CLUSTER, st,
+                        args);
 }
 
 }  // namespace
 
 // q, out: (B, Sq, H*512); k, v: (B, Sk, H*512); bf16, contiguous, 16-byte
-// aligned; d must be 512. Returns cudaGetLastError().
+// aligned; d must be 512. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape the kernel cannot take.
 extern "C" int flash_attention_d512_bf16(const void* q, const void* k, const void* v, void* out,
                                          int B, int Sq, int Sk, int H, int d, float scale,
                                          void* stream) {
   if (d != WD || B < 1 || B > 65535 || Sq < 1 || Sk < 1 || H < 1 || H > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_wide_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WSMEM);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((Sq + WBM - 1) / WBM, H, B);
-  flash_wide_kernel<<<grid, WTHREADS, WSMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), Sq, Sk, H,
-      scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  return (int)launch_d512(q, k, v, out, B, Sq, Sk, H, scale, static_cast<cudaStream_t>(stream));
 }
 
 // q, k, v, out: (BF, S, H*d) bf16, contiguous, 16-byte aligned; BF a

@@ -1,9 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the kernels that feed their
 // products from a TMA ring (flash_attention.cu, cross_attention.cu and,
-// through wgmma_gemm.cuh, geglu.cu, transformer_tail.cu, temporal_resblock.cu):
-// shared-memory addresses, mbarriers, TMA tile loads and stores, the
-// tensor-map encoder cuTensorMapEncodeTiled (reached through the runtime, so
-// no -lcuda), wgmma instructions and their shared-memory descriptors.
+// through cross_attn.cuh and wgmma_gemm.cuh, cross_head.cu, geglu.cu,
+// transformer_tail.cu, temporal_resblock.cu): shared-memory addresses,
+// mbarriers, TMA tile loads (one CTA's, or multicast to a cluster's) and
+// stores, thread-block clusters (rank, barrier, remote mbarrier arrivals,
+// the launch), the tensor-map encoder cuTensorMapEncodeTiled (reached
+// through the runtime, so no -lcuda), wgmma instructions and their
+// shared-memory descriptors.
 //
 // Every operand tile here is a 128-byte swizzled box as TMA writes it: rows
 // of 64 bf16 columns (a "slab"), eight rows to a 1024-byte swizzle atom, the
@@ -37,6 +40,19 @@ template <int N>
 struct Gmma;
 template <int N>
 struct GmmaRs;
+
+template <>
+struct Gmma<32> {
+  // D[64 x 32] (+)= A[64 x 16] B[16 x 32], A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 template <>
 struct Gmma<64> {
@@ -237,6 +253,52 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// ---- thread-block clusters ---------------------------------------------------
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster arrives (release) and waits
+// (acquire): the CTAs' barrier inits are seen before any multicast or remote
+// arrival, and no CTA leaves while a peer may still address its shared memory
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// arrive on the mbarrier at this CTA's shared address `bar` in the CTA of
+// rank `cta` of the cluster (this one included), with the instruction's
+// default (release at CTA scope) semantics: it frees a ring slot that this
+// thread's warpgroup read only through wgmma (waited for before the
+// arrival) and that the peer refills by TMA, as CUTLASS's
+// ClusterBarrier::arrive(cta_id) does. A release at cluster scope would
+// wait for every earlier memory operation of the thread to be seen
+// cluster-wide (the d=512 flash kernel ran markedly slower so).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// A 4-D TMA load multicast to the CTAs of `mask` in the cluster: the box
+// lands at shared address `dst` and signals its bytes on the mbarrier at
+// `bar` in each of them.
+__device__ __forceinline__ void tma_load_4d_multicast(uint32_t dst, const CUtensorMap* map,
+                                                      uint32_t bar, int c0, int c1, int c2, int c3,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // shared -> global through a 4-D (or 2-D) map; the box's elements outside
 // the tensor are not written. Generic-proxy writes to the source need
 // fence_proxy_async() first, and the source may be reused once
@@ -339,6 +401,26 @@ inline bool make_map_4d(CUtensorMap* map, const void* ptr, int d0, int d1, int d
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
              elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch kernel(args) on a grid of `grid` blocks in clusters of `cluster`
+// along x (grid.x a multiple of it), with `smem` dynamic shared bytes. args
+// are the kernel's parameters in order, each passed by address.
+inline cudaError_t launch_cluster(const void* kernel, dim3 grid, int threads, int smem,
+                                  int cluster, cudaStream_t st, void** args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelExC(&cfg, kernel, args);
 }
 
 // the current device's SM count, read once

@@ -2,8 +2,9 @@
 // temporal_proj.cu): cp.async and ldmatrix wrappers, the bf16 mma.sync
 // m16n8k16 tile, a (ROWS, K) x (K, NCOLS) product whose weights stream
 // through a double-buffered cp.async ring, and the TPU kernels' LayerNorm
-// (fp32 statistics, elementwise steps rounded to bf16 one by one), which
-// transformer_tail.cu's LayerNorm pass runs too.
+// (fp32 statistics, elementwise steps rounded to bf16 one by one), and the
+// LayerNorm pass over a row-major (N, C) tensor that transformer_tail.cu's
+// and cross_head.cu's LayerNorm kernels run.
 // Every block that uses them has THREADS = 256 threads (8 warps).
 
 #pragma once
@@ -176,6 +177,42 @@ __device__ __forceinline__ void layer_norm(const bf16* src, bf16* dst, int ld, c
     }
     if (stats != nullptr && lane == 0) stats[r] = make_float2(mean, inv);
   }
+}
+
+constexpr int LN_ROWS = THREADS / 32;  // rows a block of the LayerNorm pass, one a warp
+
+// The LayerNorm pass: rows LN_ROWS*blockIdx.x.. of x (N, C) into out, through
+// shared memory (rows past N read as zeros and not stored), by layer_norm.
+// With `stats`, each row's fp32 (mean, inv) too. Each caller wraps it in a
+// __global__ of its own, so that a profile tells the passes apart.
+template <int C>
+__device__ __forceinline__ void layer_norm_pass(const bf16* __restrict__ x,
+                                                const float* __restrict__ gamma,
+                                                const float* __restrict__ beta,
+                                                bf16* __restrict__ out,
+                                                float2* __restrict__ stats, int N, float eps) {
+  constexpr int LD = C + 8;
+  __shared__ __align__(16) unsigned char raw[LN_ROWS * LD * 2];
+  __shared__ float2 st[LN_ROWS];
+  bf16* T = reinterpret_cast<bf16*>(raw);
+  const int r0 = blockIdx.x * LN_ROWS;
+  for (int idx = threadIdx.x; idx < LN_ROWS * C / 8; idx += THREADS) {
+    const int r = idx / (C / 8), c8 = idx % (C / 8);
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < N) v = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + c8 * 8);
+    *reinterpret_cast<uint4*>(T + r * LD + c8 * 8) = v;
+  }
+  __syncthreads();
+  layer_norm<LN_ROWS, C>(T, T, LD, gamma, beta, eps, stats != nullptr ? st : nullptr);
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < LN_ROWS * C / 8; idx += THREADS) {
+    const int r = idx / (C / 8), c8 = idx % (C / 8);
+    if (r0 + r < N)
+      *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * C + c8 * 8) =
+          *reinterpret_cast<const uint4*>(T + r * LD + c8 * 8);
+  }
+  if (stats != nullptr && threadIdx.x < LN_ROWS && r0 + threadIdx.x < N)
+    stats[r0 + threadIdx.x] = st[threadIdx.x];
 }
 
 template <typename K>

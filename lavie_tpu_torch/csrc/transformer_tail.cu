@@ -20,9 +20,9 @@
 // What the design does about it: a LayerNorm pass, then three persistent,
 // warp-specialised wgmma GEMMs fed by TMA rings (csrc/wgmma_gemm.cuh, the
 // pieces GEGLU runs on), launched back to back on the stream by one call:
-//   1. tail_ln_kernel: LN3 into xn (bf16, N x C) with the LayerNorm of
-//      csrc/mma_tiles.cuh (fp32 statistics, each elementwise step rounded
-//      to bf16), 8 rows a block; layer_norm_bf16 runs it alone, with each
+//   1. tail_ln_kernel: LN3 into xn (bf16, N x C), csrc/mma_tiles.cuh's
+//      LayerNorm pass (fp32 statistics, each elementwise step rounded to
+//      bf16), 8 rows a block; layer_norm_bf16 runs it alone, with each
 //      row's statistics, for the bit-exact test of its roundings;
 //   2. tail_gemm_gate_kernel: GEGLU's gate GEMM on xn, act (N x 4C bf16)
 //      stored by TMA from a swizzled staging box;
@@ -41,11 +41,10 @@ namespace {
 
 using namespace wgemm;
 
-constexpr int LN_ROWS = tiles::THREADS / 32;  // one row a warp
+using tiles::LN_ROWS;
 
-// LN3 of 8 rows a block of 256 threads (one a warp) into xn, through
-// shared memory; with stats, each row's fp32 (mean, inv) too, for the
-// bit-exact test of its roundings (entry layer_norm_bf16).
+// LN3 into xn (tiles::layer_norm_pass); with stats, each row's fp32 (mean,
+// inv) too, for the bit-exact test of its roundings (entry layer_norm_bf16).
 template <int C>
 __global__ void __launch_bounds__(tiles::THREADS) tail_ln_kernel(const bf16* __restrict__ x,
                                                                 const float* __restrict__ gamma,
@@ -53,28 +52,7 @@ __global__ void __launch_bounds__(tiles::THREADS) tail_ln_kernel(const bf16* __r
                                                                 bf16* __restrict__ out,
                                                                 float2* __restrict__ stats, int N,
                                                                 float eps) {
-  constexpr int LD = C + 8;
-  __shared__ __align__(16) unsigned char raw[LN_ROWS * LD * 2];
-  __shared__ float2 st[LN_ROWS];
-  bf16* T = reinterpret_cast<bf16*>(raw);
-  const int r0 = blockIdx.x * LN_ROWS;
-  for (int idx = threadIdx.x; idx < LN_ROWS * C / 8; idx += tiles::THREADS) {
-    const int r = idx / (C / 8), c8 = idx % (C / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < N) v = *reinterpret_cast<const uint4*>(x + (size_t)(r0 + r) * C + c8 * 8);
-    *reinterpret_cast<uint4*>(T + r * LD + c8 * 8) = v;
-  }
-  __syncthreads();
-  tiles::layer_norm<LN_ROWS, C>(T, T, LD, gamma, beta, eps, stats != nullptr ? st : nullptr);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < LN_ROWS * C / 8; idx += tiles::THREADS) {
-    const int r = idx / (C / 8), c8 = idx % (C / 8);
-    if (r0 + r < N)
-      *reinterpret_cast<uint4*>(out + (size_t)(r0 + r) * C + c8 * 8) =
-          *reinterpret_cast<const uint4*>(T + r * LD + c8 * 8);
-  }
-  if (stats != nullptr && threadIdx.x < LN_ROWS && r0 + threadIdx.x < N)
-    stats[r0 + threadIdx.x] = st[threadIdx.x];
+  tiles::layer_norm_pass<C>(x, gamma, beta, out, stats, N, eps);
 }
 
 __global__ void __launch_bounds__(THREADS, 1) tail_gemm_gate_kernel(

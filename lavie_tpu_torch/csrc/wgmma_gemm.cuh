@@ -13,10 +13,13 @@
 //   - the gate epilogue (x W0h^T + b0h) * gelu_erf(x W0g^T + b0g) leaves by
 //     TMA from a swizzled staging box; the out epilogue adds a bias, and
 //     optionally a bf16 residual after the first rounding, and stores from
-//     registers.
+//     registers;
+//   - the staged cooperative GEMM (the VSR only-cross head's five GEMMs)
+//     adds an fp32 bias (and a residual loaded by TMA) or scales by an fp32
+//     factor, and leaves by TMA from staging boxes.
 // Each kernel that instantiates them is a __global__ of its own source, so
 // that a profile tells the callers apart. The bias is bf16 (GEGLU) or fp32
-// (the transformer tail), as the TPU bodies take them.
+// (the transformer tail, the head), as the TPU bodies take them.
 
 #pragma once
 
@@ -44,6 +47,7 @@ struct GemmArgs {
   int stages;
   int inner;         // I: the gate rows' offset in W0 and b0
   const bf16* res;   // the out epilogue's residual (rows, ldo), or null
+  float scale;       // the staged GEMM's EPI_SCALE factor
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -367,6 +371,109 @@ __device__ __forceinline__ void coop_gemm(const CUtensorMap* tm_act, const CUten
     coop_products<BN>(acc, ring, bars, a.stages, c * 64 * ROW_BYTES, a.k_blocks, g);
     store_rows<BN, BiasT, RES>(a, acc, row0 + c * 64 + warp * 16 + g8, ct * BN, tig);
   }
+}
+
+// The epilogues of coop_staged_gemm: y = bf16(acc + bias); y = bf16(acc *
+// scale) with no bias (as the TPU body scales q in fp32, then rounds); y =
+// bf16(bf16(acc + bias) + res), the bf16 residual added after the first
+// rounding.
+enum StagedEpi { EPI_BIAS = 0, EPI_SCALE = 1, EPI_BIAS_RES = 2 };
+
+constexpr int STAGED_ROWS = 64;  // a consumer warpgroup's rows of a tile
+
+// coop_staged_gemm's shared bytes after the ring: a staging box of BN / 64
+// slabs of 64 rows a consumer warpgroup, then (after the ring's barriers)
+// one residual barrier each
+__host__ __device__ constexpr int staged_extra(int bn) { return 2 * bn * STAGED_ROWS * 2 + 16; }
+
+// A cooperative GEMM whose output leaves by TMA: tiles of 128 rows by BN
+// columns, both consumer warpgroups on each tile (64 rows each, one
+// m64nBN accumulator), each writing its 64 x BN bf16 result into its
+// staging box (laid out as the 128-byte swizzled TMA box) and one of its
+// threads storing the box by TMA, so the tile leaves as whole 128-byte rows
+// where stores from registers write 16 bytes of a row at a time. With
+// EPI_BIAS_RES the residual tile arrives by TMA in the same box while the
+// products run and is read back from it. The bias is fp32; tm_out and
+// tm_res are 2-D maps over (ldo, rows) with boxes of 64 rows, which TMA
+// clips at a.rows. The body of a __global__ of THREADS threads.
+template <int BN, int EPI>
+__device__ __forceinline__ void coop_staged_gemm(const CUtensorMap* tm_a, const CUtensorMap* tm_b,
+                                                 const CUtensorMap* tm_out, const CUtensorMap* tm_res,
+                                                 const GemmArgs& a) {
+  constexpr int STAGE = stage_bytes<BN>();
+  constexpr int SLABS = BN / SLAB;
+  constexpr int BOX = STAGED_ROWS * ROW_BYTES;  // one slab of a warpgroup's rows
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t staging = ring + a.stages * STAGE;
+  const uint32_t bars = staging + 2 * SLABS * BOX;
+  const int tiles = (a.rows + BM - 1) / BM * a.col_tiles;
+  if (threadIdx.x == 0) {
+    mbar_init(bars + 16 * MAX_STAGES, 1);
+    mbar_init(bars + 16 * MAX_STAGES + 8, 1);
+  }
+  init_ring(bars, a.stages, 256);
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) produce<BN, false>(tm_a, tm_b, a, ring, bars);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1, tw = threadIdx.x - 128 * wg;
+  const int warp = tw >> 5, lane = tw & 31, g8 = lane >> 2, tig = lane & 3;
+  const uint32_t box = staging + c * SLABS * BOX, res_bar = bars + 16 * MAX_STAGES + 8 * c;
+  float acc[BN / 2];
+  int g = 0;   // stages consumed by this block
+  int it = 0;  // tiles of this block so far
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
+    const int r0 = (t / a.col_tiles) * BM + c * STAGED_ROWS, n0 = (t % a.col_tiles) * BN;
+    if (tw == 0) {
+      tma_store_wait_read<0>();  // the previous tile's store has read the box
+      if constexpr (EPI == EPI_BIAS_RES) {
+        mbar_expect_tx(res_bar, SLABS * BOX);
+#pragma unroll
+        for (int q = 0; q < SLABS; ++q) tma_load_2d(box + q * BOX, tm_res, res_bar, n0 + q * SLAB, r0);
+      }
+    }
+    coop_products<BN>(acc, ring, bars, a.stages, c * STAGED_ROWS * ROW_BYTES, a.k_blocks, g);
+    if constexpr (EPI == EPI_BIAS_RES)
+      mbar_wait(res_bar, it & 1);
+    else
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c));  // the box is free
+
+    // acc[4j + e] is row warp * 16 + g8 + 8 * (e / 2), column 8j + 2 * tig +
+    // e % 2 of the warpgroup's rows: 16-byte chunk j % 8 of its row in slab
+    // j / 8 of the box
+    const float* bb = static_cast<const float*>(a.bias) + n0;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      float2 bv = make_float2(0.f, 0.f);
+      if constexpr (EPI != EPI_SCALE) bv = bias2(bb + 8 * j + 2 * tig);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t addr = box + (j / 8) * BOX + swizzled(warp * 16 + g8 + 8 * h, j % 8) + tig * 4;
+        const float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+        __nv_bfloat162 v = EPI == EPI_SCALE ? __floats2bfloat162_rn(x0 * a.scale, x1 * a.scale)
+                                            : __floats2bfloat162_rn(x0 + bv.x, x1 + bv.y);
+        if constexpr (EPI == EPI_BIAS_RES) {
+          uint32_t rv;
+          asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(rv) : "r"(addr));
+          v = __hadd2(v, *reinterpret_cast<const __nv_bfloat162*>(&rv));
+        }
+        asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(*reinterpret_cast<uint32_t*>(&v)));
+      }
+    }
+    fence_proxy_async();
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c));
+    if (tw == 0) {  // rows past a.rows are not written
+#pragma unroll
+      for (int q = 0; q < SLABS; ++q) tma_store_2d(tm_out, box + q * BOX, n0 + q * SLAB, r0);
+      tma_store_commit();
+    }
+  }
+  if (tw == 0) tma_store_wait<0>();
 }
 
 // the shared bytes of a ring of `stages` stages of `stage` bytes and `extra`

@@ -10,10 +10,12 @@ block as one (port of lavie_tpu.kernels.cross_block):
 
 x is (B, N, C) with N = F·S tokens per batch row; k/v are the projected
 text states (B, L, C), one row per video, shared by all its frames. Weights
-are nn.Linear (out, in). The CUDA kernels replace `_head_kernel` and
-`_single_kernel` (csrc/cross_block.cu) and `_tail_kernel`
-(csrc/transformer_tail.cu: a LayerNorm pass and three wgmma GEMMs, GEGLU's,
-under a plan from `tail_launch_plan`); the plain versions
+are nn.Linear (out, in). The CUDA kernels replace `_head_kernel`
+(csrc/cross_head.cu: csrc/wgmma_gemm.cuh's staged wgmma GEMM, the tail's
+LayerNorm pass and the text cross attention's wgmma body, nine launches
+under a plan from `head_launch_plan`), `_single_kernel` (csrc/cross_block.cu) and
+`_tail_kernel` (csrc/transformer_tail.cu: a LayerNorm pass and three wgmma
+GEMMs, GEGLU's, under a plan from `tail_launch_plan`); the plain versions
 repeat the TPU kernels' arithmetic: LayerNorm statistics in fp32 with the
 elementwise steps in the activation dtype, products accumulated in fp32, q
 scaled in fp32 then rounded, fp32 softmax whose probabilities are rounded
@@ -24,6 +26,7 @@ before P·V, each residual added in the activation dtype.
   fused_ln_cross_attention(_reference)   head dims 40/80/128/160 (and 64) at
                                          C = 8 heads × d, any N
   layer_norm_on_card                     the kernels' LayerNorm alone (tests)
+  head_launch_plan                       the head's GEMMs' and attention's plan
   tail_launch_plan                       the tail GEMMs' launch plan for one call
 """
 
@@ -37,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels import cross_attention as _cross
 from lavie_tpu_torch.kernels import geglu as _geglu
 
 HEAD_DIM = 64
@@ -127,11 +131,50 @@ def _pad_kv(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return kp, vt
 
 
+def head_staging_bytes(width: int) -> int:
+    """Shared bytes of the head GEMM's staging beside its ring: a box of
+    width / 64 swizzled slabs of 64 rows for each of the two consumer
+    warpgroups, and two residual barriers (wgmma_gemm.cuh::staged_extra)."""
+    return 2 * width * 64 * 2 + 16
+
+
+@dataclass(frozen=True)
+class HeadPlan:
+    """How csrc/cross_head.cu runs one call over x (B·N rows, C): the five
+    GEMMs over K = C (proj_in, then per layer q and the out-projection) are
+    csrc/wgmma_gemm.cuh's staged cooperative GEMM at one tile width
+    (`gemm`, whose smem_bytes hold the ring and the two staging boxes),
+    each on at most `grid` persistent blocks; the two attentions are the
+    text cross attention's wgmma kernel at head dim 64 (`attn`)."""
+    gemm: _geglu.GemmPlan
+    attn: _cross.LaunchPlan
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def head_launch_plan(n: int, c: int, b: int, lkv: int, sm_count: int) -> HeadPlan:
+    """The plan of one call over x (B, N, C) against L = lkv text keys on a
+    card of `sm_count` SMs: the widest of 256 and 128 dividing C whose
+    tiles give every SM one, else 128, with as many ring stages (up to six)
+    as fit beside the staging boxes (geglu._gemm); the attention's plan
+    from cross_attention.launch_plan. Raises for what the kernels cannot
+    take (C outside KERNEL_WIDTHS, N not a positive multiple of 64, L
+    outside 1..80)."""
+    if c not in KERNEL_WIDTHS or n < 64 or n % 64 or not 1 <= lkv <= MAX_KV or b < 1:
+        raise ValueError(f"cross_attention_head kernel: N={n}, C={c}, B={b}, {lkv} text keys")
+    row_tiles = -(-b * n // _geglu.TILE_ROWS)
+    widths = [w for w in (256, 128) if c % w == 0]
+    width = next((w for w in widths if row_tiles * (c // w) >= sm_count), widths[-1])
+    return HeadPlan(gemm=_geglu._gemm(width, c, c // width, 6, head_staging_bytes(width)),
+                    attn=_cross.launch_plan(b, n, c // HEAD_DIM, HEAD_DIM, lkv, sm_count),
+                    grid=sm_count)
+
+
 def cross_attention_head(x: torch.Tensor, wpi: torch.Tensor, bpi: torch.Tensor,
                          attn1: AttnParams, attn2: AttnParams, heads: int, scale: float,
                          eps: float = 1e-5) -> torch.Tensor:
     """proj_in → LN1+attn1 → LN2+attn2 over x (B, N, C). On a CUDA tensor
-    this launches the kernel, or raises for what it does not take (C not in
+    this launches the kernels, or raises for what they do not take (C not in
     KERNEL_WIDTHS, head dim other than 64, more than 80 text keys, N not a
     multiple of 64, dtypes other than bf16 tensors with fp32 biases and
     LayerNorm parameters, non-contiguous or misaligned tensors)."""
@@ -146,20 +189,28 @@ def cross_attention_head(x: torch.Tensor, wpi: torch.Tensor, bpi: torch.Tensor,
                                   or a[2].shape != (c, c) or a[3].shape != (c, c)
                                   for a in (attn1, attn2)):
         raise ValueError(f"{name}: weight or text key/value shapes do not match x")
-    kv = [_pad_kv(x, a[5], a[6]) for a in (attn1, attn2)]
-    bf = [x, wpi, attn1[2], attn1[3], attn2[2], attn2[3], *kv[0], *kv[1]]
+    bf = [x, wpi, *(t for a in (attn1, attn2) for t in (a[2], a[3], a[5], a[6]))]
     f32 = [bpi, attn1[0], attn1[1], attn1[4], attn2[0], attn2[1], attn2[4]]
     _check(name, x, bf, f32)
-    out = torch.empty_like(x)
-    fn = _build.function("cross_block", "cross_attention_head_bf16", 18, 4, 2)
-    err = fn(x.data_ptr(), wpi.data_ptr(), bpi.data_ptr(),
-             attn1[0].data_ptr(), attn1[1].data_ptr(), attn1[2].data_ptr(), attn1[3].data_ptr(),
-             attn1[4].data_ptr(), kv[0][0].data_ptr(), kv[0][1].data_ptr(),
-             attn2[0].data_ptr(), attn2[1].data_ptr(), attn2[2].data_ptr(), attn2[3].data_ptr(),
-             attn2[4].data_ptr(), kv[1][0].data_ptr(), kv[1][1].data_ptr(), out.data_ptr(),
-             b, n, c, lkv, float(scale), float(eps), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, name)
+    sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    out = _launch_head(x, wpi, bpi, attn1, attn2, scale, eps, head_launch_plan(n, c, b, lkv, sms))
     cross_attention_head.launches += 1
+    return out
+
+
+def _launch_head(x, wpi, bpi, attn1, attn2, scale: float, eps: float, plan: HeadPlan) -> torch.Tensor:
+    """The head's nine launches on the current stream, under `plan` (a plan
+    of one's own for A/B timing on the card)."""
+    b, n, c = x.shape
+    # xp (then x1 over it), the LayerNorm output (then the attention's,
+    # over it) and q are scratch of this call
+    out, xp, xn, q = (torch.empty_like(x) for _ in range(4))
+    fn = _build.function("cross_head", "cross_attention_head_bf16", 21, 10, 2)
+    ptrs = [t.data_ptr() for t in (x, wpi, bpi, *attn1, *attn2, out, xp, xn, q)]
+    err = fn(*ptrs, b, n, c, attn1[5].shape[1], plan.gemm.width, plan.gemm.stages, plan.grid,
+             plan.attn.stages, plan.attn.grid, plan.attn.smem_bytes, float(scale), float(eps),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "cross_attention_head")
     return out
 
 

@@ -1,19 +1,23 @@
-"""The launch plans of the VSR transformer tail and of the float GN·SiLU·
-temporal conv, held against the H100's limits on the CPU.
+"""The launch plans of the VSR only-cross head and transformer tail and of
+the float GN·SiLU·temporal conv, held against the H100's limits on the CPU.
 
-`lavie_tpu_torch.kernels.cross_block.tail_launch_plan` decides, for one tail
-call over x (N, C), the wgmma width, ring depth and shared bytes of its
-three GEMMs (GEGLU's gate and out GEMMs, and the projection);
+`lavie_tpu_torch.kernels.cross_block.head_launch_plan` decides, for one head
+call over x (B, N, C) against L text keys, the wgmma width, ring depth and
+shared bytes of its five GEMMs and the plan of its two attentions;
+`tail_launch_plan` the same for the tail's three GEMMs (GEGLU's gate and out
+GEMMs, and the projection);
 `lavie_tpu_torch.kernels.temporal_resblock.launch_plan` decides the float
-conv's tile width, ring depth, tiles, persistent grid and shared bytes. The
-CUDA entries only check the plans. The tile walks below are the kernels'
-(csrc/wgmma_gemm.cuh, csrc/temporal_resblock.cu). These tests need no card.
+conv's tile width, ring depth, tiles, persistent grid and shared bytes.
+The CUDA entries only check the plans. The tile walks below are the
+kernels' (csrc/wgmma_gemm.cuh, csrc/temporal_resblock.cu). These tests need
+no card.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from lavie_tpu_torch.kernels import cross_attention as ca
 from lavie_tpu_torch.kernels import cross_block as cb
 from lavie_tpu_torch.kernels import geglu as gg
 from lavie_tpu_torch.kernels import temporal_resblock as tr
@@ -204,3 +208,71 @@ def test_each_output_frame_sums_exactly_its_valid_taps(frames, k):
 def test_tconv_plan_refuses_what_the_kernel_cannot_take(b, f, s, c, o, k):
     with pytest.raises(ValueError):
         tr.launch_plan(b, f, s, c, o, k, H100_SMS)
+
+
+# --- the VSR only-cross head (csrc/cross_head.cu) -----------------------------------
+
+# N of the head's calls at one VSR half (L1, L2) and a small one; B = 1 (one
+# CFG half) and 2; 7 and 77 text keys; the H100's SMs and fewer
+HEAD_ROWS = [327680, 81920, 1024]
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 66])
+@pytest.mark.parametrize("lkv", [7, 77])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("n", HEAD_ROWS)
+@pytest.mark.parametrize("c", cb.KERNEL_WIDTHS)
+def test_head_plan_fits_the_card(c, n, b, lkv, sms):
+    p = cb.head_launch_plan(n, c, b, lkv, sms)
+    # the five GEMMs over K = C: one width dividing C that the entry takes
+    # (128 ping-pong, 256 cooperative), K in whole 64-column slabs
+    assert p.gemm.width in (128, 256) and c % p.gemm.width == 0
+    assert p.gemm.col_tiles * p.gemm.width == c
+    assert p.gemm.k_blocks * gg.SLAB == c and c % gg.SLAB == 0
+    # the ring beside the two warpgroups' staging boxes (64 rows of the
+    # tile's width each) and their residual barriers, in 227 KB
+    stage = (gg.TILE_ROWS + p.gemm.width) * gg.SLAB_BYTES
+    staging = 2 * 64 * p.gemm.width * 2
+    assert cb.head_staging_bytes(p.gemm.width) == staging + 16 and staging % 1024 == 0
+    assert stage % 1024 == 0 and 3 <= p.gemm.stages <= 6
+    assert p.gemm.smem_bytes == gg.RESERVED + p.gemm.stages * stage + staging + 16 <= gg.SMEM_MAX
+    assert p.gemm.smem_bytes + stage > gg.SMEM_MAX or p.gemm.stages == 6
+    # 256 only where its tiles give every SM one
+    rows = -(-b * n // gg.TILE_ROWS)
+    if p.gemm.width == 256:
+        assert rows * (c // 256) >= sms
+    elif c % 256 == 0:
+        assert rows * (c // 256) < sms
+    assert p.grid == sms
+    # the attention: the text cross attention's wgmma kernel at head dim 64,
+    # K and V 80 rows deep, its ring of query tiles beside them in 227 KB
+    a = p.attn
+    assert a.key_regs == ca.WIDE_KEYS and a.kv_rows == 80 and a.slabs == 1 and a.tile == 64
+    assert a.threads == 384 and 4 <= a.stages <= ca.MAX_STAGES
+    assert a.smem_bytes == ca.RESERVED + 2 * 80 * ca.SLAB_BYTES + a.stages * 64 * ca.SLAB_BYTES
+    assert a.smem_bytes <= ca.SMEM_MAX
+    heads = c // 64
+    assert a.items == b * heads * (n // 64)
+    assert 1 <= a.grid <= min(sms, a.items) and a.grid % heads == 0
+
+
+@pytest.mark.parametrize("n,c,b", [(1024, 128, 1), (128, 256, 2), (640, 512, 3)])
+def test_head_gemms_write_every_output_once(n, c, b):
+    """xp, q, x1 and x2 (B·N, C): the GEMMs' persistent walk writes every
+    element once, B·N ragged against the grid."""
+    p = cb.head_launch_plan(n, c, b, 77, H100_SMS)
+    assert (_gemm_walk(p.gemm, p.grid, b * n, c, p.gemm.width) == 1).all()
+
+
+@pytest.mark.parametrize("n,c,b,lkv", [
+    (1000, 512, 1, 77),   # N not a multiple of 64
+    (0, 512, 1, 77),
+    (1024, 320, 1, 77),   # C outside the widths
+    (1024, 1024, 1, 77),
+    (1024, 512, 1, 81),   # more than 80 text keys
+    (1024, 512, 1, 0),
+    (1024, 512, 0, 77),
+])
+def test_head_plan_refuses_what_the_kernels_cannot_take(n, c, b, lkv):
+    with pytest.raises(ValueError):
+        cb.head_launch_plan(n, c, b, lkv, H100_SMS)
