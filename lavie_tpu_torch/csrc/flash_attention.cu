@@ -353,13 +353,13 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
       fence_regs<DP / 2>(o);
       mbar_arrive(empty(prev));
 
-      // normalise and store; rows past Sq and columns past d are not stored
+      // out = bf16(o / l), one division (div.rn.f32) a stored element, as
+      // the TPU bodies divide; rows past Sq and columns past d are not stored
       float l0 = l_run[0], l1 = l_run[1];
       l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
       l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
       l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-      const float inv0 = 1.f / l0, inv1 = 1.f / l1;
       const int row0 = it.qb * BM + 64 * c + 16 * warp + g, row1 = row0 + 8;
       const size_t C = (size_t)a.H * a.d;
       __nv_bfloat16* ob = a.out + (size_t)it.r * a.Sq * C + (size_t)it.h * a.d;
@@ -370,10 +370,10 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
         if (col < a.d) {
           if (row0 < a.Sq)
             *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row0 * C + col) =
-                __floats2bfloat162_rn(o[4 * i] * inv0, o[4 * i + 1] * inv0);
+                __floats2bfloat162_rn(__fdiv_rn(o[4 * i], l0), __fdiv_rn(o[4 * i + 1], l0));
           if (row1 < a.Sq)
             *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row1 * C + col) =
-                __floats2bfloat162_rn(o[4 * i + 2] * inv1, o[4 * i + 3] * inv1);
+                __floats2bfloat162_rn(__fdiv_rn(o[4 * i + 2], l1), __fdiv_rn(o[4 * i + 3], l1));
         }
       }
     }
