@@ -55,8 +55,8 @@
 //
 // The int8 variant (entry gn_silu_tconv_int8_bf16) replaces the JAX
 // package's quant="int8" of gn_silu_tconv_sfc (_kernel_sfc's turbo body):
-// act, rounded to bf16 (silu as x / (1 + e^-x): the variant's results are
-// kept bit for bit since it was ported), is quantised with one symmetric
+// act, rounded to bf16 (silu in the TPU body's order, as the float path), is
+// quantised with one symmetric
 // scale per (batch, block of `blk` positions) shared by all F frames,
 // a_scale = max(max|act|, 1e-12) / 127, q = clamp(rn(act * (1 / a_scale)),
 // +-127); the taps arrive quantised per output channel (w_scale, by the
@@ -125,14 +125,7 @@ __device__ __forceinline__ float2 gn_affine2(uint32_t v, uint32_t w, uint32_t u)
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t));
 }
 
-// the int8 variant's activation: bf16(t / (1 + e^-t)) of the affine
-__device__ __forceinline__ uint32_t gn_silu2(uint32_t v, uint32_t w, uint32_t u) {
-  const float2 f = gn_affine2(v, w, u);
-  const __nv_bfloat162 a = __floats2bfloat162_rn(f.x / (1.f + expf(-f.x)), f.y / (1.f + expf(-f.y)));
-  return *reinterpret_cast<const uint32_t*>(&a);
-}
-
-// the float kernel's activation, in the TPU body's order:
+// the activation of both kernels, in the TPU body's order:
 // bf16(t * (1 / (1 + e^-t))) of the affine (lavie_tpu/kernels/temporal_resblock.py::_silu)
 __device__ __forceinline__ uint32_t gn_silu2_tpu(uint32_t v, uint32_t w, uint32_t u) {
   const float2 f = gn_affine2(v, w, u);
@@ -222,7 +215,7 @@ __global__ void __launch_bounds__(I8_THREADS, 2) tconv_int8_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = k0 + c8 * 8 + 2 * e;
-          vp[e] = gn_silu2(vp[e], pair(wsh + c), pair(ush + c));
+          vp[e] = gn_silu2_tpu(vp[e], pair(wsh + c), pair(ush + c));
         }
       }
       uint32_t packed[2] = {0u, 0u};
@@ -436,7 +429,7 @@ __global__ void __launch_bounds__(256) act_scale_kernel(
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int c = c8 * 8 + 2 * e;
-      uint32_t a = SILU ? gn_silu2(vp[e], pair(wsh + c), pair(ush + c)) : vp[e];
+      uint32_t a = SILU ? gn_silu2_tpu(vp[e], pair(wsh + c), pair(ush + c)) : vp[e];
       const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
       m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
     }

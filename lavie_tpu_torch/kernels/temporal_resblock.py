@@ -11,8 +11,8 @@ frame-major CUDA kernel (csrc/temporal_resblock.cu) replaces both. GroupNorm
 statistics are folded outside into the per-(batch, channel) fp32 affine
 (w, u); the conv bias is fp32 and may carry a folded time embedding; the
 residual is added in the fp32 accumulator. w ⊙ x + u is computed in the
-input dtype, the product and the sum each rounded, SiLU in fp32 rounded to
-the input dtype; frames outside [0, F)
+input dtype, the product and the sum each rounded, SiLU in fp32 as the TPU
+body orders it (`silu`) rounded to the input dtype; frames outside [0, F)
 contribute nothing (the zero padding is of the activated input). With
 emit_stats the function also returns per-(batch, output channel) Σ y and
 Σ y² over (F, S), in fp32, of y as stored (rounded to its dtype): a
@@ -40,6 +40,7 @@ The taps are (k, O, C): W[j] is tap j's (O, C) matrix, nn.Linear layout.
                            emit_stats, `int8_launches` those with quant="int8"
   gn_silu_tconv_reference  the plain PyTorch version (fp32 products and sums;
                            the int8 products exact, in fp64)
+  silu                     its SiLU, a · (1 / (1 + e^-a)) as the TPU body
   resblock_conv_supported  the JAX package's gate of the fused kernel, which
                            also gates its int8 variant
   launch_plan              the float kernel's launch plan for one call: tile
@@ -162,6 +163,12 @@ def resblock_conv_supported(frames: int, s: int, cin: int, cout: int, ktaps: int
             and _pick_block(s, frames, cin, cout, ktaps, with_res, itemsize) >= 128)
 
 
+def silu(a: torch.Tensor) -> torch.Tensor:
+    """a · (1 / (1 + e^-a)), in the TPU body's order (its _silu): a
+    reciprocal, then a product, where F.silu divides."""
+    return a * (1.0 / (1.0 + torch.exp(-a)))
+
+
 def quantize_taps(weight: torch.Tensor):
     """(k, O, C) taps → (int8 taps (k, O, C), fp32 scales (O,)): nn/quant.py's
     symmetric quantisation with one scale per output channel over (k, C)."""
@@ -193,7 +200,7 @@ def gn_silu_tconv_reference(x: torch.Tensor, w: Optional[torch.Tensor], u: Optio
     k, o = weight.shape[0], weight.shape[1]
     if activation == "silu":
         act = x * w.to(x.dtype)[:, None, None] + u.to(x.dtype)[:, None, None]
-        act = F.silu(act.float()).to(x.dtype).float()
+        act = silu(act.float()).to(x.dtype).float()
     else:
         act = x.float()
     def taps_into(acc, a, wt):

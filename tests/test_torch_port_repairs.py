@@ -1,6 +1,6 @@
-"""The repairs of the port's arithmetic towards the TPU bodies, on the CPU.
+"""The two repairs of the port's arithmetic towards the TPU bodies, on the CPU.
 
-The d <= 160 flash body stores bf16(o / l), a true division, as every
+1. The d <= 160 flash body stores bf16(o / l), a true division, as every
    TPU flash body does (lavie_tpu/kernels/flash_attention.py, `acc / l`),
    where it stored bf16(o * (1 / l)). `division_cases` searches, from a
    seed, for bf16 values v whose sum over L = 7 keys is exact in fp32 and
@@ -8,12 +8,18 @@ The d <= 160 flash body stores bf16(o / l), a true division, as every
    keys every probability is 1, so the kernel's output is bf16(Σv / L). The
    card test (tests/test_torch_port_cuda.py) feeds these v to the kernel;
    the tests here show that the cases exist, so that test is not vacuous.
+2. The int8 GN·SiLU·temporal conv applies SiLU as the TPU body's _silu,
+   a · (1 / (1 + e^-a)), where it divided; its plain version
+   (kernels/temporal_resblock.py::silu) takes the same order.
 
 This file imports neither JAX nor the JAX package.
 """
 
 import numpy as np
 import pytest
+import torch
+
+from lavie_tpu_torch.kernels import temporal_resblock as tr
 
 KEYS = 7
 
@@ -55,3 +61,29 @@ def test_division_cases_exist_and_differ(seed):
 def test_division_cases_are_reproducible():
     a, b = division_cases(5), division_cases(5)
     assert all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("shape", [(4096,), (3, 5, 64), (2, 8, 33, 128)])
+def test_plain_silu_is_the_tpu_order_bit_for_bit(shape):
+    """silu(a) == a · (1 / (1 + e^-a)) in fp32, bit for bit; the division
+    F.silu does gives other bits for some a, so the order matters."""
+    g = torch.Generator().manual_seed(len(shape))
+    a = 4.0 * torch.randn(shape, generator=g)
+    want = a * (1.0 / (1.0 + torch.exp(-a)))
+    assert torch.equal(tr.silu(a), want)
+    if a.numel() >= 4096:
+        assert not torch.equal(want, a / (1.0 + torch.exp(-a)))
+
+
+@pytest.mark.parametrize("f,s,c", [(1, 7, 32), (3, 64, 64), (5, 100, 128)])
+def test_plain_conv_activates_with_the_tpu_silu(f, s, c):
+    """One tap that is the identity and a zero bias: the plain version's y
+    is its bf16 activation, bf16(silu(bf16(bf16(x · w) + u))), bit for bit."""
+    g = torch.Generator().manual_seed(f * s)
+    x = torch.randn(1, f, s, c, generator=g).bfloat16()
+    w = 1.0 + 0.5 * torch.randn(1, c, generator=g)
+    u = 0.5 * torch.randn(1, c, generator=g)
+    taps = torch.eye(c).bfloat16()[None]
+    y = tr.gn_silu_tconv_reference(x, w, u, taps, torch.zeros(1, c))
+    a = (x * w.bfloat16()[:, None, None] + u.bfloat16()[:, None, None]).float()
+    assert torch.equal(y, (a * (1.0 / (1.0 + torch.exp(-a)))).bfloat16())
