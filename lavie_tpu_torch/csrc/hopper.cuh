@@ -5,13 +5,14 @@
 // mbarriers, TMA tile loads (one CTA's, or multicast to a cluster's) and
 // stores, thread-block clusters (rank, barrier, remote mbarrier arrivals,
 // the launch), the tensor-map encoder cuTensorMapEncodeTiled (reached
-// through the runtime, so no -lcuda), wgmma instructions and their
-// shared-memory descriptors.
+// through the runtime, so no -lcuda; bf16 and 8-bit maps), wgmma
+// instructions (bf16 into fp32, s8 into s32) and their shared-memory
+// descriptors.
 //
 // Every operand tile here is a 128-byte swizzled box as TMA writes it: rows
-// of 64 bf16 columns (a "slab"), eight rows to a 1024-byte swizzle atom, the
-// 16-byte chunk c of row r stored at chunk c ^ (r % 8). A ring built of such
-// boxes must start on a 1024-byte boundary.
+// of 64 bf16 (or 128 int8) columns (a "slab"), eight rows to a 1024-byte
+// swizzle atom, the 16-byte chunk c of row r stored at chunk c ^ (r % 8). A
+// ring built of such boxes must start on a 1024-byte boundary.
 
 #pragma once
 
@@ -38,6 +39,8 @@ __device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
 // ---- wgmma ------------------------------------------------------------------
 template <int N>
 struct Gmma;
+template <int N>
+struct GmmaS8;
 template <int N>
 struct GmmaRs;
 
@@ -120,6 +123,32 @@ struct Gmma<256> {
 };
 
 template <>
+struct GmmaS8<128> {
+  // D[64 x 128] (+)= A[64 x 32] B[32 x 128], s8 x s8 -> s32, A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(int* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct GmmaS8<256> {
+  // D[64 x 256] (+)= A[64 x 32] B[32 x 256], s8 x s8 -> s32, A and B K-major in shared memory
+  static __device__ __forceinline__ void ss(int* d, uint64_t da, uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, %128, %129, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
 struct GmmaRs<16> {
   // D[64 x 16] += A[64 x 16] B[16 x 16], A in registers, B MN-major in shared memory
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db) {
@@ -184,6 +213,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 template <int N>
@@ -372,35 +407,56 @@ inline bool make_map(CUtensorMap* map, const void* ptr, int d, int H, int S, int
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A 2-D map over a row-major (rows, cols) bf16 matrix, whose boxes are one
-// 64-column slab of box_rows rows, 128-byte swizzled; rows past the end are
-// zero-filled. cols * 2 must be a multiple of 16 bytes.
-inline bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, int box_rows) {
+// cuTensorMapEncodeTiled over a contiguous tensor of `rank` dims (dims[0]
+// innermost) of bf16 (elem_bytes 2) or 8-bit (elem_bytes 1, moved as
+// uint8: TMA's zero fill is then int8 0) elements, boxes of `box`, 128-byte
+// swizzled or not; elements past any dim are zero-filled on a load and not
+// written by a store.
+inline bool encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint32_t* box, int elem_bytes, bool swizzle) {
   EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return false;
-  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  cuuint32_t box[2] = {SLAB, (cuuint32_t)box_rows}, elem[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  cuuint64_t strides[3];
+  cuuint64_t stride = (cuuint64_t)elem_bytes;
+  for (int i = 0; i + 1 < rank; ++i) strides[i] = stride *= dims[i];
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+             rank, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A 4-D map over a contiguous bf16 tensor of dims (d0, d1, d2, d3), d0
-// innermost, whose boxes are one 64-column slab of d0 by box_rows along d1
-// (one along d2 and d3), 128-byte swizzled; elements past any dim are
-// zero-filled on a load and not written by a store. d0 * 2 must be a
-// multiple of 16 bytes.
+// A 2-D map over a row-major (rows, cols) matrix of bf16 (or, elem_bytes 1,
+// 8-bit) elements, whose boxes are one 128-byte swizzled slab (64 bf16 or
+// 128 8-bit columns) of box_rows rows; rows past the end are zero-filled.
+// cols * elem_bytes must be a multiple of 16 bytes.
+inline bool make_map_2d(CUtensorMap* map, const void* ptr, int cols, int rows, int box_rows,
+                        int elem_bytes = 2) {
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint32_t box[2] = {(cuuint32_t)(ROW_BYTES / elem_bytes), (cuuint32_t)box_rows};
+  return encode_map(map, ptr, 2, dims, box, elem_bytes, true);
+}
+
+// A 2-D map over a row-major (rows, cols) bf16 matrix whose boxes are
+// box_cols columns (box_cols * 2 a multiple of 16 bytes, box_cols <= 256)
+// of box_rows rows, not swizzled: in shared memory a dense row-major box.
+inline bool make_map_2d_dense(CUtensorMap* map, const void* ptr, int cols, int rows, int box_cols,
+                              int box_rows) {
+  cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_map(map, ptr, 2, dims, box, 2, false);
+}
+
+// A 4-D map over a contiguous tensor of dims (d0, d1, d2, d3), d0
+// innermost, of bf16 (or, elem_bytes 1, 8-bit) elements, whose boxes are one
+// 128-byte swizzled slab of d0 (64 bf16 or 128 8-bit elements) by box_rows
+// along d1 (one along d2 and d3). d0 * elem_bytes must be a multiple of 16
+// bytes.
 inline bool make_map_4d(CUtensorMap* map, const void* ptr, int d0, int d1, int d2, int d3,
-                        int box_rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
+                        int box_rows, int elem_bytes = 2) {
   cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
-  cuuint64_t strides[3] = {(cuuint64_t)d0 * 2, (cuuint64_t)d0 * d1 * 2, (cuuint64_t)d0 * d1 * d2 * 2};
-  cuuint32_t box[4] = {SLAB, (cuuint32_t)box_rows, 1, 1}, elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  cuuint32_t box[4] = {(cuuint32_t)(ROW_BYTES / elem_bytes), (cuuint32_t)box_rows, 1, 1};
+  return encode_map(map, ptr, 4, dims, box, elem_bytes, true);
 }
 
 // Launch kernel(args) on a grid of `grid` blocks in clusters of `cluster`

@@ -56,25 +56,37 @@
 // The int8 variant (entry gn_silu_tconv_int8_bf16) replaces the JAX
 // package's quant="int8" of gn_silu_tconv_sfc (_kernel_sfc's turbo body):
 // act, rounded to bf16 (silu in the TPU body's order, as the float path), is
-// quantised with one symmetric
-// scale per (batch, block of `blk` positions) shared by all F frames,
-// a_scale = max(max|act|, 1e-12) / 127, q = clamp(rn(act * (1 / a_scale)),
-// +-127); the taps arrive quantised per output channel (w_scale, by the
-// wrapper); the k taps accumulate in int32 and y = float(iacc) * (a_scale *
-// w_scale[o]) + bias (+ res), rounded to bf16, multiplies and adds rounded
-// one by one as in the JAX package. act_scale_kernel first reduces max|act|
-// per (b, block) (max is exact, so the scale is the same from run to run)
-// and writes a_scale and 1 / a_scale; tconv_int8_kernel then runs a GEMM
-// per (batch, frame) whose A operand is activated and quantised on the fly
-// into 64-byte shared rows of 64 int8 channels: a block owns 128 positions x
-// 128 output channels of one frame, 8 warps on mma.sync m16n8k32 (s8 x s8 ->
-// s32) fed by ldmatrix, the taps by cp.async, double-buffered; its
-// statistics sum each block's tile in shared memory, one partial row per
-// (b, f, 128 positions). Bound on the H100: 2*valid_taps*S*C*O operations
-// at the int8 rate (1979 TOPS) against 2*2*F*S*C bytes: at VSR L0 (k=5)
-// 0.37 ms of operations, 0.40 ms of bytes; the pre-pass reads x once more.
+// quantised with one symmetric scale per (batch, block of `blk` positions)
+// shared by all F frames, a_scale = max(max|act|, 1e-12) / 127, q =
+// clamp(rn(act * (1 / a_scale)), +-127); the taps arrive quantised per
+// output channel (w_scale, by the wrapper); the k taps accumulate in int32
+// and y = float(iacc) * (a_scale * w_scale[o]) + bias (+ res), rounded to
+// bf16, the conversion, multiplies and adds rounded one by one as in the
+// JAX package. Bound on the H100: 2*valid_taps*S*C*O operations at the int8
+// rate (1979 TOPS) against 2*2*F*S*C bytes: at VSR up 2 (S = 163840, C = O
+// = 512, k = 5) 1.48 ms of operations. Its design, three steps on the
+// float path's pieces:
+//   act_absmax_kernel: max|act| over pieces of `piece_rows` positions of
+//     one frame and one scale block, so the pass spreads over the card at
+//     every size (the plan keeps at least two blocks an SM); act_scale_kernel
+//     then takes the max of each (b, scale block)'s pieces and writes a_scale
+//     and 1 / a_scale (max is exact: the same scales from run to run).
+//   act_quant_kernel activates each element once more and stores q into an
+//     int8 scratch (B, F, S, C) that the wrapper allocates: 5 bytes of HBM an
+//     element with the pass above, against 7 to store the activation.
+//   tconv_int8_gemm_kernel<BN>: the float GEMM's implicit GEMM on wgmma
+//     m64nBNk32 s8 x s8 -> s32, fed by the same TMA ring: a 128-byte swizzled
+//     row holds 128 int8 channels where it held 64 bf16, so a ring stage
+//     and a 32-byte k-step are the float kernel's in bytes; A by a 4-D uint8
+//     map over the scratch as (C, S, F, B), zero past C and S; the taps by a
+//     2-D map over (k * O, C). The epilogue dequantises with each row's
+//     a_scale (looked up per position, so any blk works) and each column's
+//     w_scale, adds bias and residual, rounds once and stores by TMA from
+//     the staging box, whose statistics colsum_kernel finishes as above.
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "wgmma_gemm.cuh"
 
@@ -82,35 +94,9 @@ namespace {
 
 using namespace wgemm;
 
-// the int8 kernel's tile and K chunk
-constexpr int I8_ROWS = 128, I8_COLS = 128, BK = 32;  // BK bf16 (64 bytes) per K chunk
-constexpr int LDS = BK + 8;  // shared row stride (bf16 elements)
-constexpr int I8_THREADS = 256;
+constexpr int INT8_SLAB = 128;  // int8 channels in a 128-byte swizzled row
 constexpr int MAX_C = 1024;
 constexpr int RED_ROWS = 128;  // partial rows one colsum_kernel block sums
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
-
-__device__ __forceinline__ void ldsm_x4(uint32_t& r0, uint32_t& r1, uint32_t& r2, uint32_t& r3,
-                                        const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void mma16832(int* c, uint32_t a0, uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // bf16(bf16(v * w) + u) for two channels packed in a 32-bit word. mul.rn
 // and add.rn name their rounding, which keeps ptxas from fusing them into
@@ -131,237 +117,6 @@ __device__ __forceinline__ uint32_t gn_silu2_tpu(uint32_t v, uint32_t w, uint32_
   const float2 f = gn_affine2(v, w, u);
   return pack_bf16(__fmul_rn(f.x, __frcp_rn(1.f + expf(-f.x))),
                    __fmul_rn(f.y, __frcp_rn(1.f + expf(-f.y))));
-}
-
-// the pair of bf16 at p (p 4-byte aligned) as one word
-__device__ __forceinline__ uint32_t pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// part1, part2: (B, F*gridDim.x, O) column partials of y and y*y, or null.
-// wt holds int8 taps (k, O, C); qs (B, ceil(S/blk), 2) a_scale and
-// 1/a_scale per (b, block of blk positions); wsc (O) the taps' scales.
-// Two blocks an SM: the extra A registers would otherwise take it to 164
-// registers a thread and one block an SM.
-template <bool SILU>
-__global__ void __launch_bounds__(I8_THREADS, 2) tconv_int8_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ wn,
-    const float* __restrict__ un, const int8_t* __restrict__ wt,
-    const float* __restrict__ bias, const __nv_bfloat16* __restrict__ res,
-    __nv_bfloat16* __restrict__ y, float* __restrict__ part1, float* __restrict__ part2,
-    const float* __restrict__ qs, const float* __restrict__ wsc, int blk, int F, int S, int C,
-    int O, int K) {
-  // int8 channels per K chunk: 64 bytes of a shared row
-  constexpr int CHUNK = 2 * BK;
-  constexpr int PIECES = CHUNK / 8;                     // 8-channel pieces of a row
-  constexpr int APIECES = I8_ROWS * PIECES / I8_THREADS;  // those this thread loads
-  __shared__ __align__(16) __nv_bfloat16 as[2][I8_ROWS * LDS];
-  __shared__ __align__(16) __nv_bfloat16 bs[2][I8_COLS * LDS];
-  __shared__ __align__(16) __nv_bfloat16 wsh[MAX_C], ush[MAX_C];
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp & 3, wn_ = warp >> 2;
-  const int s0 = blockIdx.x * I8_ROWS, n0 = blockIdx.y * I8_COLS;
-  const int b = blockIdx.z / F, f = blockIdx.z - b * F;
-  const int pad = K / 2;
-
-  // element (b, f, s, 0) of an activation with `ch` channels
-  auto at = [&](int ff, int s, int ch) -> size_t {
-    return (((size_t)b * F + ff) * S + s) * ch;
-  };
-
-  if (SILU) {
-    for (int c = tid; c < C; c += I8_THREADS) {
-      wsh[c] = __float2bfloat16(wn[(size_t)b * C + c]);
-      ush[c] = __float2bfloat16(un[(size_t)b * C + c]);
-    }
-  }
-
-  const int jlo = max(0, pad - f), jhi = min(K, F + pad - f);
-  const int kchunks = C / CHUNK;
-  const int n_it = (jhi - jlo) * kchunks;
-  const int nblk = (S + blk - 1) / blk;
-
-  // this thread's 16-byte pieces of each A chunk (8 channels each), and
-  // the 1/a_scale of each piece's row (rows past S quantise to 0)
-  uint4 areg[APIECES];
-  float ainv[APIECES];
-#pragma unroll
-  for (int r = 0; r < APIECES; ++r) {
-    const int s = s0 + (tid + r * I8_THREADS) / PIECES;
-    ainv[r] = s < S ? qs[((size_t)b * nblk + s / blk) * 2 + 1] : 0.f;
-  }
-  auto load_a = [&](int it) {
-    const int j = jlo + it / kchunks, k0 = (it % kchunks) * CHUNK;
-    const int fsrc = f + j - pad;
-#pragma unroll
-    for (int r = 0; r < APIECES; ++r) {
-      const int idx = tid + r * I8_THREADS, row = idx / PIECES, c8 = idx % PIECES;
-      areg[r] = make_uint4(0, 0, 0, 0);
-      if (s0 + row < S)
-        areg[r] = *reinterpret_cast<const uint4*>(x + at(fsrc, s0 + row, C) + k0 + c8 * 8);
-    }
-  };
-  auto store_a = [&](int it, int stage) {
-    const int k0 = (it % kchunks) * CHUNK;
-#pragma unroll
-    for (int r = 0; r < APIECES; ++r) {
-      const int idx = tid + r * I8_THREADS, row = idx / PIECES, c8 = idx % PIECES;
-      __nv_bfloat16 v[8];
-      *reinterpret_cast<uint4*>(v) = areg[r];
-      if (SILU) {
-        uint32_t* vp = reinterpret_cast<uint32_t*>(v);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = k0 + c8 * 8 + 2 * e;
-          vp[e] = gn_silu2_tpu(vp[e], pair(wsh + c), pair(ush + c));
-        }
-      }
-      uint32_t packed[2] = {0u, 0u};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        int qv = __float2int_rn(__fmul_rn(__bfloat162float(v[e]), ainv[r]));
-        qv = min(127, max(-127, qv));
-        packed[e >> 2] |= (uint32_t)(qv & 0xff) << (8 * (e & 3));
-      }
-      // byte c8 * 8 of the 64-byte row
-      *reinterpret_cast<uint2*>(&as[stage][row * LDS + c8 * 4]) = make_uint2(packed[0], packed[1]);
-    }
-  };
-  auto load_b = [&](int it, int stage) {
-    const int j = jlo + it / kchunks, k0 = (it % kchunks) * CHUNK;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int idx = tid + r * I8_THREADS, row = idx >> 2, c16 = idx & 3;  // 16-byte piece
-      const size_t src = ((size_t)j * O + n0 + row) * C + k0;
-      cp_async16(&bs[stage][row * LDS + c16 * 8], wt + src + c16 * 16);
-    }
-  };
-
-  int acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
-
-  __syncthreads();  // wsh/ush
-  if (n_it > 0) {
-    load_a(0);
-    load_b(0, 0);
-    cp_async_commit();
-    store_a(0, 0);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-  for (int it = 0; it < n_it; ++it) {
-    const int cur = it & 1;
-    const bool next = it + 1 < n_it;
-    if (next) {
-      load_a(it + 1);
-      load_b(it + 1, cur ^ 1);
-      cp_async_commit();
-    }
-    const __nv_bfloat16* at_ = as[cur];
-    const __nv_bfloat16* bt = bs[cur];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldsm_x4(a[mt][0], a[mt][1], a[mt][2], a[mt][3],
-                at_ + (wm * 32 + mt * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(b0, b1, b2, b3,
-                bt + (wn_ * 64 + np * 16 + (lane & 7) + (lane >> 4) * 8) * LDS + kk * 16 +
-                    ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma16832(acc[mt][2 * np], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b0, b1);
-          mma16832(acc[mt][2 * np + 1], a[mt][0], a[mt][1], a[mt][2], a[mt][3], b2, b3);
-        }
-      }
-    }
-    if (next) {
-      store_a(it + 1, cur ^ 1);
-      cp_async_wait_all();
-    }
-    __syncthreads();
-  }
-
-  // epilogue: + bias (+ residual) in fp32, store bf16; rows past S are not
-  // stored; cs1/cs2 sum this thread's stored values per column
-  float cs1[8][2], cs2[8][2];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) cs1[nt][0] = cs1[nt][1] = cs2[nt][0] = cs2[nt][1] = 0.f;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      const int s = s0 + wm * 32 + mt * 16 + g + hr * 8;
-      if (s >= S) continue;
-      const size_t base = at(f, s, O);
-      const float a_scale = qs[((size_t)b * nblk + s / blk) * 2];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int col = n0 + wn_ * 64 + nt * 8 + tig * 2;
-        // float(iacc) * (a_scale * w_scale) + bias, each op rounded
-        float v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * hr]), __fmul_rn(a_scale, wsc[col])),
-                             bias[(size_t)b * O + col]);
-        float v1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[mt][nt][2 * hr + 1]),
-                                       __fmul_rn(a_scale, wsc[col + 1])),
-                             bias[(size_t)b * O + col + 1]);
-        if (res != nullptr) {
-          const __nv_bfloat162 r2 = *reinterpret_cast<const __nv_bfloat162*>(res + base + col);
-          v0 += __bfloat162float(r2.x);
-          v1 += __bfloat162float(r2.y);
-        }
-        const __nv_bfloat162 o2 = __floats2bfloat162_rn(v0, v1);
-        *reinterpret_cast<__nv_bfloat162*>(y + base + col) = o2;
-        const float2 r = __bfloat1622float2(o2);
-        cs1[nt][0] += r.x;
-        cs1[nt][1] += r.y;
-        cs2[nt][0] = fmaf(r.x, r.x, cs2[nt][0]);
-        cs2[nt][1] = fmaf(r.y, r.y, cs2[nt][1]);
-      }
-    }
-  }
-  if (part1 == nullptr) return;
-
-  // lanes tig, tig + 4, ..., tig + 28 hold the same columns: sum over them
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        cs1[nt][e] += __shfl_xor_sync(0xffffffffu, cs1[nt][e], off);
-        cs2[nt][e] += __shfl_xor_sync(0xffffffffu, cs2[nt][e], off);
-      }
-  // then over the four M-warps, through the A buffer (free after the loop's
-  // last barrier): red[0 or 1][wm][column in the block]
-  float* red = reinterpret_cast<float*>(&as[0][0]);
-  if (g == 0) {
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = wn_ * 64 + nt * 8 + tig * 2 + e;
-        red[wm * I8_COLS + col] = cs1[nt][e];
-        red[(4 + wm) * I8_COLS + col] = cs2[nt][e];
-      }
-  }
-  __syncthreads();
-  if (tid < I8_COLS) {
-    const float a1 = ((red[tid] + red[I8_COLS + tid]) + red[2 * I8_COLS + tid]) + red[3 * I8_COLS + tid];
-    const float a2 = ((red[4 * I8_COLS + tid] + red[5 * I8_COLS + tid]) + red[6 * I8_COLS + tid]) +
-                     red[7 * I8_COLS + tid];
-    const size_t p = (((size_t)b * F + f) * gridDim.x + blockIdx.x) * O + n0 + tid;
-    part1[p] = a1;
-    part2[p] = a2;
-  }
 }
 
 // o[b, chunk, :] = sum of a[b, chunk*RED_ROWS : (chunk+1)*RED_ROWS, :] over
@@ -399,39 +154,71 @@ __global__ void __launch_bounds__(256) colsum_kernel(
   }
 }
 
-// qs[b, i] = (a_scale, 1 / a_scale) of block i of `blk` positions of batch
-// b: a_scale = max(max |act|, 1e-12) / 127 over its rows, all F frames and
-// all C channels, act as the main kernel's A producer makes it (bf16). One
-// block per (i, b); the max is exact, so its order does not matter.
+// w and u of channels c.. c+7 of one batch row (wn, un + off: 8 fp32 each)
+// as the bf16 pairs the TPU body multiplies and adds
+__device__ __forceinline__ void load_affine(const float* wn, const float* un, size_t off,
+                                            uint32_t (&w)[4], uint32_t (&u)[4]) {
+  const float4 w0 = *reinterpret_cast<const float4*>(wn + off);
+  const float4 w1 = *reinterpret_cast<const float4*>(wn + off + 4);
+  const float4 u0 = *reinterpret_cast<const float4*>(un + off);
+  const float4 u1 = *reinterpret_cast<const float4*>(un + off + 4);
+  w[0] = pack_bf16(w0.x, w0.y), w[1] = pack_bf16(w0.z, w0.w);
+  w[2] = pack_bf16(w1.x, w1.y), w[3] = pack_bf16(w1.z, w1.w);
+  u[0] = pack_bf16(u0.x, u0.y), u[1] = pack_bf16(u0.z, u0.w);
+  u[2] = pack_bf16(u1.x, u1.y), u[3] = pack_bf16(u1.z, u1.w);
+}
+
+// the activation of 8 channels (16 bytes of x)
+__device__ __forceinline__ uint4 activate8(uint4 v, const uint32_t (&w)[4], const uint32_t (&u)[4]) {
+  v.x = gn_silu2_tpu(v.x, w[0], u[0]);
+  v.y = gn_silu2_tpu(v.y, w[1], u[1]);
+  v.z = gn_silu2_tpu(v.z, w[2], u[2]);
+  v.w = gn_silu2_tpu(v.w, w[3], u[3]);
+  return v;
+}
+
+// ---- the int8 path: scales, quantisation, implicit GEMM on s8 wgmma -------
+
+// The int8 passes' thread layout: thread t of 256 takes the 8 channels
+// (16 bytes of x) of group t % (C / 8) of every `per` = 256 / (C / 8)-th row
+// (threads past per * C / 8 idle), so its w and u stay in registers and no
+// index needs a division by anything but a row count.
+struct RowThread {
+  int cg, r0, per;  // channel group, first row offset, rows a step (0: idle)
+};
+__device__ __forceinline__ RowThread row_thread(int C) {
+  const int c8s = C / 8, per = 256 / c8s;
+  const int r0 = threadIdx.x / c8s;
+  return RowThread{(int)threadIdx.x - r0 * c8s, r0 < per ? r0 : 0, r0 < per ? per : 0};
+}
+
+// amax[((b * nblk + i) * F + f) * pieces + p] = max |act| over positions
+// i * blk + p * piece_rows .. (at most piece_rows, inside block i and S) of
+// frame f and all C channels, act as bf16 (0 for an empty piece). Grid
+// (nblk * pieces, F, B).
 template <bool SILU>
-__global__ void __launch_bounds__(256) act_scale_kernel(
+__global__ void __launch_bounds__(256) act_absmax_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ wn, const float* __restrict__ un,
-    float* __restrict__ qs, int F, int S, int C, int blk) {
-  __shared__ __align__(16) __nv_bfloat16 wsh[MAX_C], ush[MAX_C];
+    float* __restrict__ amax, int S, int C, int blk, int piece_rows, int pieces) {
   __shared__ float red[8];
-  const int i = blockIdx.x, b = blockIdx.y;
-  if (SILU) {
-    for (int c = threadIdx.x; c < C; c += blockDim.x) {
-      wsh[c] = __float2bfloat16(wn[(size_t)b * C + c]);
-      ush[c] = __float2bfloat16(un[(size_t)b * C + c]);
-    }
-  }
-  __syncthreads();
-  const int lo = i * blk, rows = min(S, lo + blk) - lo, pieces = C / 8;
-  const long long n = (long long)F * rows * pieces;
+  const int i = blockIdx.x / pieces, p = blockIdx.x - i * pieces, f = blockIdx.y, b = blockIdx.z;
+  const int lo = i * blk + p * piece_rows, hi = min(min(lo + piece_rows, (i + 1) * blk), S);
+  const RowThread rt = row_thread(C);
+  const int c8s = C / 8;
+  uint32_t w[4], u[4];
+  if (SILU) load_affine(wn, un, (size_t)b * C + rt.cg * 8, w, u);
+  const uint4* src = reinterpret_cast<const uint4*>(x + (((size_t)b * gridDim.y + f) * S) * C);
   float m = 0.f;
-  for (long long p = threadIdx.x; p < n; p += blockDim.x) {
-    const int c8 = (int)(p % pieces);
-    const long long fr = p / pieces;
-    const int r = (int)(fr % rows), ff = (int)(fr / rows);
-    uint4 raw = *reinterpret_cast<const uint4*>(x + (((size_t)b * F + ff) * S + lo + r) * C + c8 * 8);
-    uint32_t* vp = reinterpret_cast<uint32_t*>(&raw);
+  if (rt.per > 0) {
+    for (int r = lo + rt.r0; r < hi; r += rt.per) {
+      uint4 v = src[(size_t)r * c8s + rt.cg];
+      if (SILU) v = activate8(v, w, u);
+      const uint32_t* vp = reinterpret_cast<const uint32_t*>(&v);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = c8 * 8 + 2 * e;
-      uint32_t a = SILU ? gn_silu2_tpu(vp[e], pair(wsh + c), pair(ush + c)) : vp[e];
-      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a));
-      m = fmaxf(m, fmaxf(fabsf(f.x), fabsf(f.y)));
+      for (int q = 0; q < 4; ++q) {
+        const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vp + q));
+        m = fmaxf(m, fmaxf(fabsf(a.x), fabsf(a.y)));
+      }
     }
   }
 #pragma unroll
@@ -439,21 +226,72 @@ __global__ void __launch_bounds__(256) act_scale_kernel(
   if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < 8; ++w) m = fmaxf(m, red[w]);
-    const float a_scale = fmaxf(m, 1e-12f) / 127.f;
-    qs[((size_t)b * gridDim.x + i) * 2] = a_scale;
-    qs[((size_t)b * gridDim.x + i) * 2 + 1] = 1.f / a_scale;
+    for (int w8 = 1; w8 < 8; ++w8) m = fmaxf(m, red[w8]);
+    amax[blockIdx.z * (size_t)gridDim.x * gridDim.y + (size_t)i * gridDim.y * pieces + f * pieces + p] = m;
   }
 }
 
+// qs[b, i] = (a_scale, 1 / a_scale) of scale block i of batch row b, from
+// the `parts` = F * pieces partial maxima of act_absmax_kernel. Grid (nblk, B).
+__global__ void __launch_bounds__(256) act_scale_kernel(const float* __restrict__ amax,
+                                                        float* __restrict__ qs, int parts) {
+  __shared__ float red[8];
+  const size_t blk_id = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const float* src = amax + blk_id * parts;
+  float m = 0.f;
+  for (int e = threadIdx.x; e < parts; e += blockDim.x) m = fmaxf(m, src[e]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < 8; ++w) m = fmaxf(m, red[w]);
+    const float a_scale = fmaxf(m, 1e-12f) / 127.f;
+    qs[blk_id * 2] = a_scale;
+    qs[blk_id * 2 + 1] = 1.f / a_scale;
+  }
+}
 
-// ---- the float path: activation pass and implicit GEMM on wgmma ------------
+// aq = clamp(rn(act * (1 / a_scale)), +-127) as int8 over the `rows` = B *
+// F * S rows of x, 8 channels (16 bytes of x, 8 of aq) a thread a row; the
+// scale of position s is its block s / blk's.
+template <bool SILU>
+__global__ void __launch_bounds__(256) act_quant_kernel(
+    const uint4* __restrict__ x, const float* __restrict__ wn, const float* __restrict__ un,
+    const float* __restrict__ qs, uint2* __restrict__ aq, int rows, int F, int S, int C, int blk,
+    int nblk) {
+  const RowThread rt = row_thread(C);
+  if (rt.per == 0) return;
+  const int c8s = C / 8;
+  uint32_t w[4], u[4];
+  int wb = -1;  // the batch row whose w and u are loaded
+  for (int row = blockIdx.x * rt.per + rt.r0; row < rows; row += gridDim.x * rt.per) {
+    const int fr = row / S, s = row - fr * S, b = fr / F;
+    if (SILU && b != wb) {
+      load_affine(wn, un, (size_t)b * C + rt.cg * 8, w, u);
+      wb = b;
+    }
+    const size_t e = (size_t)row * c8s + rt.cg;
+    uint4 v = x[e];
+    if (SILU) v = activate8(v, w, u);
+    const float inv = qs[((size_t)b * nblk + s / blk) * 2 + 1];
+    const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+    uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int qv = min(127, max(-127, __float2int_rn(__fmul_rn(__bfloat162float(h[q]), inv))));
+      packed[q >> 2] |= (uint32_t)(qv & 0xff) << (8 * (q & 3));
+    }
+    aq[e] = make_uint2(packed[0], packed[1]);
+  }
+}
+
+// ---- the float path's activation pass; the implicit GEMM of both paths ----
 
 constexpr int CONV_STAGES_MAX = 6;
 constexpr int STAGING_ROWS = 64;  // a consumer warpgroup's rows of the output tile
 
-// act = the activated x, 8 channels (16 bytes) a thread a step; w and u as
-// the bf16 values the TPU body multiplies and adds
+// act = the activated x, 8 channels (16 bytes) a thread a step
 __global__ void __launch_bounds__(256) tconv_act_kernel(const uint4* __restrict__ x,
                                                         const float* __restrict__ wn,
                                                         const float* __restrict__ un,
@@ -462,26 +300,20 @@ __global__ void __launch_bounds__(256) tconv_act_kernel(const uint4* __restrict_
   const int c8s = C / 8;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n8;
        i += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(i % c8s) * 8;
-    const size_t wb = (size_t)(i / per_batch8) * C + c;
-    const float4 w0 = *reinterpret_cast<const float4*>(wn + wb);
-    const float4 w1 = *reinterpret_cast<const float4*>(wn + wb + 4);
-    const float4 u0 = *reinterpret_cast<const float4*>(un + wb);
-    const float4 u1 = *reinterpret_cast<const float4*>(un + wb + 4);
-    uint4 v = x[i];
-    v.x = gn_silu2_tpu(v.x, pack_bf16(w0.x, w0.y), pack_bf16(u0.x, u0.y));
-    v.y = gn_silu2_tpu(v.y, pack_bf16(w0.z, w0.w), pack_bf16(u0.z, u0.w));
-    v.z = gn_silu2_tpu(v.z, pack_bf16(w1.x, w1.y), pack_bf16(u1.x, u1.y));
-    v.w = gn_silu2_tpu(v.w, pack_bf16(w1.z, w1.w), pack_bf16(u1.z, u1.w));
-    act[i] = v;
+    uint32_t w[4], u[4];
+    load_affine(wn, un, (size_t)(i / per_batch8) * C + (i % c8s) * 8, w, u);
+    act[i] = activate8(x[i], w, u);
   }
 }
 
 struct ConvArgs {
   const float* bias;    // (B, O)
   float *part1, *part2;  // (B, F*2*s_tiles, O) column partials of y and y*y, or null
+  const float* qs;       // int8: (B, nblk, 2) a_scale, 1 / a_scale per scale block
+  const float* wsc;      // int8: (O) the taps' scales
+  int blk, nblk;         // int8: positions a scale block, blocks a batch row
   int F, S, O, K;
-  int c_blocks;  // ceil(C / 64): 64-channel slabs of K a tap
+  int c_blocks;  // 64-channel (int8: 128-channel) slabs of K a tap
   int s_tiles;   // ceil(S / 128)
   int o_tiles;   // O / BN
   int tiles;     // B * s_tiles * F * o_tiles
@@ -509,9 +341,10 @@ __device__ __forceinline__ ConvTile conv_tile(const ConvArgs& a, int t, int bn) 
 }
 
 // The producer thread: for each of the block's tiles, each valid tap and
-// each 64-channel slab of C, one ring stage: the A slab (128 positions of
-// the source frame) and the tap's B slab (BN output channels).
-template <int BN>
+// each slab of C (64 bf16 or 128 int8 channels: 128 bytes), one ring stage:
+// the A slab (128 positions of the source frame) and the tap's B slab (BN
+// output channels).
+template <int BN, bool INT8>
 __device__ __forceinline__ void conv_produce(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
                                              const ConvArgs& a, uint32_t ring, uint32_t bars) {
   constexpr int STAGE = stage_bytes<BN>();
@@ -525,20 +358,21 @@ __device__ __forceinline__ void conv_produce(const CUtensorMap* tm_x, const CUte
         if (g >= a.stages) mbar_wait(bars + 8 * (MAX_STAGES + s), ((g / a.stages) - 1) & 1);
         const uint32_t full = bars + 8 * s, sa = ring + s * STAGE;
         mbar_expect_tx(full, STAGE);
-        tma_load_4d(sa, tm_x, full, kb * SLAB, ct.s0, ct.f + j - pad, ct.b);
-        tma_load_2d(sa + A_BYTES, tm_w, full, kb * SLAB, j * a.O + ct.n0);
+        const int c0 = kb * (INT8 ? INT8_SLAB : SLAB);
+        tma_load_4d(sa, tm_x, full, c0, ct.s0, ct.f + j - pad, ct.b);
+        tma_load_2d(sa + A_BYTES, tm_w, full, c0, j * a.O + ct.n0);
       }
   }
 }
 
-// Shared memory: the ring, two staging boxes (one a consumer warpgroup:
-// BN / 64 swizzled slabs of 64 rows), the ring's barriers and one residual
-// barrier a consumer warpgroup.
-template <int BN>
-__global__ void __launch_bounds__(THREADS, 1) tconv_gemm_kernel(
-    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
-    const __grid_constant__ CUtensorMap tm_y, const __grid_constant__ CUtensorMap tm_res,
-    const ConvArgs a) {
+// The implicit GEMM's body. Shared memory: the ring, two staging boxes (one
+// a consumer warpgroup: BN / 64 swizzled slabs of 64 rows), the ring's
+// barriers and one residual barrier a consumer warpgroup. INT8: s8 products
+// into s32, dequantised in the epilogue.
+template <int BN, bool INT8>
+__device__ __forceinline__ void conv_gemm(const CUtensorMap* tm_x, const CUtensorMap* tm_w,
+                                          const CUtensorMap* tm_y, const CUtensorMap* tm_res,
+                                          const ConvArgs& a) {
   constexpr int STAGE = stage_bytes<BN>();
   constexpr int SLABS = BN / SLAB;
   constexpr int BOX = STAGING_ROWS * ROW_BYTES;  // one 64-column slab of 64 rows
@@ -555,14 +389,14 @@ __global__ void __launch_bounds__(THREADS, 1) tconv_gemm_kernel(
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) conv_produce<BN>(&tm_x, &tm_w, a, ring, bars);
+    if (threadIdx.x == 0) conv_produce<BN, INT8>(tm_x, tm_w, a, ring, bars);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
   const int c = wg - 1, tw = threadIdx.x - 128 * wg;
   const int warp = tw >> 5, lane = tw & 31, g8 = lane >> 2, tig = lane & 3;
   const uint32_t box = staging + c * SLABS * BOX, res_bar = bars + 16 * MAX_STAGES + 8 * c;
-  float acc[BN / 2];
+  typename std::conditional<INT8, int, float>::type acc[BN / 2];
   int g = 0;  // stages consumed by this block
   int it = 0;  // tiles of this block so far
   for (int t = blockIdx.x; t < a.tiles; t += gridDim.x, ++it) {
@@ -573,7 +407,7 @@ __global__ void __launch_bounds__(THREADS, 1) tconv_gemm_kernel(
       if (a.has_res) {  // the residual tile into the box, under the products
         mbar_expect_tx(res_bar, SLABS * BOX);
 #pragma unroll
-        for (int q = 0; q < SLABS; ++q) tma_load_4d(box + q * BOX, &tm_res, res_bar, ct.n0 + q * SLAB, r0, ct.f, ct.b);
+        for (int q = 0; q < SLABS; ++q) tma_load_4d(box + q * BOX, tm_res, res_bar, ct.n0 + q * SLAB, r0, ct.f, ct.b);
       }
     }
     coop_products<BN>(acc, ring, bars, a.stages, c * STAGING_ROWS * ROW_BYTES,
@@ -585,15 +419,35 @@ __global__ void __launch_bounds__(THREADS, 1) tconv_gemm_kernel(
 
     // epilogue: acc[4j + e] is row warp * 16 + g8 + 8 * (e / 2), column
     // 8j + 2 * tig + e % 2 of the tile: 16-byte chunk j % 8 of its row in
-    // slab j / 8 of the box
+    // slab j / 8 of the box. INT8: float(iacc) * (a_scale * w_scale) + bias,
+    // each op rounded, a_scale that of the row's position (rows past S are
+    // not stored)
     const float* bb = a.bias + (size_t)ct.b * a.O + ct.n0;
+    float a_scale[2] = {0.f, 0.f};
+    if constexpr (INT8) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int s = r0 + warp * 16 + g8 + 8 * h;
+        if (s < a.S) a_scale[h] = a.qs[((size_t)ct.b * a.nblk + s / a.blk) * 2];
+      }
+    }
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const float2 bv = bias2(bb + 8 * j + 2 * tig);
+      float2 ws = make_float2(0.f, 0.f);
+      if constexpr (INT8) ws = *reinterpret_cast<const float2*>(a.wsc + ct.n0 + 8 * j + 2 * tig);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const uint32_t addr = box + (j / 8) * BOX + swizzled(warp * 16 + g8 + 8 * h, j % 8) + tig * 4;
-        float v0 = acc[4 * j + 2 * h] + bv.x, v1 = acc[4 * j + 2 * h + 1] + bv.y;
+        float v0, v1;
+        if constexpr (INT8) {
+          v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), __fmul_rn(a_scale[h], ws.x)), bv.x);
+          v1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), __fmul_rn(a_scale[h], ws.y)),
+                         bv.y);
+        } else {
+          v0 = acc[4 * j + 2 * h] + bv.x;
+          v1 = acc[4 * j + 2 * h + 1] + bv.y;
+        }
         if (a.has_res) {
           uint32_t rv;
           asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(rv) : "r"(addr));
@@ -608,7 +462,7 @@ __global__ void __launch_bounds__(THREADS, 1) tconv_gemm_kernel(
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c));
     if (tw == 0) {  // positions past S are not written
 #pragma unroll
-      for (int q = 0; q < SLABS; ++q) tma_store_4d(&tm_y, box + q * BOX, ct.n0 + q * SLAB, r0, ct.f, ct.b);
+      for (int q = 0; q < SLABS; ++q) tma_store_4d(tm_y, box + q * BOX, ct.n0 + q * SLAB, r0, ct.f, ct.b);
       tma_store_commit();
     }
     if (a.part1 != nullptr) {
@@ -639,27 +493,43 @@ __global__ void __launch_bounds__(THREADS, 1) tconv_gemm_kernel(
   if (tw == 0) tma_store_wait<0>();
 }
 
-// the float kernel's shared bytes: ring, staging boxes, barriers
+// the float GEMM, on the activated input (or x)
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1) tconv_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+    const __grid_constant__ CUtensorMap tm_y, const __grid_constant__ CUtensorMap tm_res,
+    const ConvArgs a) {
+  conv_gemm<BN, false>(&tm_x, &tm_w, &tm_y, &tm_res, a);
+}
+
+// the int8 GEMM, on the quantised input and taps
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1) tconv_int8_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+    const __grid_constant__ CUtensorMap tm_y, const __grid_constant__ CUtensorMap tm_res,
+    const ConvArgs a) {
+  conv_gemm<BN, true>(&tm_x, &tm_w, &tm_y, &tm_res, a);
+}
+
+// the GEMM's shared bytes: ring, staging boxes, barriers
 int conv_smem(int bn, int stages) {
   return ring_smem(stages, (BM + bn) * ROW_BYTES, 2 * bn * STAGING_ROWS * 2 + 16);
 }
 
-template <int BN>
+template <int BN, bool INT8>
 cudaError_t launch_conv(const CUtensorMap& mx, const CUtensorMap& mw, const CUtensorMap& my,
                         const CUtensorMap& mr, const ConvArgs& a, int grid, cudaStream_t st) {
+  const auto kernel = INT8 ? tconv_int8_gemm_kernel<BN> : tconv_gemm_kernel<BN>;
   const int smem = conv_smem(BN, a.stages);
-  cudaError_t err = set_smem((const void*)tconv_gemm_kernel<BN>, smem);
+  cudaError_t err = set_smem((const void*)kernel, smem);
   if (err != cudaSuccess) return err;
-  tconv_gemm_kernel<BN><<<grid < a.tiles ? grid : a.tiles, THREADS, smem, st>>>(mx, mw, my, mr, a);
+  kernel<<<grid < a.tiles ? grid : a.tiles, THREADS, smem, st>>>(mx, mw, my, mr, a);
   return cudaGetLastError();
 }
 
 
-// partial rows of the statistics per batch row: one per (frame, 64
-// positions) for the float kernel, one per (frame, 128 positions) for the
-// int8 kernel
-long long float_partial_rows(int F, int S) { return (long long)F * 2 * ((S + BM - 1) / BM); }
-long long int8_partial_rows(int F, int S) { return (long long)F * ((S + I8_ROWS - 1) / I8_ROWS); }
+// partial rows of the statistics per batch row: one per (frame, 64 positions)
+long long partial_rows(int F, int S) { return (long long)F * 2 * ((S + BM - 1) / BM); }
 
 // The statistics from (B, p, O) partials part1 and part1 + B*p*O in the
 // workspace ws: summed RED_ROWS rows per block until one row is left, the
@@ -699,12 +569,45 @@ bool bad_shape(int B, int F, int S, int C, int O, int K, int chunk, void* ws, vo
          (ws != nullptr && (s1 == nullptr || s2 == nullptr));
 }
 
+bool bad_plan(int O, int bn, int stages, int grid) {
+  return (bn != 128 && bn != 256) || O % bn || stages < 2 || stages > CONV_STAGES_MAX || grid < 1 ||
+         conv_smem(bn, stages) > SMEM_LIMIT;
+}
+
+// The implicit GEMM over the A operand a_src (B, F, S, C): bf16, or int8
+// dequantised by qs (per block of blk positions, nblk a batch row) and wsc
+// (per output channel); then the statistics.
+template <bool INT8>
+int run_gemm(const void* a_src, const void* wt, const void* bias, const void* res, void* y,
+             void* ws, void* s1, void* s2, int B, int F, int S, int C, int O, int K, int bn,
+             int stages, int grid, const float* qs, const float* wsc, int blk, int nblk,
+             cudaStream_t st) {
+  const int eb = INT8 ? 1 : 2;
+  CUtensorMap m_x, m_w, m_y, m_r;
+  if (!make_map_4d(&m_x, a_src, C, S, F, B, BM, eb) || !make_map_2d(&m_w, wt, C, K * O, bn, eb) ||
+      !make_map_4d(&m_y, y, O, S, F, B, STAGING_ROWS) ||
+      !make_map_4d(&m_r, res != nullptr ? res : y, O, S, F, B, STAGING_ROWS))
+    return (int)cudaErrorNotSupported;
+  const long long p = partial_rows(F, S), n_part = (long long)B * p * O;
+  float* part1 = static_cast<float*>(ws);
+  const int s_tiles = (S + BM - 1) / BM, slab = INT8 ? INT8_SLAB : SLAB;
+  const long long tiles = (long long)B * s_tiles * F * (O / bn);
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const ConvArgs a{static_cast<const float*>(bias), part1, part1 ? part1 + n_part : nullptr,
+                   qs, wsc, blk, nblk, F, S, O, K, (C + slab - 1) / slab, s_tiles, O / bn,
+                   (int)tiles, stages, res != nullptr};
+  const cudaError_t err = bn == 256 ? launch_conv<256, INT8>(m_x, m_w, m_y, m_r, a, grid, st)
+                                    : launch_conv<128, INT8>(m_x, m_w, m_y, m_r, a, grid, st);
+  if (err != cudaSuccess || ws == nullptr) return (int)err;
+  return column_sums(part1, p, B, O, s1, s2, st);
+}
+
 }  // namespace
 
 // Floats of scratch that gn_silu_tconv_bf16 and gn_silu_tconv_int8_bf16 need
 // to emit statistics.
 extern "C" long long gn_silu_tconv_workspace_floats(int B, int F, int S, int O) {
-  const long long p = float_partial_rows(F, S);
+  const long long p = partial_rows(F, S);
   return 2LL * B * O * (p + (p + RED_ROWS - 1) / RED_ROWS);
 }
 
@@ -722,9 +625,8 @@ extern "C" int gn_silu_tconv_bf16(const void* x, const void* w, const void* u, c
                                   const void* bias, const void* res, void* y, void* act, void* ws,
                                   void* s1, void* s2, int B, int F, int S, int C, int O, int K,
                                   int silu, int bn, int stages, int grid, void* stream) {
-  if (bad_shape(B, F, S, C, O, K, BK, ws, s1, s2) || (bn != 128 && bn != 256) || O % bn ||
-      stages < 2 || stages > CONV_STAGES_MAX || grid < 1 || (silu && act == nullptr) ||
-      conv_smem(bn, stages) > SMEM_LIMIT)
+  if (bad_shape(B, F, S, C, O, K, 32, ws, s1, s2) || bad_plan(O, bn, stages, grid) ||
+      (silu && act == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const void* a_src = x;
@@ -738,55 +640,51 @@ extern "C" int gn_silu_tconv_bf16(const void* x, const void* w, const void* u, c
     if (err != cudaSuccess) return (int)err;
     a_src = act;
   }
-  CUtensorMap m_x, m_w, m_y, m_r;
-  if (!make_map_4d(&m_x, a_src, C, S, F, B, BM) || !make_map_2d(&m_w, wt, C, K * O, bn) ||
-      !make_map_4d(&m_y, y, O, S, F, B, STAGING_ROWS) ||
-      !make_map_4d(&m_r, res != nullptr ? res : y, O, S, F, B, STAGING_ROWS))
-    return (int)cudaErrorNotSupported;
-  const long long p = float_partial_rows(F, S), n_part = (long long)B * p * O;
-  float* part1 = static_cast<float*>(ws);
-  const int s_tiles = (S + BM - 1) / BM;
-  const long long tiles = (long long)B * s_tiles * F * (O / bn);
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const ConvArgs a{static_cast<const float*>(bias), part1, part1 ? part1 + n_part : nullptr,
-                   F, S, O, K, (C + SLAB - 1) / SLAB, s_tiles, O / bn, (int)tiles, stages,
-                   res != nullptr};
-  const cudaError_t err = bn == 256 ? launch_conv<256>(m_x, m_w, m_y, m_r, a, grid, st)
-                                    : launch_conv<128>(m_x, m_w, m_y, m_r, a, grid, st);
-  if (err != cudaSuccess || ws == nullptr) return (int)err;
-  return column_sums(part1, p, B, O, s1, s2, st);
+  return run_gemm<false>(a_src, wt, bias, res, y, ws, s1, s2, B, F, S, C, O, K, bn, stages, grid,
+                         nullptr, nullptr, 0, 0, st);
 }
 
-// The int8 variant: as gn_silu_tconv_bf16 without the plan and the act
-// scratch, with wq (k,O,C) int8 taps and wsc (O) fp32 their
-// per-output-channel scales; blk positions share one activation scale; qs,
-// scratch of B * ceil(S / blk) * 2 floats, receives (a_scale, 1 / a_scale)
-// per block. Requires C % 64 == 0.
+// The int8 variant: as gn_silu_tconv_bf16 with wq (k,O,C) int8 taps and wsc
+// (O) fp32 their per-output-channel scales; blk positions share one
+// activation scale. Scratch: aq (B,F,S,C) int8 for the quantised input,
+// amax of B * nblk * F * pieces floats for the partial maxima (nblk =
+// ceil(S / blk), pieces = ceil(blk / piece_rows)), qs of B * nblk * 2 floats
+// for (a_scale, 1 / a_scale) per scale block. The launch plan
+// (kernels/temporal_resblock.py::int8_launch_plan): piece_rows, and the
+// GEMM's bn, stages and grid. Four kernels in three steps (the scales, the
+// int8 input, the GEMM), then the statistics. Requires C % 64 == 0.
 extern "C" int gn_silu_tconv_int8_bf16(const void* x, const void* w, const void* u, const void* wq,
                                        const void* wsc, const void* bias, const void* res, void* y,
+                                       void* aq, void* amax, void* qs, void* ws, void* s1, void* s2,
                                        int B, int F, int S, int C, int O, int K, int silu, int blk,
-                                       void* qs, void* ws, void* s1, void* s2, void* stream) {
-  if (bad_shape(B, F, S, C, O, K, 2 * BK, ws, s1, s2) || blk < 1 || qs == nullptr)
+                                       int piece_rows, int bn, int stages, int grid, void* stream) {
+  if (bad_shape(B, F, S, C, O, K, 64, ws, s1, s2) || bad_plan(O, bn, stages, grid) || blk < 1 ||
+      piece_rows < 1 || aq == nullptr || amax == nullptr || qs == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nblk = (S + blk - 1) / blk;
-  const auto scale = silu ? act_scale_kernel<true> : act_scale_kernel<false>;
-  scale<<<dim3(nblk, B), 256, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                       static_cast<const float*>(w), static_cast<const float*>(u),
-                                       static_cast<float*>(qs), F, S, C, blk);
+  const int nblk = (S + blk - 1) / blk, pieces = (blk + piece_rows - 1) / piece_rows;
+  if ((long long)nblk * pieces > 0x7fffffffLL || B > 65535 || (long long)B * F * S > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const auto *wf = static_cast<const float*>(w), *uf = static_cast<const float*>(u);
+  float *am = static_cast<float*>(amax), *q = static_cast<float*>(qs);
+  // 1. the scales: partial maxima over the card, then one block a scale block
+  const auto absmax = silu ? act_absmax_kernel<true> : act_absmax_kernel<false>;
+  absmax<<<dim3(nblk * pieces, F, B), 256, 0, st>>>(xb, wf, uf, am, S, C, blk, piece_rows, pieces);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long p = int8_partial_rows(F, S), n_part = (long long)B * p * O;
-  float* part1 = static_cast<float*>(ws);
-  const dim3 grid((S + I8_ROWS - 1) / I8_ROWS, O / I8_COLS, B * F);
-  const auto kernel = silu ? tconv_int8_kernel<true> : tconv_int8_kernel<false>;
-  kernel<<<grid, I8_THREADS, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
-      static_cast<const float*>(u), static_cast<const int8_t*>(wq), static_cast<const float*>(bias),
-      static_cast<const __nv_bfloat16*>(res), static_cast<__nv_bfloat16*>(y), part1,
-      part1 ? part1 + n_part : nullptr, static_cast<const float*>(qs),
-      static_cast<const float*>(wsc), blk, F, S, C, O, K);
+  act_scale_kernel<<<dim3(nblk, B), 256, 0, st>>>(am, q, F * pieces);
   err = cudaGetLastError();
-  if (err != cudaSuccess || ws == nullptr) return (int)err;
-  return column_sums(part1, p, B, O, s1, s2, st);
+  if (err != cudaSuccess) return (int)err;
+  // 2. the int8 input
+  const int rows = B * F * S, per = 256 / (C / 8);
+  const long long blocks = (rows + per - 1) / per, cap = 16LL * sm_count();
+  const auto quant = silu ? act_quant_kernel<true> : act_quant_kernel<false>;
+  quant<<<(unsigned)(blocks < cap ? blocks : cap), 256, 0, st>>>(
+      static_cast<const uint4*>(x), wf, uf, q, static_cast<uint2*>(aq), rows, F, S, C, blk, nblk);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 3. the GEMM (and the statistics)
+  return run_gemm<true>(aq, wq, bias, res, y, ws, s1, s2, B, F, S, C, O, K, bn, stages, grid, q,
+                        static_cast<const float*>(wsc), blk, nblk, st);
 }

@@ -14,9 +14,13 @@
 //     TMA from a swizzled staging box; the out epilogue adds a bias, and
 //     optionally a bf16 residual after the first rounding, and stores from
 //     registers;
-//   - the staged cooperative GEMM (the VSR only-cross head's five GEMMs)
-//     adds an fp32 bias (and a residual loaded by TMA) or scales by an fp32
-//     factor, and leaves by TMA from staging boxes.
+//   - the staged cooperative GEMM (the VSR only-cross head's five GEMMs,
+//     ln_qkv's q/k/v projections) adds an fp32 bias (and a residual loaded
+//     by TMA), scales by an fp32 factor or only rounds, and leaves by TMA
+//     from staging boxes;
+//   - the cooperative consumers' products run on bf16 into fp32 or, for the
+//     int8 temporal conv, on s8 into s32 (the same 128-byte rows: 64 bf16
+//     or 128 int8 channels, one 32-byte k-step a wgmma).
 // Each kernel that instantiates them is a __global__ of its own source, so
 // that a profile tells the callers apart. The bias is bf16 (GEGLU) or fp32
 // (the transformer tail, the head), as the TPU bodies take them.
@@ -97,11 +101,23 @@ __device__ __forceinline__ int block_tiles(const GemmArgs& a) {
   return (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
 }
 
+// Output column tile ct of GROUPS groups of col_tiles / GROUPS tiles each,
+// one B map and one output map a group: (group, tile within it).
+template <int GROUPS>
+__device__ __forceinline__ int2 group_tile(int ct, int col_tiles) {
+  if constexpr (GROUPS == 1) {
+    return make_int2(0, ct);
+  } else {
+    const int per = col_tiles / GROUPS;
+    return make_int2(ct / per, ct % per);
+  }
+}
+
 // The producer thread: for each of the block's tiles and each 64-column
 // slab of K, one ring stage: the A slab (BM rows) and the B slab. GATE: B is
 // W0's 64 hidden rows of the tile's columns, then the 64 gate rows I + those
-// columns; else BN rows of W2.
-template <int BN, bool GATE>
+// columns; else BN rows of W2 (of the tile's group's map in tm_b[GROUPS]).
+template <int BN, bool GATE, int GROUPS = 1>
 __device__ __forceinline__ void produce(const CUtensorMap* tm_a, const CUtensorMap* tm_b,
                                         const GemmArgs& a, uint32_t ring, uint32_t bars) {
   constexpr int STAGE = stage_bytes<BN>();
@@ -119,7 +135,8 @@ __device__ __forceinline__ void produce(const CUtensorMap* tm_a, const CUtensorM
         tma_load_2d(sb, tm_b, full, kb * SLAB, tc.y * GATE_COLS);
         tma_load_2d(sb + GATE_COLS * ROW_BYTES, tm_b, full, kb * SLAB, a.inner + tc.y * GATE_COLS);
       } else {
-        tma_load_2d(sb, tm_b, full, kb * SLAB, tc.y * BN);
+        const int2 gt = group_tile<GROUPS>(tc.y, a.col_tiles);
+        tma_load_2d(sb, tm_b + gt.x, full, kb * SLAB, gt.y * BN);
       }
     }
   }
@@ -294,14 +311,27 @@ __device__ __forceinline__ void pingpong_gemm(const CUtensorMap* tm_a, const CUt
   if (GATE && tw == 0) tma_store_wait<0>();
 }
 
+// One wgmma of a 32-byte k-step by the accumulator's type: bf16 operands
+// into fp32 (m64nBNk16), or s8 operands into s32 (m64nBNk32).
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(float* d, uint64_t da, uint64_t db, int scale_d) {
+  Gmma<BN>::ss(d, da, db, scale_d);
+}
+template <int BN>
+__device__ __forceinline__ void wgmma_ss(int* d, uint64_t da, uint64_t db, int scale_d) {
+  GmmaS8<BN>::ss(d, da, db, scale_d);
+}
+
 // A cooperative consumer's products for one tile: k_blocks ring stages from
 // the block's g-th on, each an A slab (this warpgroup's 64 rows at a_off
 // bytes into the stage) and a B slab of BN rows after the A tile, four
-// m64nBNk16 wgmma a stage into acc. The first k-block is peeled (its first
-// product overwrites the accumulator, with no branch around the batch).
-// Returns with the products done and every stage released; g advanced.
-template <int BN>
-__device__ __forceinline__ void coop_products(float (&acc)[BN / 2], uint32_t ring, uint32_t bars,
+// wgmma a stage (one a 32-byte k-step of the 128-byte rows: m64nBNk16 on
+// bf16 into fp32 acc, m64nBNk32 on s8 into s32 acc). The first k-block is
+// peeled (its first product overwrites the accumulator, with no branch
+// around the batch). Returns with the products done and every stage
+// released; g advanced.
+template <int BN, typename Acc>
+__device__ __forceinline__ void coop_products(Acc (&acc)[BN / 2], uint32_t ring, uint32_t bars,
                                               int stages, uint32_t a_off, int k_blocks, int& g) {
   constexpr int STAGE = stage_bytes<BN>();
   auto full = [&](int s) { return bars + 8 * s; };
@@ -314,7 +344,7 @@ __device__ __forceinline__ void coop_products(float (&acc)[BN / 2], uint32_t rin
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      Gmma<BN>::ss(acc, gmma_desc(sa + kk * 32), gmma_desc(sb + kk * 32), kk > 0);
+      wgmma_ss<BN>(acc, gmma_desc(sa + kk * 32), gmma_desc(sb + kk * 32), kk > 0);
     wgmma_commit();
     fence_regs<BN / 2>(acc);
   }
@@ -328,7 +358,7 @@ __device__ __forceinline__ void coop_products(float (&acc)[BN / 2], uint32_t rin
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      Gmma<BN>::ss(acc, gmma_desc(sa + kk * 32), gmma_desc(sb + kk * 32), 1);
+      wgmma_ss<BN>(acc, gmma_desc(sa + kk * 32), gmma_desc(sb + kk * 32), 1);
     wgmma_commit();
     wgmma_wait<1>();  // the previous k-block's products are done with its stage
     fence_regs<BN / 2>(acc);
@@ -376,33 +406,39 @@ __device__ __forceinline__ void coop_gemm(const CUtensorMap* tm_act, const CUten
 // The epilogues of coop_staged_gemm: y = bf16(acc + bias); y = bf16(acc *
 // scale) with no bias (as the TPU body scales q in fp32, then rounds); y =
 // bf16(bf16(acc + bias) + res), the bf16 residual added after the first
-// rounding.
-enum StagedEpi { EPI_BIAS = 0, EPI_SCALE = 1, EPI_BIAS_RES = 2 };
+// rounding; y = bf16(acc), no bias (a zero fp32 bias would turn -0 into +0).
+enum StagedEpi { EPI_BIAS = 0, EPI_SCALE = 1, EPI_BIAS_RES = 2, EPI_NONE = 3 };
 
 constexpr int STAGED_ROWS = 64;  // a consumer warpgroup's rows of a tile
 
-// coop_staged_gemm's shared bytes after the ring: a staging box of BN / 64
-// slabs of 64 rows a consumer warpgroup, then (after the ring's barriers)
+// coop_staged_gemm's shared bytes after the ring: a staging box of 64 rows
+// by bn bf16 columns a consumer warpgroup, then (after the ring's barriers)
 // one residual barrier each
 __host__ __device__ constexpr int staged_extra(int bn) { return 2 * bn * STAGED_ROWS * 2 + 16; }
 
 // A cooperative GEMM whose output leaves by TMA: tiles of 128 rows by BN
 // columns, both consumer warpgroups on each tile (64 rows each, one
 // m64nBN accumulator), each writing its 64 x BN bf16 result into its
-// staging box (laid out as the 128-byte swizzled TMA box) and one of its
-// threads storing the box by TMA, so the tile leaves as whole 128-byte rows
-// where stores from registers write 16 bytes of a row at a time. With
-// EPI_BIAS_RES the residual tile arrives by TMA in the same box while the
-// products run and is read back from it. The bias is fp32; tm_out and
-// tm_res are 2-D maps over (ldo, rows) with boxes of 64 rows, which TMA
-// clips at a.rows. The body of a __global__ of THREADS threads.
-template <int BN, int EPI>
+// staging box and one of its threads storing the box by TMA, so the tile
+// leaves as whole rows where stores from registers write 16 bytes of a row
+// at a time. At BN a multiple of 64 the box is BN / 64 slabs laid out as
+// the 128-byte swizzled TMA box; at BN = 160 it is one dense 64 x 160 box
+// (a swizzled slab is 64 columns wide). With EPI_BIAS_RES the residual tile
+// arrives by TMA in the same box while the products run and is read back
+// from it. The bias is fp32. The output columns come in GROUPS groups of
+// col_tiles / GROUPS tiles (GROUPS outputs of one A operand, each with its
+// own B map in tm_b[] and output map in tm_out[]); tm_out and tm_res are
+// 2-D maps over (ldo, rows) with boxes of 64 rows (and, at BN = 160, of
+// 160 dense columns), which TMA clips at a.rows. The body of a __global__
+// of THREADS threads.
+template <int BN, int EPI, int GROUPS = 1>
 __device__ __forceinline__ void coop_staged_gemm(const CUtensorMap* tm_a, const CUtensorMap* tm_b,
                                                  const CUtensorMap* tm_out, const CUtensorMap* tm_res,
                                                  const GemmArgs& a) {
   constexpr int STAGE = stage_bytes<BN>();
-  constexpr int SLABS = BN / SLAB;
-  constexpr int BOX = STAGED_ROWS * ROW_BYTES;  // one slab of a warpgroup's rows
+  constexpr bool SWIZZLED = BN % SLAB == 0;
+  constexpr int SLABS = SWIZZLED ? BN / SLAB : 1;
+  constexpr int BOX = SWIZZLED ? STAGED_ROWS * ROW_BYTES : STAGED_ROWS * BN * 2;  // one store's box
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t staging = ring + a.stages * STAGE;
@@ -417,7 +453,7 @@ __device__ __forceinline__ void coop_staged_gemm(const CUtensorMap* tm_a, const 
   const int wg = threadIdx.x / 128;
   if (wg == 0) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 0) produce<BN, false>(tm_a, tm_b, a, ring, bars);
+    if (threadIdx.x == 0) produce<BN, false, GROUPS>(tm_a, tm_b, a, ring, bars);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -428,7 +464,8 @@ __device__ __forceinline__ void coop_staged_gemm(const CUtensorMap* tm_a, const 
   int g = 0;   // stages consumed by this block
   int it = 0;  // tiles of this block so far
   for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++it) {
-    const int r0 = (t / a.col_tiles) * BM + c * STAGED_ROWS, n0 = (t % a.col_tiles) * BN;
+    const int2 gt = group_tile<GROUPS>(t % a.col_tiles, a.col_tiles);
+    const int r0 = (t / a.col_tiles) * BM + c * STAGED_ROWS, n0 = gt.y * BN;
     if (tw == 0) {
       tma_store_wait_read<0>();  // the previous tile's store has read the box
       if constexpr (EPI == EPI_BIAS_RES) {
@@ -444,19 +481,26 @@ __device__ __forceinline__ void coop_staged_gemm(const CUtensorMap* tm_a, const 
       asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c));  // the box is free
 
     // acc[4j + e] is row warp * 16 + g8 + 8 * (e / 2), column 8j + 2 * tig +
-    // e % 2 of the warpgroup's rows: 16-byte chunk j % 8 of its row in slab
-    // j / 8 of the box
+    // e % 2 of the warpgroup's rows: swizzled, 16-byte chunk j % 8 of its
+    // row in slab j / 8 of the box; dense, bytes 16j + 4 * tig of its row
     const float* bb = static_cast<const float*>(a.bias) + n0;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       float2 bv = make_float2(0.f, 0.f);
-      if constexpr (EPI != EPI_SCALE) bv = bias2(bb + 8 * j + 2 * tig);
+      if constexpr (EPI == EPI_BIAS || EPI == EPI_BIAS_RES) bv = bias2(bb + 8 * j + 2 * tig);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const uint32_t addr = box + (j / 8) * BOX + swizzled(warp * 16 + g8 + 8 * h, j % 8) + tig * 4;
+        const int row = warp * 16 + g8 + 8 * h;
+        const uint32_t addr = SWIZZLED ? box + (j / 8) * BOX + swizzled(row, j % 8) + tig * 4
+                                       : box + row * (BN * 2) + j * 16 + tig * 4;
         const float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
-        __nv_bfloat162 v = EPI == EPI_SCALE ? __floats2bfloat162_rn(x0 * a.scale, x1 * a.scale)
-                                            : __floats2bfloat162_rn(x0 + bv.x, x1 + bv.y);
+        __nv_bfloat162 v;
+        if constexpr (EPI == EPI_SCALE)
+          v = __floats2bfloat162_rn(x0 * a.scale, x1 * a.scale);
+        else if constexpr (EPI == EPI_NONE)
+          v = __floats2bfloat162_rn(x0, x1);
+        else
+          v = __floats2bfloat162_rn(x0 + bv.x, x1 + bv.y);
         if constexpr (EPI == EPI_BIAS_RES) {
           uint32_t rv;
           asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(rv) : "r"(addr));
@@ -469,7 +513,7 @@ __device__ __forceinline__ void coop_staged_gemm(const CUtensorMap* tm_a, const 
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + c));
     if (tw == 0) {  // rows past a.rows are not written
 #pragma unroll
-      for (int q = 0; q < SLABS; ++q) tma_store_2d(tm_out, box + q * BOX, n0 + q * SLAB, r0);
+      for (int q = 0; q < SLABS; ++q) tma_store_2d(tm_out + gt.x, box + q * BOX, n0 + q * SLAB, r0);
       tma_store_commit();
     }
   }

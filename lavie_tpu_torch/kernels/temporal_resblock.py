@@ -30,7 +30,12 @@ frames, C and the block's rows, so that the k taps accumulate in int32;
 q = clip(round_half_even(act · (1 / a_scale)), ±127). The taps are
 quantised per output channel over (k, C) (quantize_taps). y = iacc ·
 (a_scale · w_scale) + bias (+ residual) in fp32. `block` defaults to the
-JAX package's own choice, _pick_block(..., "int8").
+JAX package's own choice, _pick_block(..., "int8"); any block works, since
+the kernel looks each position's scale up. Its kernels: a partial max|act|
+pass spread over the card and one block a scale block that writes the
+scales, a pass that stores the int8 input into a scratch the wrapper
+allocates, then the float kernel's implicit GEMM on s8 wgmma (128-channel
+slabs of C), under a plan from `int8_launch_plan`.
 
 The taps are (k, O, C): W[j] is tap j's (O, C) matrix, nn.Linear layout.
 
@@ -47,6 +52,8 @@ The taps are (k, O, C): W[j] is tap j's (O, C) matrix, nn.Linear layout.
                            width, ring depth, tiles, grid and shared bytes,
                            computed here so that the CPU tests can hold it
                            against the card's limits
+  int8_launch_plan         the int8 kernels' plan: the scale pass's pieces
+                           and the GEMM's plan
   valid_taps               the taps an output frame sums, as the kernel
                            bounds them
 """
@@ -96,6 +103,7 @@ def _pick_block(s: int, frames: int, cin: int, cout: int, ktaps: int, with_res: 
 SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
 TILE_ROWS = 128  # positions of an output tile
 SLAB = 64  # channels a ring stage: one 128-byte swizzled box row
+INT8_SLAB = 128  # int8 channels a ring stage: the same 128-byte row
 SLAB_BYTES = 128
 WIDTHS = (256, 128)  # output channels of a tile, widest first
 MAX_STAGES = 8  # the kernel's barrier slots
@@ -131,8 +139,14 @@ def launch_plan(b: int, f: int, s: int, c: int, o: int, k: int, sm_count: int) -
     128; as many ring stages (up to six) as fit beside the staging boxes;
     a persistent grid no larger than the tiles. Raises for what the kernel
     cannot take."""
-    if (min(b, f, s, sm_count) < 1 or c < 32 or c % 32 or c > 1024 or o < 128 or o % 128
-            or k < 1 or k % 2 == 0 or k > 7):
+    return _gemm_plan(b, f, s, c, o, k, sm_count, SLAB)
+
+
+def _gemm_plan(b: int, f: int, s: int, c: int, o: int, k: int, sm_count: int,
+               slab: int) -> LaunchPlan:
+    """launch_plan over `slab` channels a ring stage (64 bf16 or 128 int8)."""
+    if (min(b, f, s, sm_count) < 1 or c < slab // 2 or c % (slab // 2) or c > 1024 or o < 128
+            or o % 128 or k < 1 or k % 2 == 0 or k > 7):
         raise ValueError(f"gn_silu_tconv kernel: B={b}, F={f}, S={s}, C={c}, O={o}, k={k}")
     width = next(w for w in WIDTHS if o % w == 0)
     stage = (TILE_ROWS + width) * SLAB_BYTES
@@ -142,9 +156,47 @@ def launch_plan(b: int, f: int, s: int, c: int, o: int, k: int, sm_count: int) -
     tiles = b * s_tiles * f * (o // width)
     if tiles >= 2**31:
         raise ValueError(f"gn_silu_tconv kernel: {tiles} tiles")
-    return LaunchPlan(width=width, c_blocks=-(-c // SLAB), stages=stages, s_tiles=s_tiles,
+    return LaunchPlan(width=width, c_blocks=-(-c // slab), stages=stages, s_tiles=s_tiles,
                       o_tiles=o // width, tiles=tiles, grid=min(sm_count, tiles),
                       staging_bytes=staging, smem_bytes=RESERVED + stages * stage + staging)
+
+
+PIECE_ROWS = (256, 128, 64, 32, 16, 8)  # positions a piece of the scale pass, widest first
+
+
+@dataclass(frozen=True)
+class Int8Plan:
+    """How csrc/temporal_resblock.cu's int8 variant runs one call: the scale
+    pass takes max|act| over pieces of `piece_rows` positions of one frame
+    inside one of the `scale_blocks` blocks of `block` positions
+    (`pieces` a block, `scale_grid` blocks in all), then one block a scale
+    block writes the scales; the quantised input goes through the GEMM of
+    `gemm` (the float plan over 128-channel slabs)."""
+    block: int
+    scale_blocks: int
+    piece_rows: int
+    pieces: int
+    scale_grid: int
+    gemm: LaunchPlan
+
+
+@functools.lru_cache(maxsize=256)
+def int8_launch_plan(b: int, f: int, s: int, c: int, o: int, k: int, block: int,
+                     sm_count: int) -> Int8Plan:
+    """The int8 variant's plan for x (B, F, S, C), taps (k, O, C) and scale
+    blocks of `block` positions on a card of `sm_count` SMs: the widest
+    piece that still gives the scale pass two blocks an SM, else the
+    narrowest; the GEMM as the float kernel's over 128-channel slabs.
+    Raises for what the kernels cannot take (C not a multiple of 64, as
+    launch_plan otherwise)."""
+    gemm = _gemm_plan(b, f, s, c, o, k, sm_count, INT8_SLAB)
+    if block < 1:
+        raise ValueError(f"gn_silu_tconv int8 kernel: scale block {block}")
+    nblk = -(-s // block)
+    grid = lambda rows: b * f * nblk * -(-block // rows)  # noqa: E731
+    rows = next((r for r in PIECE_ROWS if grid(r) >= 2 * sm_count), PIECE_ROWS[-1])
+    return Int8Plan(block=block, scale_blocks=nblk, piece_rows=rows, pieces=-(-block // rows),
+                    scale_grid=grid(rows), gemm=gemm)
 
 
 def valid_taps(frame: int, frames: int, k: int) -> range:
@@ -285,17 +337,22 @@ def gn_silu_tconv(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.
     stream = torch.cuda.current_stream(x.device).cuda_stream
     head = (x.data_ptr(), ptr(w) if silu else None, ptr(u) if silu else None)
     dims = (b, f, s, c, o, k, int(silu))
+    sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
     if int8:
-        blk = _scale_block(block, x, o, k, residual is not None)
+        plan8 = int8_launch_plan(b, f, s, c, o, k, _scale_block(block, x, o, k, residual is not None),
+                                 sms)
+        plan = plan8.gemm
         wq, w_scale = quantize_taps(weight)
-        scales = torch.empty((b, -(-s // blk), 2), device=x.device, dtype=torch.float32)
-        fn = lib.gn_silu_tconv_int8_bf16
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
+        # the quantised input, the scale pass's partial maxima and the scales
+        aq = torch.empty(x.shape, device=x.device, dtype=torch.int8)
+        amax = torch.empty(plan8.scale_grid, device=x.device, dtype=torch.float32)
+        scales = torch.empty((b, plan8.scale_blocks, 2), device=x.device, dtype=torch.float32)
+        fn = _build.function("temporal_resblock", "gn_silu_tconv_int8_bf16", 14, 12, 0)
         err = fn(*head, wq.data_ptr(), w_scale.data_ptr(), bias.data_ptr(), ptr(residual),
-                 out.data_ptr(), *dims, blk, scales.data_ptr(), ptr(ws), ptr(s1), ptr(s2), stream)
+                 out.data_ptr(), aq.data_ptr(), amax.data_ptr(), scales.data_ptr(), ptr(ws),
+                 ptr(s1), ptr(s2), *dims, plan8.block, plan8.piece_rows, plan.width, plan.stages,
+                 plan.grid, stream)
     else:
-        sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
         plan = launch_plan(b, f, s, c, o, k, sms)
         act = torch.empty_like(x) if silu else None
         fn = _build.function("temporal_resblock", "gn_silu_tconv_bf16", 11, 10, 0)
