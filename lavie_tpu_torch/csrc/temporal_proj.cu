@@ -26,21 +26,36 @@
 // GFLOP, 0.051 ms at 989 TFLOP/s; out_proj_residual moves 3*N*C*2 = 157 MB,
 // 0.047 ms, against 17 GFLOP.
 //
-// What the design does about it: each block owns 64 tokens and reads them
-// once into a (64, C) bf16 tile in shared memory (165 KB at C = 1280);
-// ln_qkv normalises it in place, then the three projections run as one
-// product of 3E output columns in passes of 128 or 256, whose weights
-// stream through a double-buffered cp.async ring (mma.sync m16n8k16, fp32
-// accumulators in registers; a pass that straddles two of the weights picks
-// each column's row), and each pass is rounded and stored straight from the
-// registers. out_proj_residual is the same product over the output tile
+// What the design does about it. ln_qkv, two launches from one call on
+// the pieces the VSR only-cross head runs on (csrc/cross_head.cu):
+//   ln_qkv_ln_kernel<C>: csrc/mma_tiles.cuh's LayerNorm pass (the head's
+//     and the tail's, with the plain version's roundings) writes xn (N, C)
+//     bf16 into a scratch that the wrapper allocates (2*N*C*2 more bytes,
+//     0.10 GB at base L0);
+//   ln_qkv_gemm_kernel<BN>: csrc/wgmma_gemm.cuh's staged cooperative GEMM
+//     (persistent, warp-specialised, a TMA ring of xn and weight slabs,
+//     wgmma) over the 3E output columns of the three projections, tiles
+//     walked (row tile, projection, column tile), each projection's weight
+//     and output through its own TMA map (the weights are not concatenated),
+//     y = bf16(acc) with no bias (EPI_NONE), each tile stored by TMA from a
+//     staging box (swizzled slabs at BN = 128 or 256, one dense box at BN =
+//     160, the width that divides E = 320 and 640). The weights stay in L2
+//     across the tiles; every 128-row tile reads them once from there.
+// out_proj_residual: each block owns 64 tokens and reads them once into a
+// (64, E) bf16 tile in shared memory (165 KB at E = 1280); the product
+// runs in passes of 128 or 256 output columns whose weights stream through
+// a double-buffered cp.async ring (mma.sync m16n8k16, fp32 accumulators in
+// registers), each pass rounded and stored straight from the registers,
 // with its epilogue. The weights are read once per block from L2, the cost
-// of this simple design (wgmma and TMA multicast across a cluster would
-// share them).
+// of this simple design (the staged GEMM with EPI_BIAS_RES would share
+// them).
 
 #include "mma_tiles.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
+
+namespace wg = wgemm;
 
 using namespace tiles;
 constexpr int ROWS = 64;
@@ -65,34 +80,28 @@ __device__ __forceinline__ void load_tile(bf16* T, const bf16* src, int r0, int 
   __syncthreads();
 }
 
+// xn = LayerNorm(x): csrc/mma_tiles.cuh's LayerNorm pass, the head's and
+// the tail's too.
 template <int C>
-__global__ void __launch_bounds__(THREADS, 1) ln_qkv_kernel(
-    const bf16* __restrict__ x, const float* __restrict__ gamma, const float* __restrict__ beta,
-    const bf16* __restrict__ wq, const bf16* __restrict__ wk, const bf16* __restrict__ wv,
-    bf16* __restrict__ q, bf16* __restrict__ k, bf16* __restrict__ v, int N, int E, float eps) {
-  constexpr int LD = Proj<C>::LD, NC = Proj<C>::NC;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* XN = reinterpret_cast<bf16*>(smem);
-  bf16* ring = XN + ROWS * LD;
-  const int r0 = blockIdx.x * ROWS, cols = 3 * E;
-  load_tile<C>(XN, x, r0, N);
-  layer_norm<ROWS, C>(XN, XN, LD, gamma, beta, eps);
-  const bf16* const w[3] = {wq, wk, wv};
-  bf16* const o[3] = {q, k, v};
-  for (int n0 = 0; n0 < cols; n0 += NC) {
-    float acc[ROWS / 16][NC / 64][4];
-    zero<ROWS, NC>(acc);
-    gemm<ROWS, NC, C>(acc, XN, LD, [&](int c) {
-      const int j = min(n0 + c, cols - 1), which = j / E;
-      return w[which] + (size_t)(j - which * E) * C;
-    }, ring);
-    each_pair<ROWS, NC>(acc, [&](int r, int c, float v0, float v1) {
-      const int j = n0 + c, which = j / E;  // E even: a pair never straddles two outputs
-      if (j >= cols || r0 + r >= N) return;
-      *reinterpret_cast<__nv_bfloat162*>(o[which] + (size_t)(r0 + r) * E + j - which * E) =
-          __floats2bfloat162_rn(v0, v1);
-    });
-  }
+__global__ void __launch_bounds__(THREADS) ln_qkv_ln_kernel(const bf16* __restrict__ x,
+                                                           const float* __restrict__ gamma,
+                                                           const float* __restrict__ beta,
+                                                           bf16* __restrict__ xn, int N, float eps) {
+  layer_norm_pass<C>(x, gamma, beta, xn, nullptr, N, eps);
+}
+
+// The three projections' maps: xn (boxes of 128 rows), Wq, Wk, Wv (boxes of
+// BN rows) and q, k, v (boxes of 64 rows).
+struct QkvMaps {
+  CUtensorMap a, w[3], out[3];
+};
+
+// q, k, v = bf16(xn W^T) for W = Wq, Wk, Wv: the staged cooperative GEMM
+// over 3 groups of E / BN column tiles, no bias.
+template <int BN>
+__global__ void __launch_bounds__(wg::THREADS, 1) ln_qkv_gemm_kernel(const __grid_constant__ QkvMaps m,
+                                                                    const wg::GemmArgs a) {
+  wg::coop_staged_gemm<BN, wg::EPI_NONE, 3>(&m.a, m.w, m.out, m.out, a);
 }
 
 template <int E>
@@ -120,17 +129,26 @@ __global__ void __launch_bounds__(THREADS, 1) out_proj_kernel(
   }
 }
 
-template <int C>
-cudaError_t launch_ln_qkv(const void* x, const void* g, const void* b, const void* wq,
-                          const void* wk, const void* wv, void* q, void* k, void* v, int N, int E,
-                          float eps, cudaStream_t st) {
-  cudaError_t err = prepare(ln_qkv_kernel<C>, Proj<C>::SMEM);
-  if (err != cudaSuccess) return err;
-  ln_qkv_kernel<C><<<(N + ROWS - 1) / ROWS, THREADS, Proj<C>::SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(g), static_cast<const float*>(b),
-      static_cast<const bf16*>(wq), static_cast<const bf16*>(wk), static_cast<const bf16*>(wv),
-      static_cast<bf16*>(q), static_cast<bf16*>(k), static_cast<bf16*>(v), N, E, eps);
+cudaError_t launch_ln(const void* x, const void* g, const void* b, bf16* xn, int N, int C,
+                      float eps, cudaStream_t st) {
+  const int grid = (N + LN_ROWS - 1) / LN_ROWS;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float *gf = static_cast<const float*>(g), *bf = static_cast<const float*>(b);
+  switch (C) {
+    case 320: ln_qkv_ln_kernel<320><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 512: ln_qkv_ln_kernel<512><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 640: ln_qkv_ln_kernel<640><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 1024: ln_qkv_ln_kernel<1024><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 1280: ln_qkv_ln_kernel<1280><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
+}
+
+template <int BN>
+cudaError_t launch_qkv_gemm(const QkvMaps& m, const wg::GemmArgs& a, int grid, cudaStream_t st) {
+  const int smem = wg::ring_smem(a.stages, (wg::BM + BN) * wg::ROW_BYTES, wg::staged_extra(BN));
+  return wg::launch_gemm(ln_qkv_gemm_kernel<BN>, smem, a, grid, st, m);
 }
 
 template <int E>
@@ -147,20 +165,41 @@ cudaError_t launch_out_proj(const void* o, const void* r, const void* wo, const 
 }  // namespace
 
 // x (N, C) bf16; g, b (C) fp32; wq, wk, wv (E, C) bf16; q, k, v (N, E)
-// bf16. C in {320, 512, 640, 1024, 1280}, E even and >= 2, N >= 1.
-// Returns cudaGetLastError().
+// bf16; xn (N, C) bf16 scratch for the normalised x. C in {320, 512, 640,
+// 1024, 1280}, N >= 1. The launch plan (kernels/temporal_proj.py::
+// ln_qkv_launch_plan): the GEMM's tile width bn (128, 160 or 256, dividing
+// E), ring stages and at most `grid` persistent blocks. All contiguous and
+// 16-byte aligned. Two launches; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or plan the kernels cannot take.
 extern "C" int ln_qkv_bf16(const void* x, const void* g, const void* b, const void* wq,
-                           const void* wk, const void* wv, void* q, void* k, void* v, int N,
-                           int C, int E, float eps, void* stream) {
-  if (N < 1 || E < 2 || E % 2) return (int)cudaErrorInvalidValue;
+                           const void* wk, const void* wv, void* q, void* k, void* v, void* xn,
+                           int N, int C, int E, int bn, int stages, int grid, float eps,
+                           void* stream) {
+  const long long tiles = (long long)(N + wg::BM - 1) / wg::BM * 3 * (E / (bn > 0 ? bn : 1));
+  if (N < 1 || (bn != 128 && bn != 160 && bn != 256) || E < bn || E % bn || stages < 2 ||
+      stages > wg::MAX_STAGES || grid < 1 || tiles > 0x7fffffffLL ||
+      wg::ring_smem(stages, (wg::BM + bn) * wg::ROW_BYTES, wg::staged_extra(bn)) > wg::SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 320: return (int)launch_ln_qkv<320>(x, g, b, wq, wk, wv, q, k, v, N, E, eps, st);
-    case 512: return (int)launch_ln_qkv<512>(x, g, b, wq, wk, wv, q, k, v, N, E, eps, st);
-    case 640: return (int)launch_ln_qkv<640>(x, g, b, wq, wk, wv, q, k, v, N, E, eps, st);
-    case 1024: return (int)launch_ln_qkv<1024>(x, g, b, wq, wk, wv, q, k, v, N, E, eps, st);
-    case 1280: return (int)launch_ln_qkv<1280>(x, g, b, wq, wk, wv, q, k, v, N, E, eps, st);
-    default: return (int)cudaErrorInvalidValue;
+  bf16* xnb = static_cast<bf16*>(xn);
+  cudaError_t err = launch_ln(x, g, b, xnb, N, C, eps, st);
+  if (err != cudaSuccess) return (int)err;
+  QkvMaps m;
+  const void* w[3] = {wq, wk, wv};
+  void* o[3] = {q, k, v};
+  if (!wg::make_map_2d(&m.a, xnb, C, N, wg::BM)) return (int)cudaErrorNotSupported;
+  for (int i = 0; i < 3; ++i) {
+    const bool ok = wg::make_map_2d(&m.w[i], w[i], C, E, bn) &&
+                    (bn % wg::SLAB == 0 ? wg::make_map_2d(&m.out[i], o[i], E, N, wg::STAGED_ROWS)
+                                        : wg::make_map_2d_dense(&m.out[i], o[i], E, N, bn,
+                                                                wg::STAGED_ROWS));
+    if (!ok) return (int)cudaErrorNotSupported;
+  }
+  const wg::GemmArgs a{nullptr, nullptr, N, E, C / wg::SLAB, 3 * (E / bn), stages, 0, nullptr, 0.f};
+  switch (bn) {
+    case 128: return (int)launch_qkv_gemm<128>(m, a, grid, st);
+    case 160: return (int)launch_qkv_gemm<160>(m, a, grid, st);
+    default: return (int)launch_qkv_gemm<256>(m, a, grid, st);
   }
 }
 
