@@ -7,12 +7,12 @@ its result line:
                 started together; registers and spills of every kernel, read
                 from ptxas's report (kept beside each library, so a cached
                 build is checked too); a kernel the report does not cover, a
-                spill outside the kernel instances in SPILLS_KNOWN, or
-                ptxas's C7514 (wgmma serialised) fails the phase; so does a
-                flash, geglu, cross-attention, head GEMM or attention,
-                transformer-tail GEMM or float temporal-conv GEMM instance
-                whose SASS lacks an op of SASS_REQUIRED (wgmma or mma, and TMA
-                loads; multicast TMA loads in the d=512 flash kernel)
+                spill, or ptxas's C7514 (wgmma serialised) fails the phase;
+                so does a flash, geglu, cross-attention, head GEMM or
+                attention, transformer-tail GEMM, temporal-conv GEMM (float
+                or int8) or ln_qkv GEMM instance whose SASS lacks an op of
+                SASS_REQUIRED (wgmma or mma, and TMA loads; multicast TMA
+                loads in the d=512 flash kernel)
   3. kernels    each kernel at every base-path and TSR-path shape against its
                 plain PyTorch version in bf16 (tolerance relative to
                 max|plain|), timed with CUDA events beside the plain version
@@ -58,14 +58,17 @@ its result line:
                 LAVIE_TRESBLOCK_STATS unset and set, one base UNet forward
                 with LAVIE_TEMPORAL_KERNEL unset and set: device ms of each,
                 outputs compared
- 16. cross_kernels  the text cross-attention at the base levels and VSR L3:
+ 16. cross_kernels  the text cross-attention at the base levels, TSR L0
+                and VSR L3:
                 cross_attention (timed beside SDPA) and
                 fused_ln_cross_attention (timed beside the LayerNorm,
                 cuBLAS and SDPA path it replaces), each against its plain
                 version
- 17. temporal_proj_kernels  ln_qkv and out_proj_residual at the base levels
-                and TSR L0, each against its plain version, timed beside the
-                eager LayerNorm and cuBLAS projections they replace
+ 17. temporal_proj_kernels  ln_qkv and out_proj_residual at the base, TSR
+                and VSR levels with temporal attention, each against its
+                plain version, timed beside the eager LayerNorm and cuBLAS
+                projections they replace; ln_qkv's device ms by kernel
+                (torch.profiler)
  18. ab_attn2, ab_temporal_proj  one base UNet forward with LAVIE_ATTN2
                 unset, "cross" and "fused", and with LAVIE_TEMPORAL_PROJ unset
                 and set: device ms, launches of each route, outputs compared
@@ -73,7 +76,8 @@ its result line:
                 every VSR shape where the JAX package's gate admits it (k=5,
                 and k=3 + residual; F=8 and the 5-frame tail, the tail with
                 emit_stats on conv1) against its plain version, timed beside
-                the float kernel and its bound; int8_conv2d at the base L0,
+                the float kernel and its bound, with its device ms by kernel
+                (torch.profiler); int8_conv2d at the base L0,
                 VSR L0 and one f4-VAE full-resolution frame, its int32
                 product checked exactly on bands of rows, timed beside
                 cuDNN's bf16 conv (a yardstick only)
@@ -220,7 +224,24 @@ PREV_MS = {
     ("cross_attention_head", 1, 327680, 512, 8, 77): 8.327,
     ("cross_attention_head", 1, 81920, 512, 8, 77): 2.194,
     ("flash_attention", 8, 163840, 512): 2631.6,
+    # ln_qkv (mma.sync, all 3·E·C weights streamed through a cp.async ring
+    # per 64-token block, stored from registers) before its redesign to a
+    # LayerNorm pass and a staged wgmma GEMM fed by TMA
+    ("ln_qkv", "base", 2, 16, 2560, 320, 320): 0.856, ("ln_qkv", "base", 2, 16, 640, 640, 640): 0.672,
+    ("ln_qkv", "base", 2, 16, 160, 1280, 1280): 0.777, ("ln_qkv", "base", 2, 16, 40, 1280, 1280): 0.762,
+    ("ln_qkv", "TSR L0", 2, 61, 2560, 320, 320): 2.874,
 }
+# the int8 GN·SiLU·temporal conv (mma.sync, its input activated and quantised
+# on the fly per tap and output tile) before its redesign to s8 wgmma fed by
+# TMA, at each turbo site (S, C): F=8 k=5, F=8 k=3 + residual, F=5 k=5 with
+# statistics; the scale block is the JAX package's choice there
+PREV_MS.update({
+    ("gn_silu_tconv (int8)", 1, f, s, c, c, k, res, stats, 512 if c == 256 else 256): ms
+    for (s, c), times in {(163840, 512): (26.688, 18.334, 15.434), (163840, 256): (7.506, 5.385, 4.376),
+                          (40960, 512): (7.204, 5.037, 4.217), (40960, 256): (2.340, 1.845, 1.430),
+                          (10240, 512): (2.348, 1.777, 1.430), (2560, 512): (1.128, 0.971, 0.728)}.items()
+    for (f, k, res, stats), ms in zip(((8, 5, False, False), (8, 3, True, False), (5, 5, False, True)),
+                                      times)})
 
 
 def prev_ms(kernel: str, shape: dict):
@@ -264,10 +285,6 @@ def phase_device() -> str:
     return line
 
 
-# (source, kernel instance name substring) of the kernels whose ptxas report
-# shows spills today (their redesign is on the ROADMAP); a spill in any
-# other kernel fails the build phase
-SPILLS_KNOWN = {("temporal_resblock", "tconv_int8_kernelILb1E")}  # the int8 kernel with SiLU, 8 B
 # kernels that must run their products on wgmma fed by TMA: (source, kernel
 # name substring, SASS opcode prefixes each instance must hold)
 SASS_REQUIRED = (("flash_attention", "flash_kernel", ("HGMMA.64", "UTMALDG.4D")),
@@ -278,7 +295,9 @@ SASS_REQUIRED = (("flash_attention", "flash_kernel", ("HGMMA.64", "UTMALDG.4D"))
                  ("cross_head", "head_gemm_kernel", ("HGMMA", "UTMALDG.2D", "UTMASTG.2D")),
                  ("cross_head", "head_attn_kernel", ("HGMMA", "UTMALDG.4D")),
                  ("transformer_tail", "tail_gemm_", ("HGMMA", "UTMALDG")),
-                 ("temporal_resblock", "tconv_gemm_kernel", ("HGMMA", "UTMALDG")))
+                 ("temporal_resblock", "tconv_gemm_kernel", ("HGMMA", "UTMALDG")),
+                 ("temporal_resblock", "tconv_int8_gemm_kernel", ("IGMMA", "UTMALDG.4D")),
+                 ("temporal_proj", "ln_qkv_gemm_kernel", ("HGMMA", "UTMALDG")))
 
 
 def sass_summary(path, kernel: str, prefixes) -> dict:
@@ -324,7 +343,7 @@ def phase_build() -> None:
             f"{sum(st + ld for _, _, st, ld in report)}")
         for fn, r, st, ld in report:
             log(f"[build]   {fn}: {r} registers, spill stores {st} B, loads {ld} B")
-            if (st or ld) and not any(src == name and sub in fn for src, sub in SPILLS_KNOWN):
+            if st or ld:
                 raise AssertionError(f"{fn} spills: {st} B stored, {ld} B loaded")
         if "C7514" in text:  # ptxas serialised a wgmma batch
             raise AssertionError(f"{name}: ptxas warns that wgmma is serialised (C7514)")
@@ -537,7 +556,9 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("temporal_attention", ("temporal_attention_kernel",)),
     ("geglu", ("geglu_pingpong_kernel<", "geglu_coop_kernel<")),
     ("cross_attention (attn2=cross)", ("cross_kernel<", "cross_long_kernel<")),
-    ("gn_silu_tconv", ("tconv_", "colsum_kernel", "act_scale_kernel")),
+    ("gn_silu_tconv", ("tconv_", "colsum_kernel", "act_absmax_kernel", "act_scale_kernel",
+                       "act_quant_kernel")),
+    ("temporal_proj", ("ln_qkv_", "out_proj_kernel<")),
     ("cross_attention_head", ("head_ln_kernel<", "head_gemm_kernel<", "head_attn_kernel")),
     ("transformer_tail", ("tail_gemm_", "tail_ln_kernel<")),
     ("flash d=512", ("flash_d512_kernel",)),
@@ -557,10 +578,37 @@ def device_kernels(prof):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
         # "Command Buffer Full" is the profiler's record of a stalled launch
-        # queue, not device work: counting it put the busy share above 1
-        if us <= 0 or e.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "Command Buffer Full")):
+        # queue, not device work: counting it put the busy share above 1;
+        # "Activity Buffer Request" is the tracer's own
+        if us <= 0 or e.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "Command Buffer Full",
+                                        "Activity Buffer Request")):
             continue
         yield e, us
+
+
+def kernel_ms(fn, calls: int = 3):
+    """Device ms of one call of fn by CUDA kernel (torch.profiler, the mean
+    over `calls` calls), the kernels' names cut to their own (the template
+    arguments dropped); "not measured" where the profiler recorded no
+    kernel in three tries (a CPU and CUDA trace once came back without
+    kernels for every row of a phase)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e, us in device_kernels(prof):
+            key = e.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = key.split("(")[0].split("<")[0].split("::")[-1] or e.key[:40]
+            out[name] = out.get(name, 0.0) + us / 1e3 / calls
+        if out:
+            return out
+    return "not measured"
 
 
 def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w: int = 64,
@@ -1069,7 +1117,8 @@ def phase_ab(phase: str, cfg, frames: int, switch: str, routes: dict, tol: float
 
 def phase_cross_kernels() -> dict:
     """The text cross-attention at every base level (B=2, the 16 frames
-    folded into the queries) and at VSR L3 (one CFG half of one window),
+    folded into the queries), at TSR L0 (B=2, 61 frames) and at VSR L3 (one
+    CFG half of one window),
     77 text keys: cross_attention (LAVIE_ATTN2=cross) against its plain
     version and SDPA on tensors transposed beforehand (and the kernel
     launched under a plan computed once, launch_ms); then
@@ -1082,7 +1131,9 @@ def phase_cross_kernels() -> dict:
     g = torch.Generator(device="cuda").manual_seed(31)
     bf = lambda *shape, sd=1.0: (sd * torch.randn(*shape, generator=g, device="cuda")).bfloat16()  # noqa: E731
     f32 = lambda *shape, sd=0.1, m=0.0: m + sd * torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
-    levels = [("base", 2, 16 * s, d) for s, d in ATTENTION_LEVELS] + [("VSR L3", 1, VSR_FRAMES * 2560, 128)]
+    levels = ([("base", 2, 16 * s, d) for s, d in ATTENTION_LEVELS]
+              + [("TSR L0", 2, TSR_FRAMES * ATTENTION_LEVELS[0][0], ATTENTION_LEVELS[0][1]),
+                 ("VSR L3", 1, VSR_FRAMES * 2560, 128)])
     rows = {"cross_attention": [], "fused_ln_cross_attention": []}
     h, lkv = 8, 77
     for where, b, n, d in levels:
@@ -1126,21 +1177,24 @@ def phase_cross_kernels() -> dict:
 
 
 def phase_temporal_proj_kernels() -> dict:
-    """The temporal attention's boundaries at every base level (B=2, F=16)
-    and at TSR L0 (B=2, F=61), E = C: ln_qkv (LAVIE_TEMPORAL_PROJ=1) against
+    """The temporal attention's boundaries at every base level (B=2, F=16),
+    every TSR level (B=2, F=61) and every VSR level with temporal attention
+    (B=1, one CFG half, F=8), E = C: ln_qkv (LAVIE_TEMPORAL_PROJ=1) against
     its plain version, timed beside the default path's LayerNorm and three
-    projections (eager and cuBLAS); out_proj_residual against its plain
-    version, timed beside F.linear and the residual add."""
+    projections (eager and cuBLAS), its bound given with and without the
+    LayerNorm's xn round trip through device memory; out_proj_residual
+    against its plain version, timed beside F.linear and the residual add."""
     from lavie_tpu_torch.kernels import temporal_proj as tp
 
     g = torch.Generator(device="cuda").manual_seed(32)
     bf = lambda *shape, sd=1.0: (sd * torch.randn(*shape, generator=g, device="cuda")).bfloat16()  # noqa: E731
     f32 = lambda *shape, sd=0.1, m=0.0: m + sd * torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
-    levels = [("base", 16, s, c) for (s, _), c in zip(ATTENTION_LEVELS, GEGLU_WIDTHS)]
-    levels.append(("TSR L0", TSR_FRAMES, ATTENTION_LEVELS[0][0], GEGLU_WIDTHS[0]))
+    levels = [("base", 2, 16, s, c) for (s, _), c in zip(ATTENTION_LEVELS, GEGLU_WIDTHS)]
+    levels += [(f"TSR L{i}", 2, TSR_FRAMES, s, c)
+               for i, ((s, _), c) in enumerate(zip(ATTENTION_LEVELS, GEGLU_WIDTHS))]
+    levels += [(f"VSR L{i + 1}", 1, VSR_FRAMES, s, c) for i, (s, c) in enumerate(VSR_LEVELS[1:])]
     rows = {"ln_qkv": [], "out_proj_residual": []}
-    for where, f, s, c in levels:
-        b = 2
+    for where, b, f, s, c in levels:
         n = b * f * s
         x, o = bf(b, f, s, c), bf(b, f, s, c)
         gamma, beta, bo = f32(c, m=1.0), f32(c), f32(c)
@@ -1153,7 +1207,10 @@ def phase_temporal_proj_kernels() -> dict:
             PROJ_TOL, lambda: tp.ln_qkv(*args), lambda: tp.ln_qkv_reference(*args), None,
             (n * c + 3 * n * c + 3 * c * c) * 2 + 2 * c * 4, ((6 * n * c * c, BF16_FLOPS),),
             eager_ms=time_ms(lambda: [F.linear(xn, w) for xn in (F.layer_norm(x, (c,), gb, bb),)
-                                      for w in (wq, wk, wv)])))
+                                      for w in (wq, wk, wv)]),
+            bound_with_xn_ms=bound((3 * n * c + 3 * n * c + 3 * c * c) * 2 + 2 * c * 4,
+                                   ((6 * n * c * c, BF16_FLOPS),))[0],
+            kernels_ms=kernel_ms(lambda: tp.ln_qkv(*args))))
         oargs = (o, x, wo, bo)
         rows["out_proj_residual"].append(check_row(
             "out_proj_residual", {**shape, "O": c}, tp.out_proj_residual(*oargs),
@@ -1228,7 +1285,8 @@ def phase_turbo_kernels() -> dict:
                     got, want, TCONV_TOL, lambda: tr.gn_silu_tconv(*args, **kw),
                     lambda: tr.gn_silu_tconv_reference(*args, **kw), None, n_bytes,
                     ((2 * _valid_taps(f, k) * s * c * c, INT8_OPS),), plain_iters=1, iters=10,
-                    float_ms=time_ms(lambda: tr.gn_silu_tconv(*args, emit_stats=stats), 10)))
+                    float_ms=time_ms(lambda: tr.gn_silu_tconv(*args, emit_stats=stats), 10),
+                    kernels_ms=kernel_ms(lambda: tr.gn_silu_tconv(*args, **kw))))
                 del x, args, got, want
     torch.cuda.empty_cache()
 

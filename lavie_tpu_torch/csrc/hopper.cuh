@@ -392,21 +392,6 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over one (rows, S, H*d) tensor as (d, H, S, rows), whose boxes
-// are one head's 64-column slab of box_rows positions, 128-byte swizzled;
-// the columns past d are zero-filled, so every k-step past d adds zero.
-inline bool make_map(CUtensorMap* map, const void* ptr, int d, int H, int S, int rows, int box_rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t C = (cuuint64_t)H * d;
-  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)rows};
-  cuuint64_t strides[3] = {(cuuint64_t)d * 2, C * 2, (cuuint64_t)S * C * 2};
-  cuuint32_t box[4] = {SLAB, 1, (cuuint32_t)box_rows, 1}, elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // cuTensorMapEncodeTiled over a contiguous tensor of `rank` dims (dims[0]
 // innermost) of bf16 (elem_bytes 2) or 8-bit (elem_bytes 1, moved as
 // uint8: TMA's zero fill is then int8 0) elements, boxes of `box`, 128-byte
@@ -457,6 +442,15 @@ inline bool make_map_4d(CUtensorMap* map, const void* ptr, int d0, int d1, int d
   cuuint64_t dims[4] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2, (cuuint64_t)d3};
   cuuint32_t box[4] = {(cuuint32_t)(ROW_BYTES / elem_bytes), (cuuint32_t)box_rows, 1, 1};
   return encode_map(map, ptr, 4, dims, box, elem_bytes, true);
+}
+
+// A 4-D map over one (rows, S, H*d) tensor as (d, H, S, rows), whose boxes
+// are one head's 64-column slab of box_rows positions, 128-byte swizzled;
+// the columns past d are zero-filled, so every k-step past d adds zero.
+inline bool make_map(CUtensorMap* map, const void* ptr, int d, int H, int S, int rows, int box_rows) {
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)rows};
+  cuuint32_t box[4] = {SLAB, 1, (cuuint32_t)box_rows, 1};
+  return encode_map(map, ptr, 4, dims, box, 2, true);
 }
 
 // Launch kernel(args) on a grid of `grid` blocks in clusters of `cluster`

@@ -192,6 +192,18 @@ __device__ __forceinline__ RowThread row_thread(int C) {
   return RowThread{(int)threadIdx.x - r0 * c8s, r0 < per ? r0 : 0, r0 < per ? per : 0};
 }
 
+// the max of m over the block's 256 threads, in thread 0
+__device__ __forceinline__ float block_max(float m) {
+  __shared__ float red[8];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < 8; ++w) m = fmaxf(m, red[w]);
+  return m;
+}
+
 // amax[((b * nblk + i) * F + f) * pieces + p] = max |act| over positions
 // i * blk + p * piece_rows .. (at most piece_rows, inside block i and S) of
 // frame f and all C channels, act as bf16 (0 for an empty piece). Grid
@@ -200,7 +212,6 @@ template <bool SILU>
 __global__ void __launch_bounds__(256) act_absmax_kernel(
     const __nv_bfloat16* __restrict__ x, const float* __restrict__ wn, const float* __restrict__ un,
     float* __restrict__ amax, int S, int C, int blk, int piece_rows, int pieces) {
-  __shared__ float red[8];
   const int i = blockIdx.x / pieces, p = blockIdx.x - i * pieces, f = blockIdx.y, b = blockIdx.z;
   const int lo = i * blk + p * piece_rows, hi = min(min(lo + piece_rows, (i + 1) * blk), S);
   const RowThread rt = row_thread(C);
@@ -221,31 +232,21 @@ __global__ void __launch_bounds__(256) act_absmax_kernel(
       }
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w8 = 1; w8 < 8; ++w8) m = fmaxf(m, red[w8]);
+  m = block_max(m);
+  if (threadIdx.x == 0)
     amax[blockIdx.z * (size_t)gridDim.x * gridDim.y + (size_t)i * gridDim.y * pieces + f * pieces + p] = m;
-  }
 }
 
 // qs[b, i] = (a_scale, 1 / a_scale) of scale block i of batch row b, from
 // the `parts` = F * pieces partial maxima of act_absmax_kernel. Grid (nblk, B).
 __global__ void __launch_bounds__(256) act_scale_kernel(const float* __restrict__ amax,
                                                         float* __restrict__ qs, int parts) {
-  __shared__ float red[8];
   const size_t blk_id = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
   const float* src = amax + blk_id * parts;
   float m = 0.f;
   for (int e = threadIdx.x; e < parts; e += blockDim.x) m = fmaxf(m, src[e]);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
-  __syncthreads();
+  m = block_max(m);
   if (threadIdx.x == 0) {
-    for (int w = 1; w < 8; ++w) m = fmaxf(m, red[w]);
     const float a_scale = fmaxf(m, 1e-12f) / 127.f;
     qs[blk_id * 2] = a_scale;
     qs[blk_id * 2 + 1] = 1.f / a_scale;
