@@ -7,15 +7,18 @@
 The first form imports chip_smoke.py and lavie_tpu_torch from the checkout
 at ROOT, builds that checkout's kernels there and prints one JSON line for
 TAG: the SASS op counts (all ops, HGMMA, UTMALDG) of each instance of
-GEGLU's GEMMs, of the transformer tail's LayerNorm pass and GEMMs and of the
-d <= 160 flash body, and the ms per call (CUDA events, chip_smoke.time_ms)
+GEGLU's GEMMs, of the transformer tail's LayerNorm pass and GEMMs, of the
+d <= 160 flash body, of the temporal projections' kernels and of the fused
+attn2's, and the ms per call (CUDA events, chip_smoke.time_ms)
 of GEGLU at the base L0, TSR L0 and the two VSR shapes, of
 cross_attention_head and transformer_tail at VSR L1 and L2, of the d <= 160
 flash body as rows 4 (VSR L3), 5 (TSR L0 over the materialised kv) and 6
 (the four TSR levels), of the f4 VAE's d=512 flash attention over one
 8-frame window (one timed call), of gn_silu_tconv at the eight VSR shapes
 (one CFG half of an 8-frame window), of its int8 variant at three VSR
-shapes and of ln_qkv at the four base levels and the three VSR levels, and
+shapes, of ln_qkv at the four base levels and the three VSR levels, of
+out_proj_residual at the base L0, TSR L0 and VSR L1 levels and of
+fused_ln_cross_attention at the base L0, TSR L0 and VSR L3 levels, and
 the device ms of a full-width VSR UNet half-forward in bf16 and in int8
 turbo (chip_smoke's ab_turbo_vsr). The
 inputs come from fixed seeds, so every checkout sees the same ones; the
@@ -49,6 +52,10 @@ TSR_LEVELS = [(2560, 40), (640, 80), (160, 160), (40, 160)]
 # (B, F, S, C) of ln_qkv: the base levels, then the VSR levels (one CFG half)
 PROJ_SHAPES = [(2, 16, 2560, 320), (2, 16, 640, 640), (2, 16, 160, 1280), (2, 16, 40, 1280),
                (1, 8, 40960, 512), (1, 8, 10240, 512), (1, 8, 2560, 1024)]
+# (B, F, S, C) of out_proj_residual: base L0, TSR L0, VSR L1 (one CFG half)
+OUT_PROJ_SHAPES = [(2, 16, 2560, 320), (2, 61, 2560, 320), (1, 8, 40960, 512)]
+# (B, N, C, head dim) of the fused attn2: base L0, TSR L0, VSR L3 (one CFG half)
+FUSED_SHAPES = [(2, 16 * 2560, 320, 40), (2, 61 * 2560, 320, 40), (1, 8 * 2560, 1024, 128)]
 SUMS_TOL = 1e-4
 
 
@@ -67,11 +74,14 @@ def run(root: str, tag: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     row = {"tag": tag, "root": root, "device": torch.cuda.get_device_name(0)}
-    _build.build(["geglu", "temporal_resblock", "transformer_tail", "flash_attention", "temporal_proj"])
+    _build.build(["geglu", "temporal_resblock", "transformer_tail", "flash_attention", "temporal_proj",
+                  "cross_block"])
     # keyed by the kernel's own name (the mangled prefix holds a hash of the source file)
     for lib, subs in (("geglu", ("geglu_pingpong_kernel", "geglu_coop_kernel")),
                       ("transformer_tail", ("tail_gemm_", "tail_ln_kernel")),
-                      ("flash_attention", ("flash_kernel",))):
+                      ("flash_attention", ("flash_kernel",)),
+                      ("temporal_proj", ("ln_qkv_", "out_proj_")),
+                      ("cross_block", ("single_kernel", "fused_"))):
         sass = {}
         for name, ops in _build.sass_op_counts(_build.library_path(lib)).items():
             if any(sub in name for sub in subs):
@@ -117,6 +127,19 @@ def run(root: str, tag: str) -> None:
         args = (bf(b, f, s, c), f32(c, m=1.0), f32(c), *(bf(c, c, sd=c ** -0.5) for _ in range(3)))
         row["ln_qkv_ms"][f"B={b} F={f} S={s} C={c}"] = cs.time_ms(lambda: tp.ln_qkv(*args))
         del args
+    row["out_proj_ms"] = {}
+    for b, f, s, c in OUT_PROJ_SHAPES:
+        args = (bf(b, f, s, c), bf(b, f, s, c), bf(c, c, sd=c ** -0.5), f32(c))
+        row["out_proj_ms"][f"B={b} F={f} S={s} C={c}"] = cs.time_ms(lambda: tp.out_proj_residual(*args))
+        del args
+    row["fused_attn2_ms"] = {}
+    for b, n, c, d in FUSED_SHAPES:
+        p = (f32(c, m=1.0), f32(c), bf(c, c, sd=c ** -0.5), bf(c, c, sd=c ** -0.5), f32(c),
+             bf(b, 77, c), bf(b, 77, c))
+        args = (bf(b, n, c), p, c // d, d ** -0.5)
+        row["fused_attn2_ms"][f"B={b} N={n} C={c}"] = cs.time_ms(
+            lambda: cb.fused_ln_cross_attention(*args))
+        del p, args
     q, k, v = (bf(8, VSR_LEVELS[0][0], 1, 512) for _ in range(3))
     row["flash_d512_ms"] = cs.time_ms(lambda: fa.flash_attention(q, k, v, 512 ** -0.5), 1, 1)
     del q, k, v

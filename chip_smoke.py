@@ -10,9 +10,11 @@ its result line:
                 spill, or ptxas's C7514 (wgmma serialised) fails the phase;
                 so does a flash, geglu, cross-attention, head GEMM or
                 attention, transformer-tail GEMM, temporal-conv GEMM (float
-                or int8) or ln_qkv GEMM instance whose SASS lacks an op of
+                or int8), ln_qkv or out-projection GEMM, or fused attn2
+                GEMM or attention instance whose SASS lacks an op of
                 SASS_REQUIRED (wgmma or mma, and TMA loads; multicast TMA
-                loads in the d=512 flash kernel)
+                loads in the d=512 flash kernel; TMA stores where the
+                staged GEMM stores its tiles)
   3. kernels    each kernel at every base-path and TSR-path shape against its
                 plain PyTorch version in bf16 (tolerance relative to
                 max|plain|), timed with CUDA events beside the plain version
@@ -62,12 +64,13 @@ its result line:
                 and VSR L3:
                 cross_attention (timed beside SDPA) and
                 fused_ln_cross_attention (timed beside the LayerNorm,
-                cuBLAS and SDPA path it replaces), each against its plain
-                version
+                cuBLAS and SDPA path it replaces, and under a plan computed
+                once; its device ms by kernel; its bound also with the xn,
+                q and o round trips), each against its plain version
  17. temporal_proj_kernels  ln_qkv and out_proj_residual at the base, TSR
                 and VSR levels with temporal attention, each against its
                 plain version, timed beside the eager LayerNorm and cuBLAS
-                projections they replace; ln_qkv's device ms by kernel
+                projections they replace; the device ms by kernel of both
                 (torch.profiler)
  18. ab_attn2, ab_temporal_proj  one base UNet forward with LAVIE_ATTN2
                 unset, "cross" and "fused", and with LAVIE_TEMPORAL_PROJ unset
@@ -230,7 +233,25 @@ PREV_MS = {
     ("ln_qkv", "base", 2, 16, 2560, 320, 320): 0.856, ("ln_qkv", "base", 2, 16, 640, 640, 640): 0.672,
     ("ln_qkv", "base", 2, 16, 160, 1280, 1280): 0.777, ("ln_qkv", "base", 2, 16, 40, 1280, 1280): 0.762,
     ("ln_qkv", "TSR L0", 2, 61, 2560, 320, 320): 2.874,
+    # the fused attn2 (both projections on mma.sync, weights streamed per
+    # 32-64 tokens through a cp.async ring, K padded and V transposed a
+    # call) and out_proj_residual (mma.sync, weights streamed per 64 tokens,
+    # stored from registers) before their redesign to the staged wgmma GEMM,
+    # the LayerNorm pass and the TMA-fed cross attention body
+    ("fused_ln_cross_attention", "base", 2, 40960, 320, 8, 77): 0.825,
+    ("fused_ln_cross_attention", "base", 2, 10240, 640, 8, 77): 0.596,
+    ("fused_ln_cross_attention", "base", 2, 2560, 1280, 8, 77): 0.738,
+    ("fused_ln_cross_attention", "base", 2, 640, 1280, 8, 77): 0.354,
+    ("fused_ln_cross_attention", "TSR L0", 2, 156160, 320, 8, 77): 2.617,
+    ("fused_ln_cross_attention", "VSR L3", 1, 20480, 1024, 8, 77): 1.292,
 }
+PREV_MS.update({("out_proj_residual", where, b, f, s, c, c, c): ms for (where, b, f, s, c), ms in {
+    ("base", 2, 16, 2560, 320): 0.656, ("base", 2, 16, 640, 640): 0.236,
+    ("base", 2, 16, 160, 1280): 0.240, ("base", 2, 16, 40, 1280): 0.223,
+    ("TSR L0", 2, 61, 2560, 320): 2.407, ("TSR L1", 2, 61, 640, 640): 0.624,
+    ("TSR L2", 2, 61, 160, 1280): 0.734, ("TSR L3", 2, 61, 40, 1280): 0.236,
+    ("VSR L1", 1, 8, 40960, 512): 1.343, ("VSR L2", 1, 8, 10240, 512): 0.370,
+    ("VSR L3", 1, 8, 2560, 1024): 0.475}.items()})
 # the int8 GN·SiLU·temporal conv (mma.sync, its input activated and quantised
 # on the fly per tap and output tile) before its redesign to s8 wgmma fed by
 # TMA, at each turbo site (S, C): F=8 k=5, F=8 k=3 + residual, F=5 k=5 with
@@ -297,7 +318,10 @@ SASS_REQUIRED = (("flash_attention", "flash_kernel", ("HGMMA.64", "UTMALDG.4D"))
                  ("transformer_tail", "tail_gemm_", ("HGMMA", "UTMALDG")),
                  ("temporal_resblock", "tconv_gemm_kernel", ("HGMMA", "UTMALDG")),
                  ("temporal_resblock", "tconv_int8_gemm_kernel", ("IGMMA", "UTMALDG.4D")),
-                 ("temporal_proj", "ln_qkv_gemm_kernel", ("HGMMA", "UTMALDG")))
+                 ("temporal_proj", "ln_qkv_gemm_kernel", ("HGMMA", "UTMALDG")),
+                 ("temporal_proj", "out_proj_gemm_kernel", ("HGMMA", "UTMALDG.2D", "UTMASTG.2D")),
+                 ("cross_block", "fused_gemm_kernel", ("HGMMA", "UTMALDG.2D", "UTMASTG.2D")),
+                 ("cross_block", "fused_attn_kernel", ("HGMMA", "UTMALDG.4D", "UTMASTG.4D")))
 
 
 def sass_summary(path, kernel: str, prefixes) -> dict:
@@ -558,7 +582,9 @@ KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
     ("cross_attention (attn2=cross)", ("cross_kernel<", "cross_long_kernel<")),
     ("gn_silu_tconv", ("tconv_", "colsum_kernel", "act_absmax_kernel", "act_scale_kernel",
                        "act_quant_kernel")),
-    ("temporal_proj", ("ln_qkv_", "out_proj_kernel<")),
+    ("temporal_proj", ("ln_qkv_", "out_proj_gemm_kernel<")),
+    ("fused_ln_cross_attention (attn2=fused)", ("fused_ln_kernel<", "fused_gemm_kernel<",
+                                                "fused_attn_kernel<")),
     ("cross_attention_head", ("head_ln_kernel<", "head_gemm_kernel<", "head_attn_kernel")),
     ("transformer_tail", ("tail_gemm_", "tail_ln_kernel<")),
     ("flash d=512", ("flash_d512_kernel",)),
@@ -1124,7 +1150,9 @@ def phase_cross_kernels() -> dict:
     launched under a plan computed once, launch_ms); then
     fused_ln_cross_attention (LAVIE_ATTN2=fused) against its plain version,
     timed beside the default path it replaces (LayerNorm, q projection, SDPA,
-    out-projection, residual: eager, cuBLAS and SDPA)."""
+    out-projection, residual: eager, cuBLAS and SDPA) and under a plan
+    computed once (launch_ms), with its device ms by kernel and its bound
+    also counting the xn, q and o round trips through device memory."""
     from lavie_tpu_torch.kernels import cross_attention as ca
     from lavie_tpu_torch.kernels import cross_block as cb
 
@@ -1136,6 +1164,7 @@ def phase_cross_kernels() -> dict:
                  ("VSR L3", 1, VSR_FRAMES * 2560, 128)])
     rows = {"cross_attention": [], "fused_ln_cross_attention": []}
     h, lkv = 8, 77
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for where, b, n, d in levels:
         c, scale = h * d, d ** -0.5
         q, k, v = bf(b, n, h, d), bf(b, lkv, h, d), bf(b, lkv, h, d)
@@ -1143,7 +1172,7 @@ def phase_cross_kernels() -> dict:
         args = (q, k, v, scale)
         # the kernel alone, its plan computed once: the wrapper's checks and
         # plan lookup cost host time a call, which the small levels expose
-        plan = ca.launch_plan(b, n, h, d, lkv, torch.cuda.get_device_properties(0).multi_processor_count)
+        plan = ca.launch_plan(b, n, h, d, lkv, sms)
         rows["cross_attention"].append(check_row(
             "cross_attention", {"where": where, "B": b, "S": n, "H": h, "d": d, "L": lkv},
             ca.cross_attention(*args), ca.cross_attention_reference(*args), ATTN_TOL,
@@ -1164,13 +1193,18 @@ def phase_cross_kernels() -> dict:
             o = F.scaled_dot_product_attention(qq, kt, vt, scale=scale)
             return F.linear(o.transpose(1, 2).reshape(b, n, c), wo, bo) + x
 
+        fplan = cb.fused_launch_plan(b, n, c, d, lkv, sms)
+        n_bytes = (2 * b * n * c + 2 * c * c + 2 * b * lkv * c) * 2 + 3 * c * 4
+        ops = ((4 * b * n * c * c + 4 * b * n * lkv * c, BF16_FLOPS),)
         rows["fused_ln_cross_attention"].append(check_row(
             "fused_ln_cross_attention", {"where": where, "B": b, "N": n, "C": c, "heads": h, "L": lkv},
             cb.fused_ln_cross_attention(*fargs), cb.fused_ln_cross_attention_reference(*fargs),
             CROSS_TOL, lambda: cb.fused_ln_cross_attention(*fargs),
-            lambda: cb.fused_ln_cross_attention_reference(*fargs), None,
-            (2 * b * n * c + 2 * c * c + 2 * b * lkv * c) * 2 + 3 * c * 4,
-            ((4 * b * n * c * c + 4 * b * n * lkv * c, BF16_FLOPS),), unfused_ms=time_ms(unfused)))
+            lambda: cb.fused_ln_cross_attention_reference(*fargs), None, n_bytes, ops,
+            unfused_ms=time_ms(unfused),
+            launch_ms=time_ms(lambda: cb._launch_fused(x, p, scale, 1e-5, fplan)),
+            bound_with_round_trips_ms=bound(n_bytes + 6 * b * n * c * 2, ops)[0],
+            kernels_ms=kernel_ms(lambda: cb.fused_ln_cross_attention(*fargs))))
         del x, p, fargs, k, v, kt, vt
     torch.cuda.empty_cache()
     return rows
@@ -1183,7 +1217,8 @@ def phase_temporal_proj_kernels() -> dict:
     its plain version, timed beside the default path's LayerNorm and three
     projections (eager and cuBLAS), its bound given with and without the
     LayerNorm's xn round trip through device memory; out_proj_residual
-    against its plain version, timed beside F.linear and the residual add."""
+    against its plain version, timed beside F.linear and the residual add,
+    with its device ms by kernel."""
     from lavie_tpu_torch.kernels import temporal_proj as tp
 
     g = torch.Generator(device="cuda").manual_seed(32)
@@ -1216,7 +1251,8 @@ def phase_temporal_proj_kernels() -> dict:
             "out_proj_residual", {**shape, "O": c}, tp.out_proj_residual(*oargs),
             tp.out_proj_residual_reference(*oargs), PROJ_TOL, lambda: tp.out_proj_residual(*oargs),
             lambda: tp.out_proj_residual_reference(*oargs), None, 3 * n * c * 2 + c * c * 2 + c * 4,
-            ((2 * n * c * c, BF16_FLOPS),), eager_ms=time_ms(lambda: F.linear(o, wo, bob) + x)))
+            ((2 * n * c * c, BF16_FLOPS),), eager_ms=time_ms(lambda: F.linear(o, wo, bob) + x),
+            kernels_ms=kernel_ms(lambda: tp.out_proj_residual(*oargs))))
         del x, o, args, oargs
     torch.cuda.empty_cache()
     return rows
@@ -1646,7 +1682,10 @@ def main() -> int:
               ab=ab_attn2_launches["cross"]),
         entry("fused_ln_cross_attention", "lavie_tpu_torch/csrc/cross_block.cu",
               "lavie_tpu/kernels/cross_block.py:293", cross_rows["fused_ln_cross_attention"][0],
-              note="opt-in (LAVIE_ATTN2=fused): launched on the cascade path and in ab_attn2",
+              note="entry fused_ln_cross_attention_bf16: fused_ln_kernel (the LayerNorm pass), "
+                   "fused_gemm_kernel (staged wgmma GEMM, EPI_SCALE), fused_attn_kernel "
+                   "(csrc/cross_attn.cuh's body), fused_gemm_kernel (EPI_BIAS_RES); opt-in "
+                   "(LAVIE_ATTN2=fused): launched on the cascade path and in ab_attn2",
               ab=ab_attn2_launches["fused"]),
         entry("ln_qkv", "lavie_tpu_torch/csrc/temporal_proj.cu", "lavie_tpu/kernels/temporal_proj.py:69",
               proj_rows["ln_qkv"][0],
@@ -1654,7 +1693,9 @@ def main() -> int:
               ab=ab_proj_launches["1"]),
         entry("out_proj_residual", "lavie_tpu_torch/csrc/temporal_proj.cu",
               "lavie_tpu/kernels/temporal_proj.py:141", proj_rows["out_proj_residual"][0],
-              note="opt-in (LAVIE_TEMPORAL_PROJ=1): launched on the cascade path and in ab_temporal_proj",
+              note="entry out_proj_residual_bf16: out_proj_gemm_kernel (staged wgmma GEMM, "
+                   "EPI_BIAS_RES, the residual loaded by TMA); opt-in (LAVIE_TEMPORAL_PROJ=1): "
+                   "launched on the cascade path and in ab_temporal_proj",
               ab=ab_proj_launches["1"]),
     ]}))
     log(f"[chip_smoke] {time.time() - t_start:.1f} s")

@@ -1,14 +1,18 @@
 // The text cross-attention (attn2) of every non-only-cross transformer
-// block as one fused pass (opt-in, LAVIE_ATTN2=fused):
-//   single: y = x + Attn(LN(x); k, v) Wo^T + bo     (8 heads x 40/80/128/160)
-// Weights bf16 in nn.Linear (out, in) layout; biases and LayerNorm
-// parameters fp32. Arithmetic as the TPU kernel: LayerNorm statistics in
-// fp32 with the elementwise steps rounded to bf16 one by one (mul.rn and
-// add.rn, so that no compiler fuses gamma's product and beta's sum into one
-// fma), products accumulated in fp32, q scaled in fp32 then rounded, fp32
-// softmax whose probabilities are rounded to bf16 before P.V, the residual
-// added in bf16. (The VSR only-cross head, which this source held before,
-// is csrc/cross_head.cu.)
+// block, with its LayerNorm and residual, from one call (opt-in,
+// LAVIE_ATTN2=fused):
+//   xn = LN(x)
+//   q  = bf16(xn Wq^T * scale)
+//   o  = bf16(bf16(softmax(q k^T)) v)           (8 heads x 40/80/128/160, and 64)
+//   y  = bf16(bf16(o Wo^T + bo) + x)
+// with x, y (B, N, C), N = F*S tokens a video, Wq, Wo (C, C) bf16 in
+// nn.Linear layout, bo and the LayerNorm's gamma, beta fp32, k, v (B, L, C)
+// the projected text states, one row per video, L <= 80. Arithmetic as the
+// TPU kernel: LayerNorm statistics in fp32 with the elementwise steps
+// rounded to bf16 one by one, products accumulated in fp32, q scaled in
+// fp32 then rounded, fp32 softmax whose probabilities are rounded to bf16
+// before P.V, o rounded before Wo, the bias added in fp32 before the first
+// rounding and the residual in bf16 after it.
 //
 // Replaces: lavie_tpu/kernels/cross_block.py
 //   fused_ln_cross_attention (_single_3d, body _single_kernel) -> fused_ln_cross_attention_bf16
@@ -17,221 +21,173 @@
 // (81,920 tokens of C = 320): 4*N*C^2 + 4*N*77*C = 0.042 TFLOP, 0.042 ms at
 // 989 TFLOP/s, against 0.031 ms for reading and writing x.
 //
-// What the design does about it: every intermediate (the normalised rows,
-// q, the scores and probabilities) stays on chip. A block owns 64 tokens up
-// to C = 640 and 32 above and keeps two (ROWS, C) bf16 tiles in shared
-// memory (the normalised rows, then q, overwritten head by head with the
-// attention output); x is re-read for the residual. The two projections
-// are (ROWS, C) x (C, C) products on mma.sync m16n8k16 whose weights stream
-// through a double-buffered cp.async ring in chunks of 16 input channels;
-// each warp owns a band of output columns, in passes of 128 or 256 so the
-// fp32 accumulators stay in registers. The attention is per (16 tokens,
-// head): q fragments from shared memory, the padded (80, C) keys and the
-// transposed (C, 80) values read as fragments straight from L2 (one row per
-// video, shared by every token block of that video), all 80 scores of a row
-// in registers, exact softmax, P.V on the tensor cores. Head dims 40 to
-// 160; a head dim of 40 ends in half a k-step, whose upper q and k fragment
-// registers are zeroed. The weights are read once per block from L2, the
-// cost this simple design pays (ROADMAP: rebuild it on the pieces of
-// csrc/cross_head.cu).
+// What the design does about it: four launches back to back on the stream
+// from one call, each a __global__ of this source so that a profile tells
+// them apart from the VSR only-cross head's (csrc/cross_head.cu runs the
+// same pieces for its two layers):
+//   1. fused_ln_kernel<C>: xn = LN(x) into a scratch, csrc/mma_tiles.cuh's
+//      LayerNorm pass with its named roundings (the head's and the tail's);
+//   2. fused_gemm_kernel<BN, EPI_SCALE>: q = bf16(acc * scale), no bias,
+//      csrc/wgmma_gemm.cuh's staged cooperative GEMM (persistent,
+//      warp-specialised wgmma fed by a TMA ring of xn and weight slabs,
+//      tiles stored by TMA from staging boxes: swizzled slabs at BN = 128 or
+//      256, one dense 64 x 160 box at BN = 160);
+//   3. fused_attn_kernel<DP>: o into xn's buffer (dead by then),
+//      csrc/cross_attn.cuh's wgmma body at scale 1 (q holds the scale):
+//      persistent blocks, items heads fastest, a TMA ring of query tiles, K
+//      and V loaded once per (video, head) straight from the caller's
+//      (B, L, C) tensors, read as (B, L, H, d), the rows past L and the
+//      columns past d zero-filled by TMA (no padding or transpose on the
+//      host), the output stored by TMA; DP is d rounded up to 16; the 4-D
+//      maps over (d, H, N, B) end each video's ragged last query tile at N;
+//   4. fused_gemm_kernel<BN, EPI_BIAS_RES>: y = bf16(bf16(o Wo^T + bo) + x),
+//      x loaded by TMA into the staging box under the products.
+// The GEMMs see the B*N rows flat, and TMA clips their loads and stores
+// at the last row. The weights (3.3 MB at C = 1280) stay in L2 across each
+// GEMM's tiles. What the design pays: the xn, q and o round trips through
+// device memory, 6*B*N*C*2 bytes more than x in and out.
 
+#include "cross_attn.cuh"
 #include "mma_tiles.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace {
 
-using namespace tiles;
-constexpr int KV = 80;        // text keys, zero-padded
+using namespace wgemm;
 
-struct AttnArgs {
-  const float *gamma, *beta;
-  const bf16 *wq, *wo;
-  const float* bo;
-  const bf16 *k, *vt;  // (B, KV, C), (B, C, KV)
-};
+constexpr int HEADS = 8;
+using tiles::LN_ROWS;
 
-// ----------------------------------------------------------------------------
-// single: x + to_out(Attn(LN(x); k, v)) for the attn2 of every other block
-// ----------------------------------------------------------------------------
-
-// C in {320, 640, 1024, 1280} with head dim D = C / 8 (and 512 / 64). Two
-// (ROWS, C) bf16 tiles: the normalised rows, then q, which the attention
-// overwrites with its output head by head. 64 rows up to C = 640 and 32
-// above keep both tiles and the ring within 227 KB (189 KB at C = 1280).
+// LN(x) into xn: csrc/mma_tiles.cuh's LayerNorm pass, the head's and the
+// tail's too.
 template <int C>
-struct Single {
-  static constexpr int ROWS = C > 640 ? 32 : 64;
-  static constexpr int LD = C + 8;
-  static constexpr int NC = C % 256 ? 128 : 256;  // output columns per product pass
-  static constexpr size_t SMEM = 2 * (size_t)ROWS * LD * 2 + 2 * (size_t)NC * WLD * 2;
-};
-
-template <int C, int D>
-__global__ void __launch_bounds__(THREADS, 1) single_kernel(const bf16* __restrict__ x,
-                                                           AttnArgs p, bf16* __restrict__ out,
-                                                           int N, int L, float scale, float eps) {
-  static_assert(D % 8 == 0 && C % D == 0, "head dim a multiple of 8");
-  constexpr int ROWS = Single<C>::ROWS, LD = Single<C>::LD, NC = Single<C>::NC, H = C / D;
-  constexpr int KSTEPS = (D + 15) / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* XN = reinterpret_cast<bf16*>(smem);
-  bf16* Q = XN + ROWS * LD;
-  bf16* ring = Q + ROWS * LD;
-  const int brow = blockIdx.y, r0 = blockIdx.x * ROWS;
-  const bf16* xb = x + (size_t)brow * N * C;
-  bf16* ob = out + (size_t)brow * N * C;
-
-  for (int idx = threadIdx.x; idx < ROWS * C / 8; idx += THREADS) {
-    const int r = idx / (C / 8), c8 = idx % (C / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < N) v = *reinterpret_cast<const uint4*>(xb + (size_t)(r0 + r) * C + c8 * 8);
-    *reinterpret_cast<uint4*>(XN + r * LD + c8 * 8) = v;
-  }
-  __syncthreads();
-  layer_norm<ROWS, C>(XN, XN, LD, p.gamma, p.beta, eps);
-  for (int n0 = 0; n0 < C; n0 += NC) {  // q = bf16(LN(x) Wq^T * scale)
-    float acc[ROWS / 16][NC / 64][4];
-    zero<ROWS, NC>(acc);
-    gemm<ROWS, NC, C>(acc, XN, LD, [&](int c) { return p.wq + (size_t)min(n0 + c, C - 1) * C; },
-                      ring);
-    each_pair<ROWS, NC>(acc, [&](int r, int c, float v0, float v1) {
-      if (n0 + c < C)
-        *reinterpret_cast<__nv_bfloat162*>(Q + r * LD + n0 + c) =
-            __floats2bfloat162_rn(v0 * scale, v1 * scale);
-    });
-  }
-  __syncthreads();
-
-  // one (16 tokens, head) item per warp at a time; its output overwrites its
-  // own q. A head dim that is not a multiple of 16 (40) ends in a half k-step
-  // whose upper 8 columns belong to the next head: those q and k fragment
-  // registers are zeroed.
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, tig = lane & 3;
-  const bf16* kb = p.k + (size_t)brow * KV * C;
-  const bf16* vb = p.vt + (size_t)brow * C * KV;
-  for (int item = warp; item < (ROWS / 16) * H; item += THREADS / 32) {
-    const int rg = item % (ROWS / 16), h = item / (ROWS / 16);
-    float s[KV / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < KV / 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const bool upper = kk * 16 + 8 < D;
-      uint32_t qa[4];
-      ldsm_x4(qa, Q + (rg * 16 + (lane & 15)) * LD + h * D + kk * 16 + (lane >> 4) * 8);
-      if (!upper) qa[2] = qa[3] = 0u;
-#pragma unroll
-      for (int nt = 0; nt < KV / 8; ++nt) {
-        const bf16* kr = kb + (size_t)(nt * 8 + g) * C + h * D + kk * 16 + tig * 2;
-        mma16816(s[nt], qa, ld32(kr), upper ? ld32(kr + 8) : 0u);
-      }
-    }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int nt = 0; nt < KV / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        if (nt * 8 + tig * 2 + (e & 1) >= L) s[nt][e] = -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
-      }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
-      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-    }
-#pragma unroll
-    for (int nt = 0; nt < KV / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[nt][e] = expf(s[nt][e] - mx[e >> 1]);
-        sum[e >> 1] += s[nt][e];
-      }
-#pragma unroll
-    for (int hr = 0; hr < 2; ++hr) {
-      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 1);
-      sum[hr] += __shfl_xor_sync(0xffffffffu, sum[hr], 2);
-    }
-    float o[D / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-#pragma unroll
-    for (int j = 0; j < KV / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * j][0] / sum[0], s[2 * j][1] / sum[0]),
-          pack_bf16(s[2 * j][2] / sum[1], s[2 * j][3] / sum[1]),
-          pack_bf16(s[2 * j + 1][0] / sum[0], s[2 * j + 1][1] / sum[0]),
-          pack_bf16(s[2 * j + 1][2] / sum[1], s[2 * j + 1][3] / sum[1])};
-#pragma unroll
-      for (int nt = 0; nt < D / 8; ++nt) {
-        const bf16* vr = vb + (size_t)(h * D + nt * 8 + g) * KV + j * 16 + tig * 2;
-        mma16816(o[nt], pa, ld32(vr), ld32(vr + 8));
-      }
-    }
-    __syncwarp();
-#pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-#pragma unroll
-      for (int hr = 0; hr < 2; ++hr)
-        *reinterpret_cast<__nv_bfloat162*>(Q + (rg * 16 + g + hr * 8) * LD + h * D + nt * 8 +
-                                           tig * 2) =
-            __floats2bfloat162_rn(o[nt][2 * hr], o[nt][2 * hr + 1]);
-  }
-  __syncthreads();
-
-  for (int n0 = 0; n0 < C; n0 += NC) {  // out = bf16(bf16(o Wo^T + bo) + x)
-    float acc[ROWS / 16][NC / 64][4];
-    zero<ROWS, NC>(acc);
-    gemm<ROWS, NC, C>(acc, Q, LD, [&](int c) { return p.wo + (size_t)min(n0 + c, C - 1) * C; },
-                      ring);
-    each_pair<ROWS, NC>(acc, [&](int r, int c, float v0, float v1) {
-      if (n0 + c >= C || r0 + r >= N) return;
-      const size_t off = (size_t)(r0 + r) * C + n0 + c;
-      *reinterpret_cast<__nv_bfloat162*>(ob + off) =
-          __hadd2(__floats2bfloat162_rn(v0 + p.bo[n0 + c], v1 + p.bo[n0 + c + 1]),
-                  *reinterpret_cast<const __nv_bfloat162*>(xb + off));
-    });
-  }
+__global__ void __launch_bounds__(tiles::THREADS) fused_ln_kernel(const bf16* __restrict__ x,
+                                                                 const float* __restrict__ gamma,
+                                                                 const float* __restrict__ beta,
+                                                                 bf16* __restrict__ out, int N,
+                                                                 float eps) {
+  tiles::layer_norm_pass<C>(x, gamma, beta, out, nullptr, N, eps);
 }
 
-template <int C, int D>
-cudaError_t launch_single(const void* x, const AttnArgs& a, void* out, int B, int N, int L,
-                          float scale, float eps, cudaStream_t st) {
-  cudaError_t err = prepare(single_kernel<C, D>, Single<C>::SMEM);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((N + Single<C>::ROWS - 1) / Single<C>::ROWS, B);
-  single_kernel<C, D><<<grid, THREADS, Single<C>::SMEM, st>>>(
-      static_cast<const bf16*>(x), a, static_cast<bf16*>(out), N, L, scale, eps);
+// The two GEMMs over K = C, wgmma_gemm.cuh's staged cooperative GEMM:
+// EPI_SCALE (q), EPI_BIAS_RES (y), at BN = 128, 160 or 256.
+template <int BN, int EPI>
+__global__ void __launch_bounds__(THREADS, 1) fused_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
+    const __grid_constant__ CUtensorMap tm_out, const __grid_constant__ CUtensorMap tm_res,
+    const GemmArgs a) {
+  coop_staged_gemm<BN, EPI>(&tm_a, &tm_w, &tm_out, &tm_res, a);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(xattn::THREADS, 1) fused_attn_kernel(
+    const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+    const xattn::CrossArgs a) {
+  xattn::cross_body<DP>(&tm_q, &tm_k, &tm_v, &tm_o, a);
+}
+
+cudaError_t launch_ln(const void* x, const void* g, const void* b, bf16* out, int rows, int C,
+                      float eps, cudaStream_t st) {
+  const int grid = (rows + LN_ROWS - 1) / LN_ROWS;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const float *gf = static_cast<const float*>(g), *bf = static_cast<const float*>(b);
+  switch (C) {
+#define LN_CASE(W) \
+  case W: fused_ln_kernel<W><<<grid, tiles::THREADS, 0, st>>>(xb, gf, bf, out, rows, eps); break;
+    LN_CASE(320) LN_CASE(512) LN_CASE(640) LN_CASE(1024) LN_CASE(1280)
+#undef LN_CASE
+    default: return cudaErrorInvalidValue;
+  }
   return cudaGetLastError();
 }
 
-AttnArgs attn_args(const void* g, const void* b, const void* wq, const void* wo, const void* bo,
-                   const void* k, const void* vt) {
-  return {static_cast<const float*>(g), static_cast<const float*>(b),
-          static_cast<const bf16*>(wq), static_cast<const bf16*>(wo),
-          static_cast<const float*>(bo), static_cast<const bf16*>(k),
-          static_cast<const bf16*>(vt)};
+template <int EPI>
+cudaError_t launch_epi(const CUtensorMap& ma, const CUtensorMap& mw, const CUtensorMap& mo,
+                       const CUtensorMap& mr, const GemmArgs& a, int bn, int grid, cudaStream_t st) {
+  const int smem = ring_smem(a.stages, (BM + bn) * ROW_BYTES, staged_extra(bn));
+  switch (bn) {
+    case 128: return launch_gemm(fused_gemm_kernel<128, EPI>, smem, a, grid, st, ma, mw, mo, mr);
+    case 160: return launch_gemm(fused_gemm_kernel<160, EPI>, smem, a, grid, st, ma, mw, mo, mr);
+    case 256: return launch_gemm(fused_gemm_kernel<256, EPI>, smem, a, grid, st, ma, mw, mo, mr);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int DP>
+cudaError_t launch_attn(const CUtensorMap (&m)[4], const xattn::CrossArgs& a, int grid, int smem,
+                        cudaStream_t st) {
+  if (smem < xattn::smem_need(xattn::Cfg<DP>::SLABS, xattn::KEYS, a.stages, xattn::WG_ROWS))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(fused_attn_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  fused_attn_kernel<DP><<<grid, xattn::THREADS, smem, st>>>(m[0], m[1], m[2], m[3], a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // x, out (B, N, C) bf16, any N >= 1; wq, wo (C, C) bf16; g, b, bo (C) fp32;
-// k (B, 80, C) bf16 zero-padded past L text keys; vt (B, C, 80) bf16 the
-// transposed, padded values. (C, D) in {(320, 40), (640, 80), (1024, 128),
-// (1280, 160), (512, 64)}, L <= 80. Returns cudaGetLastError().
-extern "C" int fused_ln_cross_attention_bf16(const void* x, const void* g, const void* b,
-                                             const void* wq, const void* wo, const void* bo,
-                                             const void* k, const void* vt, void* out, int B,
-                                             int N, int C, int D, int L, float scale, float eps,
-                                             void* stream) {
-  if (B < 1 || N < 1 || L < 1 || L > KV) return (int)cudaErrorInvalidValue;
-  const AttnArgs a = attn_args(g, b, wq, wo, bo, k, vt);
+// k, v (B, L, C) bf16, 1 <= L <= 80 text keys; (C, D) in {(320, 40),
+// (640, 80), (1024, 128), (1280, 160), (512, 64)}, 8 heads of D. xn, q
+// (B, N, C): bf16 scratch; xn also takes the attention's output o (dead
+// once the q GEMM read it). All contiguous and 16-byte aligned. The launch
+// plan (kernels/cross_block.py::fused_launch_plan): the GEMMs' tile width
+// gemm_bn (128, 160 or 256, dividing C) and ring stages, at most `grid`
+// persistent blocks each; the attention's ring of attn_stages query tiles,
+// attn_grid persistent blocks and attn_smem dynamic shared bytes. Four
+// launches on the stream; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a shape or plan the kernels cannot take.
+extern "C" int fused_ln_cross_attention_bf16(
+    const void* x, const void* g, const void* b, const void* wq, const void* wo, const void* bo,
+    const void* k, const void* v, void* out, void* xn, void* q, int B, int N, int C, int D, int L,
+    int gemm_bn, int gemm_stages, int grid, int attn_stages, int attn_grid, int attn_smem,
+    float scale, float eps, void* stream) {
+  const long long rows_ll = (long long)B * N;
+  const bool shape_ok = (C == 320 && D == 40) || (C == 640 && D == 80) || (C == 1024 && D == 128) ||
+                        (C == 1280 && D == 160) || (C == 512 && D == 64);
+  if (!shape_ok || B < 1 || B > 65535 || N < 1 || L < 1 || L > xattn::KEYS ||
+      rows_ll > 0x7fffffffLL || !staged_plan_ok((int)rows_ll, C, 1, gemm_bn, gemm_stages, grid))
+    return (int)cudaErrorInvalidValue;
+  const int rows = (int)rows_ll;
+  const long long items = (long long)B * HEADS * ((N + xattn::WG_ROWS - 1) / xattn::WG_ROWS);
+  if (attn_stages < 2 * xattn::CW || attn_stages > xattn::MAX_STAGES || attn_grid < 1 ||
+      attn_grid > items || items > 0x7fffffffLL || attn_smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == 320 && D == 40) return (int)launch_single<320, 40>(x, a, out, B, N, L, scale, eps, st);
-  if (C == 640 && D == 80) return (int)launch_single<640, 80>(x, a, out, B, N, L, scale, eps, st);
-  if (C == 1024 && D == 128)
-    return (int)launch_single<1024, 128>(x, a, out, B, N, L, scale, eps, st);
-  if (C == 1280 && D == 160)
-    return (int)launch_single<1280, 160>(x, a, out, B, N, L, scale, eps, st);
-  if (C == 512 && D == 64) return (int)launch_single<512, 64>(x, a, out, B, N, L, scale, eps, st);
-  return (int)cudaErrorInvalidValue;
+  bf16 *xnb = static_cast<bf16*>(xn), *qb = static_cast<bf16*>(q);
+  // the GEMMs' A operand (boxes of BM rows), weights (boxes of gemm_bn
+  // rows), and their outputs and residual (staging boxes)
+  CUtensorMap m_xn, m_wq, m_wo, s_q, s_out, s_x;
+  if (!make_map_2d(&m_xn, xnb, C, rows, BM) || !make_map_2d(&m_wq, wq, C, C, gemm_bn) ||
+      !make_map_2d(&m_wo, wo, C, C, gemm_bn) || !make_staging_map(&s_q, qb, C, rows, gemm_bn) ||
+      !make_staging_map(&s_out, out, C, rows, gemm_bn) || !make_staging_map(&s_x, x, C, rows, gemm_bn))
+    return (int)cudaErrorNotSupported;
+  // 1. xn = LN(x)
+  cudaError_t err = launch_ln(x, g, b, xnb, rows, C, eps, st);
+  if (err != cudaSuccess) return (int)err;
+  // 2. q = bf16(xn Wq^T * scale)
+  const int k_blocks = C / SLAB, col_tiles = C / gemm_bn;
+  const GemmArgs qa{nullptr, qb, rows, C, k_blocks, col_tiles, gemm_stages, 0, nullptr, scale};
+  err = launch_epi<EPI_SCALE>(m_xn, m_wq, s_q, s_q, qa, gemm_bn, grid, st);
+  if (err != cudaSuccess) return (int)err;
+  // 3. o = attention of q over the text keys, at scale 1 (q holds it), into xn
+  const xattn::CrossArgs ca{xnb, N, HEADS, D, L, xattn::KEYS, xattn::WG_ROWS, attn_stages,
+                            (int)items, 1.4426950408889634f};
+  CUtensorMap ma[4];
+  if (!xattn::make_maps(&ma[0], &ma[1], &ma[2], &ma[3], qb, k, v, ca, B))
+    return (int)cudaErrorNotSupported;
+  switch ((D + 15) / 16 * 16) {
+    case 48: err = launch_attn<48>(ma, ca, attn_grid, attn_smem, st); break;
+    case 64: err = launch_attn<64>(ma, ca, attn_grid, attn_smem, st); break;
+    case 80: err = launch_attn<80>(ma, ca, attn_grid, attn_smem, st); break;
+    case 128: err = launch_attn<128>(ma, ca, attn_grid, attn_smem, st); break;
+    default: err = launch_attn<160>(ma, ca, attn_grid, attn_smem, st); break;
+  }
+  if (err != cudaSuccess) return (int)err;
+  // 4. y = bf16(bf16(o Wo^T + bo) + x)
+  const GemmArgs oa{bo, static_cast<bf16*>(out), rows, C, k_blocks, col_tiles, gemm_stages, 0,
+                    static_cast<const bf16*>(x), 0.f};
+  return (int)launch_epi<EPI_BIAS_RES>(m_xn, m_wo, s_out, s_x, oa, gemm_bn, grid, st);
 }

@@ -41,14 +41,17 @@
 //     staging box (swizzled slabs at BN = 128 or 256, one dense box at BN =
 //     160, the width that divides E = 320 and 640). The weights stay in L2
 //     across the tiles; every 128-row tile reads them once from there.
-// out_proj_residual: each block owns 64 tokens and reads them once into a
-// (64, E) bf16 tile in shared memory (165 KB at E = 1280); the product
-// runs in passes of 128 or 256 output columns whose weights stream through
-// a double-buffered cp.async ring (mma.sync m16n8k16, fp32 accumulators in
-// registers), each pass rounded and stored straight from the registers,
-// with its epilogue. The weights are read once per block from L2, the cost
-// of this simple design (the staged GEMM with EPI_BIAS_RES would share
-// them).
+// out_proj_residual, one launch on the same GEMM:
+//   out_proj_gemm_kernel<BN>: csrc/wgmma_gemm.cuh's staged cooperative GEMM
+//     over the O output columns with EPI_BIAS_RES: A is o in 128-row boxes,
+//     B is Wo in BN-row boxes, K = E walked in 64-column slabs; the
+//     residual tile arrives by TMA into the staging box while the products
+//     run, y = bf16(bf16(acc + bo) + r) is written back into the box and
+//     leaves by TMA (one dense 64 x 160 box at BN = 160). The weights stay
+//     in L2 across the tiles and are read once a 128-row tile.
+// Both GEMMs take their tile width by the same rule (kernels/
+// temporal_proj.py): the widest of 256, 160 and 128 dividing the output
+// width whose tiles give every SM one, else the narrowest.
 
 #include "mma_tiles.cuh"
 #include "wgmma_gemm.cuh"
@@ -57,37 +60,17 @@ namespace {
 
 namespace wg = wgemm;
 
-using namespace tiles;
-constexpr int ROWS = 64;
-
-template <int K>
-struct Proj {
-  static constexpr int LD = K + 8;
-  static constexpr int NC = K % 256 ? 128 : 256;  // output columns per product pass
-  static constexpr size_t SMEM = (size_t)ROWS * LD * 2 + 2 * (size_t)NC * WLD * 2;
-};
-
-// The (ROWS, K) tile of tokens r0.. of a (N, K) tensor, zero past N.
-template <int K>
-__device__ __forceinline__ void load_tile(bf16* T, const bf16* src, int r0, int N) {
-  constexpr int LD = Proj<K>::LD;
-  for (int idx = threadIdx.x; idx < ROWS * K / 8; idx += THREADS) {
-    const int r = idx / (K / 8), c8 = idx % (K / 8);
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < N) v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * K + c8 * 8);
-    *reinterpret_cast<uint4*>(T + r * LD + c8 * 8) = v;
-  }
-  __syncthreads();
-}
+using tiles::LN_ROWS;
+using wg::bf16;
 
 // xn = LayerNorm(x): csrc/mma_tiles.cuh's LayerNorm pass, the head's and
 // the tail's too.
 template <int C>
-__global__ void __launch_bounds__(THREADS) ln_qkv_ln_kernel(const bf16* __restrict__ x,
+__global__ void __launch_bounds__(tiles::THREADS) ln_qkv_ln_kernel(const bf16* __restrict__ x,
                                                            const float* __restrict__ gamma,
                                                            const float* __restrict__ beta,
                                                            bf16* __restrict__ xn, int N, float eps) {
-  layer_norm_pass<C>(x, gamma, beta, xn, nullptr, N, eps);
+  tiles::layer_norm_pass<C>(x, gamma, beta, xn, nullptr, N, eps);
 }
 
 // The three projections' maps: xn (boxes of 128 rows), Wq, Wk, Wv (boxes of
@@ -104,29 +87,14 @@ __global__ void __launch_bounds__(wg::THREADS, 1) ln_qkv_gemm_kernel(const __gri
   wg::coop_staged_gemm<BN, wg::EPI_NONE, 3>(&m.a, m.w, m.out, m.out, a);
 }
 
-template <int E>
-__global__ void __launch_bounds__(THREADS, 1) out_proj_kernel(
-    const bf16* __restrict__ o, const bf16* __restrict__ r, const bf16* __restrict__ wo,
-    const float* __restrict__ bo, bf16* __restrict__ y, int N, int O) {
-  constexpr int LD = Proj<E>::LD, NC = Proj<E>::NC;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* T = reinterpret_cast<bf16*>(smem);
-  bf16* ring = T + ROWS * LD;
-  const int r0 = blockIdx.x * ROWS;
-  load_tile<E>(T, o, r0, N);
-  for (int n0 = 0; n0 < O; n0 += NC) {
-    float acc[ROWS / 16][NC / 64][4];
-    zero<ROWS, NC>(acc);
-    gemm<ROWS, NC, E>(acc, T, LD, [&](int c) { return wo + (size_t)min(n0 + c, O - 1) * E; },
-                      ring);
-    each_pair<ROWS, NC>(acc, [&](int rr, int c, float v0, float v1) {
-      if (n0 + c >= O || r0 + rr >= N) return;
-      const size_t off = (size_t)(r0 + rr) * O + n0 + c;
-      *reinterpret_cast<__nv_bfloat162*>(y + off) =
-          __hadd2(__floats2bfloat162_rn(v0 + bo[n0 + c], v1 + bo[n0 + c + 1]),
-                  *reinterpret_cast<const __nv_bfloat162*>(r + off));
-    });
-  }
+// y = bf16(bf16(o Wo^T + bo) + r): the staged cooperative GEMM over O / BN
+// column tiles, the residual loaded by TMA into the staging box.
+template <int BN>
+__global__ void __launch_bounds__(wg::THREADS, 1) out_proj_gemm_kernel(
+    const __grid_constant__ CUtensorMap tm_o, const __grid_constant__ CUtensorMap tm_w,
+    const __grid_constant__ CUtensorMap tm_y, const __grid_constant__ CUtensorMap tm_r,
+    const wg::GemmArgs a) {
+  wg::coop_staged_gemm<BN, wg::EPI_BIAS_RES>(&tm_o, &tm_w, &tm_y, &tm_r, a);
 }
 
 cudaError_t launch_ln(const void* x, const void* g, const void* b, bf16* xn, int N, int C,
@@ -135,11 +103,11 @@ cudaError_t launch_ln(const void* x, const void* g, const void* b, bf16* xn, int
   const bf16* xb = static_cast<const bf16*>(x);
   const float *gf = static_cast<const float*>(g), *bf = static_cast<const float*>(b);
   switch (C) {
-    case 320: ln_qkv_ln_kernel<320><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
-    case 512: ln_qkv_ln_kernel<512><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
-    case 640: ln_qkv_ln_kernel<640><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
-    case 1024: ln_qkv_ln_kernel<1024><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
-    case 1280: ln_qkv_ln_kernel<1280><<<grid, THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 320: ln_qkv_ln_kernel<320><<<grid, tiles::THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 512: ln_qkv_ln_kernel<512><<<grid, tiles::THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 640: ln_qkv_ln_kernel<640><<<grid, tiles::THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 1024: ln_qkv_ln_kernel<1024><<<grid, tiles::THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
+    case 1280: ln_qkv_ln_kernel<1280><<<grid, tiles::THREADS, 0, st>>>(xb, gf, bf, xn, N, eps); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -151,15 +119,11 @@ cudaError_t launch_qkv_gemm(const QkvMaps& m, const wg::GemmArgs& a, int grid, c
   return wg::launch_gemm(ln_qkv_gemm_kernel<BN>, smem, a, grid, st, m);
 }
 
-template <int E>
-cudaError_t launch_out_proj(const void* o, const void* r, const void* wo, const void* bo, void* y,
-                            int N, int O, cudaStream_t st) {
-  cudaError_t err = prepare(out_proj_kernel<E>, Proj<E>::SMEM);
-  if (err != cudaSuccess) return err;
-  out_proj_kernel<E><<<(N + ROWS - 1) / ROWS, THREADS, Proj<E>::SMEM, st>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(r), static_cast<const bf16*>(wo),
-      static_cast<const float*>(bo), static_cast<bf16*>(y), N, O);
-  return cudaGetLastError();
+template <int BN>
+cudaError_t launch_out_proj(const CUtensorMap (&m)[4], const wg::GemmArgs& a, int grid,
+                            cudaStream_t st) {
+  const int smem = wg::ring_smem(a.stages, (wg::BM + BN) * wg::ROW_BYTES, wg::staged_extra(BN));
+  return wg::launch_gemm(out_proj_gemm_kernel<BN>, smem, a, grid, st, m[0], m[1], m[2], m[3]);
 }
 
 }  // namespace
@@ -175,11 +139,7 @@ extern "C" int ln_qkv_bf16(const void* x, const void* g, const void* b, const vo
                            const void* wk, const void* wv, void* q, void* k, void* v, void* xn,
                            int N, int C, int E, int bn, int stages, int grid, float eps,
                            void* stream) {
-  const long long tiles = (long long)(N + wg::BM - 1) / wg::BM * 3 * (E / (bn > 0 ? bn : 1));
-  if (N < 1 || (bn != 128 && bn != 160 && bn != 256) || E < bn || E % bn || stages < 2 ||
-      stages > wg::MAX_STAGES || grid < 1 || tiles > 0x7fffffffLL ||
-      wg::ring_smem(stages, (wg::BM + bn) * wg::ROW_BYTES, wg::staged_extra(bn)) > wg::SMEM_LIMIT)
-    return (int)cudaErrorInvalidValue;
+  if (!wg::staged_plan_ok(N, E, 3, bn, stages, grid)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* xnb = static_cast<bf16*>(xn);
   cudaError_t err = launch_ln(x, g, b, xnb, N, C, eps, st);
@@ -189,11 +149,8 @@ extern "C" int ln_qkv_bf16(const void* x, const void* g, const void* b, const vo
   void* o[3] = {q, k, v};
   if (!wg::make_map_2d(&m.a, xnb, C, N, wg::BM)) return (int)cudaErrorNotSupported;
   for (int i = 0; i < 3; ++i) {
-    const bool ok = wg::make_map_2d(&m.w[i], w[i], C, E, bn) &&
-                    (bn % wg::SLAB == 0 ? wg::make_map_2d(&m.out[i], o[i], E, N, wg::STAGED_ROWS)
-                                        : wg::make_map_2d_dense(&m.out[i], o[i], E, N, bn,
-                                                                wg::STAGED_ROWS));
-    if (!ok) return (int)cudaErrorNotSupported;
+    if (!wg::make_map_2d(&m.w[i], w[i], C, E, bn) || !wg::make_staging_map(&m.out[i], o[i], E, N, bn))
+      return (int)cudaErrorNotSupported;
   }
   const wg::GemmArgs a{nullptr, nullptr, N, E, C / wg::SLAB, 3 * (E / bn), stages, 0, nullptr, 0.f};
   switch (bn) {
@@ -203,18 +160,28 @@ extern "C" int ln_qkv_bf16(const void* x, const void* g, const void* b, const vo
   }
 }
 
-// o (N, E) bf16; r, y (N, O) bf16; wo (O, E) bf16; bo (O) fp32. E in {320,
-// 512, 640, 1024, 1280}, O even and >= 2, N >= 1. Returns cudaGetLastError().
+// o (N, E) bf16; r, y (N, O) bf16; wo (O, E) bf16; bo (O) fp32. E and O in
+// {320, 512, 640, 1024, 1280}, N >= 1. The launch plan (kernels/
+// temporal_proj.py::out_proj_launch_plan): the GEMM's tile width bn (128,
+// 160 or 256, dividing O), ring stages and at most `grid` persistent
+// blocks. All contiguous and 16-byte aligned. One launch; returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a shape or plan the
+// kernel cannot take.
 extern "C" int out_proj_residual_bf16(const void* o, const void* r, const void* wo, const void* bo,
-                                      void* y, int N, int E, int O, void* stream) {
-  if (N < 1 || O < 2 || O % 2) return (int)cudaErrorInvalidValue;
+                                      void* y, int N, int E, int O, int bn, int stages, int grid,
+                                      void* stream) {
+  if (E % wg::SLAB || E < wg::SLAB || !wg::staged_plan_ok(N, O, 1, bn, stages, grid))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap m[4];  // o, Wo, y, r
+  if (!wg::make_map_2d(&m[0], o, E, N, wg::BM) || !wg::make_map_2d(&m[1], wo, E, O, bn) ||
+      !wg::make_staging_map(&m[2], y, O, N, bn) || !wg::make_staging_map(&m[3], r, O, N, bn))
+    return (int)cudaErrorNotSupported;
+  const wg::GemmArgs a{bo, static_cast<bf16*>(y), N, O, E / wg::SLAB, O / bn, stages, 0,
+                       static_cast<const bf16*>(r), 0.f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (E) {
-    case 320: return (int)launch_out_proj<320>(o, r, wo, bo, y, N, O, st);
-    case 512: return (int)launch_out_proj<512>(o, r, wo, bo, y, N, O, st);
-    case 640: return (int)launch_out_proj<640>(o, r, wo, bo, y, N, O, st);
-    case 1024: return (int)launch_out_proj<1024>(o, r, wo, bo, y, N, O, st);
-    case 1280: return (int)launch_out_proj<1280>(o, r, wo, bo, y, N, O, st);
-    default: return (int)cudaErrorInvalidValue;
+  switch (bn) {
+    case 128: return (int)launch_out_proj<128>(m, a, grid, st);
+    case 160: return (int)launch_out_proj<160>(m, a, grid, st);
+    default: return (int)launch_out_proj<256>(m, a, grid, st);
   }
 }

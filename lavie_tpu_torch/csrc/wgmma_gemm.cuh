@@ -531,6 +531,28 @@ inline cudaError_t set_smem(const void* kernel, int smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
+// The host's checks of a staged GEMM's plan (coop_staged_gemm over `rows`
+// rows and `groups` outputs of out_cols columns): a tile width with an
+// instance (128, 160 or 256) dividing out_cols, a ring within the barrier
+// slots and the shared memory beside the staging boxes, a grid, and a tile
+// count within int.
+inline bool staged_plan_ok(int rows, int out_cols, int groups, int bn, int stages, int grid) {
+  const long long tiles =
+      (long long)(rows + BM - 1) / BM * groups * (out_cols / (bn > 0 ? bn : 1));
+  return rows >= 1 && (bn == 128 || bn == 160 || bn == 256) && out_cols >= bn &&
+         out_cols % bn == 0 && stages >= 2 && stages <= MAX_STAGES && grid >= 1 &&
+         tiles <= 0x7fffffffLL &&
+         ring_smem(stages, (BM + bn) * ROW_BYTES, staged_extra(bn)) <= SMEM_LIMIT;
+}
+
+// coop_staged_gemm's map of an (rows, cols) output or residual at tile
+// width bn: boxes of 64 rows by one swizzled slab, or at bn = 160 one dense
+// 64 x 160 box; false if the encoder refused it.
+inline bool make_staging_map(CUtensorMap* m, const void* p, int cols, int rows, int bn) {
+  return bn % SLAB == 0 ? make_map_2d(m, p, cols, rows, STAGED_ROWS)
+                        : make_map_2d_dense(m, p, cols, rows, bn, STAGED_ROWS);
+}
+
 // Launch a persistent GEMM kernel(maps..., a) over a's tiles: at most `grid`
 // blocks of THREADS threads and `smem` dynamic shared bytes.
 template <typename Kernel, typename... Maps>

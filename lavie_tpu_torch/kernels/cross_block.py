@@ -13,20 +13,25 @@ text states (B, L, C), one row per video, shared by all its frames. Weights
 are nn.Linear (out, in). The CUDA kernels replace `_head_kernel`
 (csrc/cross_head.cu: csrc/wgmma_gemm.cuh's staged wgmma GEMM, the tail's
 LayerNorm pass and the text cross attention's wgmma body, nine launches
-under a plan from `head_launch_plan`), `_single_kernel` (csrc/cross_block.cu) and
-`_tail_kernel` (csrc/transformer_tail.cu: a LayerNorm pass and three wgmma
-GEMMs, GEGLU's, under a plan from `tail_launch_plan`); the plain versions
-repeat the TPU kernels' arithmetic: LayerNorm statistics in fp32 with the
-elementwise steps in the activation dtype, products accumulated in fp32, q
-scaled in fp32 then rounded, fp32 softmax whose probabilities are rounded
-before P·V, each residual added in the activation dtype.
+under a plan from `head_launch_plan`), `_single_kernel` (csrc/cross_block.cu:
+the same pieces for one layer, four launches under a plan from
+`fused_launch_plan`; K and V read straight from the caller's (B, L, C)
+tensors) and `_tail_kernel` (csrc/transformer_tail.cu: a LayerNorm pass and
+three wgmma GEMMs, GEGLU's, under a plan from `tail_launch_plan`); the
+plain versions repeat the TPU kernels' arithmetic: LayerNorm statistics in
+fp32 with the elementwise steps in the activation dtype, products
+accumulated in fp32, q scaled in fp32 then rounded, fp32 softmax whose
+probabilities are rounded before P·V, each residual added in the
+activation dtype.
 
   cross_attention_head(_reference)
   transformer_tail(_reference)
   fused_ln_cross_attention(_reference)   head dims 40/80/128/160 (and 64) at
                                          C = 8 heads × d, any N
   layer_norm_on_card                     the kernels' LayerNorm alone (tests)
-  head_launch_plan                       the head's GEMMs' and attention's plan
+  staged_gemm_plan                       the staged GEMM's tile width and ring
+  head_launch_plan, fused_launch_plan    the head's and the fused attn2's
+                                         GEMMs' and attention's plans
   tail_launch_plan                       the tail GEMMs' launch plan for one call
 """
 
@@ -44,9 +49,10 @@ from lavie_tpu_torch.kernels import cross_attention as _cross
 from lavie_tpu_torch.kernels import geglu as _geglu
 
 HEAD_DIM = 64
-MAX_KV = 80  # text keys, padded to 80 (5 k-steps of 16) inside the kernel
+MAX_KV = 80  # text keys: the attention loads 80 rows, zero-filled past L
 KERNEL_WIDTHS = (128, 256, 512)
 FUSED_SHAPES = ((320, 40), (640, 80), (1024, 128), (1280, 160), (512, 64))  # (C, head dim)
+FUSED_HEADS = 8  # C / head dim of every FUSED_SHAPES entry
 LN_WIDTHS = (128, 256, 320, 512, 640, 1024, 1280)
 _ROWS = 32768  # the plain tail takes this many tokens at a time (fp32 hidden ≤ 2 GB at C=512)
 
@@ -120,17 +126,6 @@ def _check(name: str, x: torch.Tensor, weights, f32) -> None:
         raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned tensors on one device")
 
 
-def _pad_kv(x: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    """Keys padded to MAX_KV rows, values transposed to (B, C, MAX_KV): both
-    are then read along contiguous rows by the tensor-core fragments."""
-    b, lkv, c = k.shape
-    kp = x.new_zeros(b, MAX_KV, c)
-    kp[:, :lkv] = k
-    vt = x.new_zeros(b, c, MAX_KV)
-    vt[:, :, :lkv] = v.transpose(1, 2)
-    return kp, vt
-
-
 def head_staging_bytes(width: int) -> int:
     """Shared bytes of the head GEMM's staging beside its ring: a box of
     width / 64 swizzled slabs of 64 rows for each of the two consumer
@@ -138,36 +133,63 @@ def head_staging_bytes(width: int) -> int:
     return 2 * width * 64 * 2 + 16
 
 
+STAGED_WIDTHS = (256, 160, 128)  # the staged GEMM's tile widths, widest first
+
+
+def staged_gemm_plan(rows: int, k: int, cols: int, groups: int, sm_count: int) -> _geglu.GemmPlan:
+    """csrc/wgmma_gemm.cuh's staged cooperative GEMM over `rows` rows of K =
+    k into `groups` outputs of `cols` columns each: the widest of 256, 160
+    and 128 dividing cols whose tiles give every SM one, else the narrowest
+    dividing cols, with as many ring stages (up to six) as fit beside the
+    two staging boxes (geglu._gemm)."""
+    row_tiles = -(-rows // _geglu.TILE_ROWS)
+    widths = [w for w in STAGED_WIDTHS if cols % w == 0]
+    width = next((w for w in widths if row_tiles * groups * (cols // w) >= sm_count), widths[-1])
+    return _geglu._gemm(width, k, groups * (cols // width), 6, head_staging_bytes(width))
+
+
 @dataclass(frozen=True)
-class HeadPlan:
-    """How csrc/cross_head.cu runs one call over x (B·N rows, C): the five
-    GEMMs over K = C (proj_in, then per layer q and the out-projection) are
-    csrc/wgmma_gemm.cuh's staged cooperative GEMM at one tile width
-    (`gemm`, whose smem_bytes hold the ring and the two staging boxes),
-    each on at most `grid` persistent blocks; the two attentions are the
-    text cross attention's wgmma kernel at head dim 64 (`attn`)."""
+class CrossPlan:
+    """How csrc/cross_head.cu (the head) or csrc/cross_block.cu (the fused
+    attn2) runs one call over x (B·N rows, C): the GEMMs over K = C (the
+    head's five: proj_in, then per layer q and the out-projection; the
+    fused attn2's two) are csrc/wgmma_gemm.cuh's staged cooperative GEMM at
+    one tile width (`gemm`, whose smem_bytes hold the ring and the two
+    staging boxes), each on at most `grid` persistent blocks; the
+    attentions are the text cross attention's wgmma kernel (`attn`)."""
     gemm: _geglu.GemmPlan
     attn: _cross.LaunchPlan
     grid: int
 
 
 @functools.lru_cache(maxsize=256)
-def head_launch_plan(n: int, c: int, b: int, lkv: int, sm_count: int) -> HeadPlan:
+def head_launch_plan(n: int, c: int, b: int, lkv: int, sm_count: int) -> CrossPlan:
     """The plan of one call over x (B, N, C) against L = lkv text keys on a
-    card of `sm_count` SMs: the widest of 256 and 128 dividing C whose
-    tiles give every SM one, else 128, with as many ring stages (up to six)
-    as fit beside the staging boxes (geglu._gemm); the attention's plan
-    from cross_attention.launch_plan. Raises for what the kernels cannot
-    take (C outside KERNEL_WIDTHS, N not a positive multiple of 64, L
-    outside 1..80)."""
+    card of `sm_count` SMs: the GEMMs' by staged_gemm_plan (256 or 128 at
+    these widths); the attention's at head dim 64 from
+    cross_attention.launch_plan. Raises for what the kernels cannot take (C
+    outside KERNEL_WIDTHS, N not a positive multiple of 64, L outside
+    1..80)."""
     if c not in KERNEL_WIDTHS or n < 64 or n % 64 or not 1 <= lkv <= MAX_KV or b < 1:
         raise ValueError(f"cross_attention_head kernel: N={n}, C={c}, B={b}, {lkv} text keys")
-    row_tiles = -(-b * n // _geglu.TILE_ROWS)
-    widths = [w for w in (256, 128) if c % w == 0]
-    width = next((w for w in widths if row_tiles * (c // w) >= sm_count), widths[-1])
-    return HeadPlan(gemm=_geglu._gemm(width, c, c // width, 6, head_staging_bytes(width)),
-                    attn=_cross.launch_plan(b, n, c // HEAD_DIM, HEAD_DIM, lkv, sm_count),
-                    grid=sm_count)
+    return CrossPlan(gemm=staged_gemm_plan(b * n, c, c, 1, sm_count),
+                     attn=_cross.launch_plan(b, n, c // HEAD_DIM, HEAD_DIM, lkv, sm_count),
+                     grid=sm_count)
+
+
+@functools.lru_cache(maxsize=256)
+def fused_launch_plan(b: int, n: int, c: int, d: int, lkv: int, sm_count: int) -> CrossPlan:
+    """The plan of one fused attn2 call over x (B, N, C), 8 heads of d,
+    against L = lkv text keys on a card of `sm_count` SMs: both GEMMs' by
+    staged_gemm_plan over the B·N rows (160 wide at C = 320, and at 640 and
+    1280 where it fills the card); the attention's from
+    cross_attention.launch_plan. Raises for what the kernels cannot take
+    ((C, d) outside FUSED_SHAPES, N < 1, L outside 1..80)."""
+    if (c, d) not in FUSED_SHAPES or n < 1 or b < 1 or not 1 <= lkv <= MAX_KV or b * n >= 2**31:
+        raise ValueError(f"fused_ln_cross_attention kernel: B={b}, N={n}, C={c}, d={d}, "
+                         f"{lkv} text keys")
+    return CrossPlan(gemm=staged_gemm_plan(b * n, c, c, 1, sm_count),
+                     attn=_cross.launch_plan(b, n, c // d, d, lkv, sm_count), grid=sm_count)
 
 
 def cross_attention_head(x: torch.Tensor, wpi: torch.Tensor, bpi: torch.Tensor,
@@ -198,7 +220,7 @@ def cross_attention_head(x: torch.Tensor, wpi: torch.Tensor, bpi: torch.Tensor,
     return out
 
 
-def _launch_head(x, wpi, bpi, attn1, attn2, scale: float, eps: float, plan: HeadPlan) -> torch.Tensor:
+def _launch_head(x, wpi, bpi, attn1, attn2, scale: float, eps: float, plan: CrossPlan) -> torch.Tensor:
     """The head's nine launches on the current stream, under `plan` (a plan
     of one's own for A/B timing on the card)."""
     b, n, c = x.shape
@@ -276,7 +298,7 @@ def fused_ln_cross_attention(x: torch.Tensor, p: AttnParams, heads: int, scale: 
                              eps: float = 1e-5) -> torch.Tensor:
     """x + to_out(Attn(LN(x)·Wq; k, v)) over x (B, N, C) with p = (gamma,
     beta, wq, wo, bo, k, v), k and v (B, L, C) one row per batch row of x. On
-    a CUDA tensor this launches the kernel, or raises for what it does not
+    a CUDA tensor this launches the kernels, or raises for what they do not
     take ((C, head dim) not in FUSED_SHAPES, more than 80 text keys, dtypes
     other than bf16 tensors with fp32 biases and LayerNorm parameters,
     non-contiguous or misaligned tensors)."""
@@ -290,22 +312,34 @@ def fused_ln_cross_attention(x: torch.Tensor, p: AttnParams, heads: int, scale: 
         raise ValueError(f"{name} kernel: x {tuple(x.shape)}, heads={heads}, {lkv} text keys")
     if wq.shape != (c, c) or wo.shape != (c, c) or k.shape != (b, lkv, c) or v.shape != k.shape:
         raise ValueError(f"{name}: weight or text key/value shapes do not match x")
-    kp, vt = _pad_kv(x, k, v)
-    _check(name, x, [x, wq, wo, kp, vt], [gamma, beta, bo])
-    out = torch.empty_like(x)
-    fn = _build.function("cross_block", "fused_ln_cross_attention_bf16", 9, 5, 2)
-    err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wq.data_ptr(), wo.data_ptr(),
-             bo.data_ptr(), kp.data_ptr(), vt.data_ptr(), out.data_ptr(), b, n, c, c // heads,
-             lkv, float(scale), float(eps), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, name)
+    _check(name, x, [x, wq, wo, k, v], [gamma, beta, bo])
+    sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    out = _launch_fused(x, p, scale, eps, fused_launch_plan(b, n, c, c // heads, lkv, sms))
     fused_ln_cross_attention.launches += 1
+    return out
+
+
+def _launch_fused(x, p: AttnParams, scale: float, eps: float, plan: CrossPlan) -> torch.Tensor:
+    """The fused attn2's four launches on the current stream, under `plan`
+    (a plan of one's own for A/B timing on the card)."""
+    b, n, c = x.shape
+    k = p[5]
+    # the LayerNorm's output (then the attention's, over it) and q are
+    # scratch of this call
+    out, xn, q = (torch.empty_like(x) for _ in range(3))
+    fn = _build.function("cross_block", "fused_ln_cross_attention_bf16", 11, 11, 2)
+    err = fn(*(t.data_ptr() for t in (x, *p, out, xn, q)), b, n, c, c // FUSED_HEADS, k.shape[1],
+             plan.gemm.width, plan.gemm.stages, plan.grid, plan.attn.stages, plan.attn.grid,
+             plan.attn.smem_bytes, float(scale), float(eps),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "fused_ln_cross_attention")
     return out
 
 
 def layer_norm_on_card(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                        eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernels' LayerNorm alone (the tail's LayerNorm pass,
-    csrc/transformer_tail.cu, over the shared csrc/mma_tiles.cuh LayerNorm)
+    csrc/transformer_tail.cu, the shared csrc/mma_tiles.cuh LayerNorm pass)
     over x (N, C) bf16 on the card, C in LN_WIDTHS: (the normalised rows,
     each row's fp32 (mean, inv) as (N, 2)), for the test that holds its
     roundings against _layer_norm's."""

@@ -13,12 +13,17 @@ residual and rounds again. The CUDA kernels (csrc/temporal_proj.cu) emit
 q, k, v in the (B, F, S, E) layout the temporal attention kernel reads: the
 JAX kernels' channel-major (E, B, F, S) output was a TPU layout. Weights are
 nn.Linear (out, in); the LayerNorm parameters and the bias are fp32 on the
-kernels' path. ln_qkv's kernels are a LayerNorm pass into a scratch the
-wrapper allocates, then a staged wgmma GEMM over the three projections'
-3E output columns, under a plan from `ln_qkv_launch_plan`.
+kernels' path. Both entries run on csrc/wgmma_gemm.cuh's staged wgmma GEMM
+(a persistent, warp-specialised GEMM fed by a TMA ring, its tiles stored
+by TMA): ln_qkv as a LayerNorm pass (csrc/mma_tiles.cuh's) into a scratch
+the wrapper allocates, then the GEMM over the three projections' 3E output
+columns, under a plan from `ln_qkv_launch_plan`; out_proj_residual as one
+GEMM whose residual tile arrives by TMA into its staging box, under a plan
+from `out_proj_launch_plan`.
 
   ln_qkv(_reference), out_proj_residual(_reference)
-  ln_qkv_launch_plan   the GEMM's tile width, ring depth and grid for one call
+  ln_qkv_launch_plan, out_proj_launch_plan
+                       each GEMM's tile width, ring depth and grid for one call
 """
 
 from __future__ import annotations
@@ -31,38 +36,43 @@ import torch
 
 from lavie_tpu_torch.kernels import _build
 from lavie_tpu_torch.kernels import geglu as _geglu
-from lavie_tpu_torch.kernels.cross_block import _check, _layer_norm, _linear32, head_staging_bytes
+from lavie_tpu_torch.kernels.cross_block import _check, _layer_norm, _linear32, staged_gemm_plan
 
-KERNEL_WIDTHS = (320, 512, 640, 1024, 1280)  # C and E of ln_qkv, E of out_proj_residual
-QKV_WIDTHS = (256, 160, 128)  # the ln_qkv GEMM's tile widths, widest first
-PROJECTIONS = 3  # q, k, v: the GEMM's column groups
+KERNEL_WIDTHS = (320, 512, 640, 1024, 1280)  # C and E of ln_qkv, E and O of out_proj_residual
+PROJECTIONS = 3  # q, k, v: the ln_qkv GEMM's column groups
 
 
 @dataclass(frozen=True)
-class QkvPlan:
-    """How csrc/temporal_proj.cu's ln_qkv GEMM runs one call over N rows:
+class ProjPlan:
+    """How one of csrc/temporal_proj.cu's GEMMs runs one call over N rows:
     csrc/wgmma_gemm.cuh's staged cooperative GEMM (`gemm`: tile width, K
-    slabs, ring stages, column tiles over all three projections, shared
-    bytes) on at most `grid` persistent blocks."""
+    slabs, ring stages, column tiles over all its outputs, shared bytes) on
+    at most `grid` persistent blocks."""
     gemm: _geglu.GemmPlan
     grid: int
 
 
 @functools.lru_cache(maxsize=256)
-def ln_qkv_launch_plan(n: int, c: int, e: int, sm_count: int) -> QkvPlan:
+def ln_qkv_launch_plan(n: int, c: int, e: int, sm_count: int) -> ProjPlan:
     """The plan of one call over x (N, C) with (E, C) weights on a card of
-    `sm_count` SMs: the widest of 256, 160 and 128 dividing E whose tiles
-    (3E / width a row tile) give every SM one, else the narrowest dividing
-    E, with as many ring stages (up to six) as fit beside the staging
-    boxes. Raises for what the kernels cannot take (C or E outside
-    KERNEL_WIDTHS, N < 1)."""
+    `sm_count` SMs: cross_block.staged_gemm_plan over the three projections'
+    E columns each (3E / width tiles a row tile). Raises for what the
+    kernels cannot take (C or E outside KERNEL_WIDTHS, N < 1)."""
     if c not in KERNEL_WIDTHS or e not in KERNEL_WIDTHS or n < 1 or sm_count < 1:
         raise ValueError(f"ln_qkv kernel: N={n}, C={c}, E={e}")
-    row_tiles = -(-n // _geglu.TILE_ROWS)
-    widths = [w for w in QKV_WIDTHS if e % w == 0]
-    width = next((w for w in widths if row_tiles * PROJECTIONS * (e // w) >= sm_count), widths[-1])
-    return QkvPlan(gemm=_geglu._gemm(width, c, PROJECTIONS * (e // width), 6,
-                                     head_staging_bytes(width)), grid=sm_count)
+    return ProjPlan(gemm=staged_gemm_plan(n, c, e, PROJECTIONS, sm_count), grid=sm_count)
+
+
+@functools.lru_cache(maxsize=256)
+def out_proj_launch_plan(n: int, e: int, o: int, sm_count: int) -> ProjPlan:
+    """The plan of one call over o (N, E) with (O, E) weights on a card of
+    `sm_count` SMs: cross_block.staged_gemm_plan over the O output columns
+    (160 wide at O = 320, and at 640 and 1280 where it fills the card).
+    Raises for what the kernel cannot take (E or O outside KERNEL_WIDTHS,
+    N < 1)."""
+    if e not in KERNEL_WIDTHS or o not in KERNEL_WIDTHS or n < 1 or sm_count < 1:
+        raise ValueError(f"out_proj_residual kernel: N={n}, E={e}, O={o}")
+    return ProjPlan(gemm=staged_gemm_plan(n, e, o, 1, sm_count), grid=sm_count)
 
 
 def ln_qkv_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, wq: torch.Tensor,
@@ -112,21 +122,25 @@ def out_proj_residual(o: torch.Tensor, residual: torch.Tensor, wo: torch.Tensor,
                       bo: torch.Tensor) -> torch.Tensor:
     """residual + bf16(o·Woᵀ + bo) over o (..., E) and residual (..., O). On
     a CUDA tensor this launches the kernel, or raises for what it does not
-    take (E not in KERNEL_WIDTHS, O odd, dtypes, non-contiguous or
-    misaligned tensors)."""
+    take (E or O not in KERNEL_WIDTHS, dtypes, non-contiguous or misaligned
+    tensors)."""
     if o.device.type == "cpu":
         return out_proj_residual_reference(o, residual, wo, bo)
     name = "out_proj_residual"
     e, n_out = o.shape[-1], wo.shape[0]
-    if (e not in KERNEL_WIDTHS or n_out % 2 or wo.shape != (n_out, e)
+    if (e not in KERNEL_WIDTHS or n_out not in KERNEL_WIDTHS or wo.shape != (n_out, e)
             or residual.shape != (*o.shape[:-1], n_out) or bo.shape != (n_out,)):
         raise ValueError(f"{name} kernel: o {tuple(o.shape)}, residual {tuple(residual.shape)}, "
                          f"wo {tuple(wo.shape)}")
     _check(name, o, [o, residual, wo], [bo])
+    n = o.numel() // e
+    sms = _build.sm_count(o.device.index if o.device.index is not None else torch.cuda.current_device())
+    plan = out_proj_launch_plan(n, e, n_out, sms)
     y = torch.empty_like(residual)
-    fn = _build.function("temporal_proj", "out_proj_residual_bf16", 5, 3, 0)
-    err = fn(o.data_ptr(), residual.data_ptr(), wo.data_ptr(), bo.data_ptr(), y.data_ptr(),
-             o.numel() // e, e, n_out, torch.cuda.current_stream(o.device).cuda_stream)
+    fn = _build.function("temporal_proj", "out_proj_residual_bf16", 5, 6, 0)
+    err = fn(o.data_ptr(), residual.data_ptr(), wo.data_ptr(), bo.data_ptr(), y.data_ptr(), n, e,
+             n_out, plan.gemm.width, plan.gemm.stages, plan.grid,
+             torch.cuda.current_stream(o.device).cuda_stream)
     _build.check(err, name)
     out_proj_residual.launches += 1
     return y

@@ -31,7 +31,7 @@ def test_qkv_plan_fits_the_card(c, n):
     g = p.gemm
     # a tile width dividing E that wgmma takes and one TMA box of the
     # weights holds; the column tiles run over all three projections
-    assert g.width in tp.QKV_WIDTHS and c % g.width == 0
+    assert g.width in cb.STAGED_WIDTHS and c % g.width == 0
     assert g.col_tiles == tp.PROJECTIONS * c // g.width
     assert g.k_blocks * gg.SLAB == c
     # the ring beside the two warpgroups' staging boxes (64 rows of the
@@ -46,8 +46,8 @@ def test_qkv_plan_fits_the_card(c, n):
     assert g.width // 2 + 64 <= 232
     # the widest width whose tiles give every SM one, else the narrowest
     rows = -(-n // gg.TILE_ROWS)
-    fits = [w for w in tp.QKV_WIDTHS if c % w == 0 and rows * 3 * (c // w) >= H100_SMS]
-    assert g.width == (fits[0] if fits else [w for w in tp.QKV_WIDTHS if c % w == 0][-1])
+    fits = [w for w in cb.STAGED_WIDTHS if c % w == 0 and rows * 3 * (c // w) >= H100_SMS]
+    assert g.width == (fits[0] if fits else [w for w in cb.STAGED_WIDTHS if c % w == 0][-1])
     assert p.grid == H100_SMS
 
 
