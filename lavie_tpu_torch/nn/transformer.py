@@ -19,7 +19,8 @@ default, replace module boundaries with kernels (they change no parameter):
   LAVIE_ATTN2=cross        attn2 runs its attention through the short-kv
                            kernel (dot_product_attention "cross")
   LAVIE_ATTN2=fused        norm2 + attn2 + residual run as one kernel
-                           (kernels/cross_block.fused_ln_cross_attention)
+                           (kernels/cross_block.fused_ln_cross_attention);
+                           more than 80 text keys raise on every device
   LAVIE_TEMPORAL_PROJ=1    norm_temp + attn_temp's q/k/v projections, and its
                            out-projection + residual, run as the two kernels
                            of kernels/temporal_proj.py around the attention
@@ -36,6 +37,7 @@ import torch
 from torch import nn
 
 from lavie_tpu_torch.kernels.cross_block import (
+    MAX_KV,
     cross_attention_head,
     fused_ln_cross_attention,
     transformer_tail,
@@ -151,7 +153,12 @@ class BasicTransformerBlock(nn.Module):
 
     def fused_attn2(self, x: torch.Tensor, encoder_hidden_states: torch.Tensor) -> torch.Tensor:
         """x + attn2(norm2(x)) in one kernel over x (B, F·S, C); the text keys
-        and values are projected once per video (B, L, C)."""
+        and values are projected once per video (B, L, C). More than MAX_KV
+        (80) text keys raise ValueError before any work, on the CPU as on
+        the card, whose kernel takes no more."""
+        if encoder_hidden_states.shape[1] > MAX_KV:
+            raise ValueError(f"LAVIE_ATTN2=fused takes at most {MAX_KV} text keys, got "
+                             f"{encoder_hidden_states.shape[1]} (LAVIE_ATTN2=cross takes 256)")
         a = self.attn2
         p = (self.norm2.weight.float(), self.norm2.bias.float(), a.to_q.weight, a.to_out[0].weight,
              a.to_out[0].bias.float(), a.to_k(encoder_hidden_states), a.to_v(encoder_hidden_states))
