@@ -31,6 +31,14 @@ its result line:
                 frames of 320x512, 50 DDPM steps, CFG 7.5
   7. profile    one CFG-batched base UNet forward under torch.profiler:
                 device time by kernel group and the device's busy share
+  7b. image     the fork's image-conditioned base path at full width: the
+                pipeline with the ViT-L/14 vision tower and the 12-layer
+                MappingNetwork answers one prompt with a seeded synthetic
+                uint8 320x512 image (50 DDPM steps, CFG 7.5; every attn2 over
+                77 + 77 keys); the conditioning's ms; then one UNet forward
+                on those 154-key states with LAVIE_ATTN2 unset and "cross"
+                (16 launches of cross_attention, its long-kv body; outputs
+                compared), and "fused" refused before any launch
   8. tsr        VideoInterpolationPipeline at full width interpolates the
                 first main-phase video to 61 frames: 50 DDIM steps, CFG 4.0
   9. profile_tsr  the same profile for one CFG-batched TSR UNet forward
@@ -62,7 +70,8 @@ its result line:
                 outputs compared
  16. cross_kernels  the text cross-attention at the base levels, TSR L0
                 and VSR L3:
-                cross_attention (timed beside SDPA) and
+                cross_attention (timed beside SDPA; at the base levels also
+                over the image path's 154 keys) and
                 fused_ln_cross_attention (timed beside the LayerNorm,
                 cuBLAS and SDPA path it replaces, and under a plan computed
                 once; its device ms by kernel; its bound also with the xn,
@@ -88,7 +97,17 @@ its result line:
                 one base UNet forward with conv_quant "none", "int8" (and
                 LAVIE_TRESBLOCK_INT8=1), "int8" excluding samplers and
                 up_blocks: device ms and the relative error against bf16
- 21. cascade    the serving entry point at full width: Predictor().setup(),
+ 21. ckpt       checkpoint loading at full width: the base stage of
+                Predictor().setup(seed=CKPT_SEED) (UNet, SD VAE, ViT-L text
+                tower) written in the reference layout, fp32, to build/ckpt/
+                as lavie_base.pt and stable-diffusion-v1-4/{vae,text_encoder}/
+                (the disk's free space checked first); a second
+                Predictor().setup(ckpt_dir=...) with another seed; its base
+                weights equal to the exporter's bit for bit; option 1 from
+                both at one request seed, the videos within one uint8 level;
+                file bytes, write and setup seconds with and without the
+                directory; the files deleted
+ 22. cascade    the serving entry point at full width: Predictor().setup(),
                 predict() for option 2 (61x320x512, written to
                 build/cascade/ as .avi where a C compiler and libjpeg are
                 found, else as a GIF); then a second predictor in turbo,
@@ -96,8 +115,9 @@ its result line:
                 option 4 (61x1280x2048, not written) with the five opt-in
                 switches set and one cut, 10 VSR steps; stage seconds,
                 shapes, peak memory and exact launch counts per stage
- 22. result     a `kernels` JSON line, then the `ok` JSON line last
-Launch counts are zeroed just before each path (main, tsr, vsr, cascade) and
+ 23. result     a `kernels` JSON line, then the `ok` JSON line last
+Launch counts are zeroed just before each path (main, image, tsr, vsr, ckpt,
+cascade) and
 read just after it; the paths before the cascade run the default routes and
 launch no opt-in entry. Imports nothing of JAX or of the JAX package.
 """
@@ -138,6 +158,10 @@ ATTN_TOL, PROJ_TOL = 1e-2, 2e-2  # cross_attention; ln_qkv and out_proj_residual
 STATS_TOL = 1e-2  # gn_silu_tconv's Σ, Σ², of max|plain|
 # the cascade phase's option 4: the one cut (50 VSR steps in a user's run)
 CASCADE_VSR_STEPS = 10
+# the image path: 77 text keys and the MappingNetwork's 77 for every attn2
+IMAGE_KEYS = 154
+# the ckpt phase's exporter seed (the loading predictor takes CKPT_SEED + 1)
+CKPT_SEED = 5
 # int8 turbo against bf16, relative L2 error of a random-init UNet's output:
 # the JAX package's own bound (tests/test_quant.py)
 TURBO_REL_TOL = 0.35
@@ -782,6 +806,109 @@ def phase_main() -> tuple:
     return launches, videos[0]
 
 
+def phase_image() -> dict:
+    """The fork's image-conditioned base path at full width: the ViT-L/14
+    vision tower and the 12-layer MappingNetwork (random weights of their own
+    seeds) condition one prompt on a seeded synthetic uint8 320x512 image;
+    16x320x512, 50 DDPM steps, CFG 7.5. Then one CFG-batched UNet forward
+    on the conditioned 154-key states with LAVIE_ATTN2 unset and "cross"
+    (the long-kv body of cross_attention.cu), outputs compared, and
+    LAVIE_ATTN2=fused refused before any launch."""
+    import numpy as np
+
+    from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
+
+    t0 = time.time()
+    pipe = TextToVideoPipeline.init_random(seed=0, with_image_conditioning=True)
+    torch.cuda.synchronize()
+    log(f"[image] init {time.time() - t0:.1f} s")
+    rng = np.random.RandomState(21)
+    ramp = np.linspace(0, 255, 512)[None, :, None] * np.ones((320, 1, 3))
+    image = np.clip(ramp + rng.normal(0, 40, (320, 512, 3)), 0, 255).astype(np.uint8)
+    prompt, steps = "a teddy bear walking on the street, 2k, high quality", 50
+    with torch.no_grad():
+        text = pipe.encode_prompts([prompt])
+        pipe.condition_on_image(text, image)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        states = pipe.condition_on_image(text, image)
+        torch.cuda.synchronize()
+        condition_ms = (time.time() - t0) * 1e3
+    if tuple(states.shape) != (2, IMAGE_KEYS, 768) or not bool(torch.isfinite(states).all()):
+        raise AssertionError(f"image: conditioned states {tuple(states.shape)}, finite "
+                             f"{bool(torch.isfinite(states).all())}")
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = pipe(prompt, num_inference_steps=steps, guidance_scale=7.5, sample_method="ddpm", seed=400,
+               image=image)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = read_launches()
+    video = out.video
+    ok = (video.shape == (1, 16, 320, 512, 3) and video.dtype.name == "uint8"
+          and bool(torch.isfinite(out.latents).all()))
+    log(json.dumps({"phase": "image", "seconds": secs, "s_per_step": secs / steps,
+                    "frames_per_s": 16 / secs, "condition_ms": condition_ms,
+                    "states_shape": list(states.shape), "shape": list(video.shape),
+                    "dtype": video.dtype.name, "latents_finite": ok,
+                    "video_mean": float(video.mean()), "video_std": float(video.std()),
+                    "launches": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
+    if not ok:
+        raise AssertionError(f"bad image-conditioned output: {video.shape} {video.dtype}")
+    for name in ("temporal_attention", "geglu"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the image path")
+    assert_default_routes("image", launches)
+
+    # attn2 over the 154 keys: the default route against LAVIE_ATTN2=cross
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(2, 16, 40, 64, 4, generator=g, device="cuda")
+    ts = torch.full((2,), 981.0, device="cuda")
+    outs, ms, ab = {}, {}, {}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        for route in (None, "cross", "cross", None):
+            with env(LAVIE_ATTN2=route):
+                zero_launches()
+                torch.cuda.synchronize()
+                start.record()
+                y = pipe.unet(x, ts, states)
+                end.record()
+                torch.cuda.synchronize()
+            key = route or "unset"
+            if key in outs:  # the first forward of each route is its warm-up
+                ms[key] = start.elapsed_time(end)
+            outs[key], ab[key] = y.float(), read_launches()
+        zero_launches()
+        with env(LAVIE_ATTN2="fused"):
+            try:
+                pipe.unet(x, ts, states)
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+        fused_launches = sum(read_launches().values())
+    scale = outs["unset"].abs().max().item()
+    diff = (outs["cross"] - outs["unset"]).abs().max().item()
+    row = {"phase": "image_attn2", "keys": IMAGE_KEYS, "shape": list(x.shape), "ms": ms,
+           "max_abs_diff": diff, "max_abs_ref": scale, "tol": MODEL_TOL["model"],
+           "launches": {k: {n: c for n, c in v.items() if c} for k, v in ab.items()},
+           "fused_refused": refused, "fused_launches": fused_launches}
+    log(json.dumps(row))
+    if ab["cross"]["cross_attention"] != 16 or ab["unset"]["cross_attention"]:
+        raise AssertionError(f"image: cross_attention launched {ab['cross']['cross_attention']} "
+                             "times over 154 keys, expected 16")
+    if not (bool(torch.isfinite(outs["cross"]).all()) and diff <= MODEL_TOL["model"] * scale):
+        raise AssertionError(f"image: LAVIE_ATTN2=cross vs unset: {diff} > {MODEL_TOL['model']}·{scale}")
+    if refused is None or fused_launches:
+        raise AssertionError(f"image: LAVIE_ATTN2=fused over 154 keys: raised {refused!r}, "
+                             f"{fused_launches} launches")
+    del pipe, out, outs, states, text
+    torch.cuda.empty_cache()
+    return {**launches, "cross_attention_ab": ab["cross"]["cross_attention"]}
+
+
 def phase_tsr(base_video) -> dict:
     """Option 2 of the cascade: the first base video, 16 → 61 frames."""
     from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
@@ -1206,6 +1333,22 @@ def phase_cross_kernels() -> dict:
             bound_with_round_trips_ms=bound(n_bytes + 6 * b * n * c * 2, ops)[0],
             kernels_ms=kernel_ms(lambda: cb.fused_ln_cross_attention(*fargs))))
         del x, p, fargs, k, v, kt, vt
+    # the image path's attn2: 77 text and 77 mapped keys, cross_long_kernel
+    rows["cross_attention_154"] = []
+    for where, b, n, d in levels[:len(ATTENTION_LEVELS)]:
+        c, scale, lkv = h * d, d ** -0.5, IMAGE_KEYS
+        q, k, v = bf(b, n, h, d), bf(b, lkv, h, d), bf(b, lkv, h, d)
+        ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        args = (q, k, v, scale)
+        plan = ca.launch_plan(b, n, h, d, lkv, sms)
+        rows["cross_attention_154"].append(check_row(
+            "cross_attention", {"where": where, "B": b, "S": n, "H": h, "d": d, "L": lkv},
+            ca.cross_attention(*args), ca.cross_attention_reference(*args), ATTN_TOL,
+            lambda: ca.cross_attention(*args), lambda: ca.cross_attention_reference(*args),
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
+            (2 * b * n * c + 2 * b * lkv * c) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),),
+            launch_ms=time_ms(lambda: ca._launch(*args, plan))))
+        del q, k, v, ql, kl, vl, args
     torch.cuda.empty_cache()
     return rows
 
@@ -1474,6 +1617,82 @@ def expected_stage_launches(stage: str, steps: int, folded: bool, stats: bool, w
     return n
 
 
+def phase_ckpt() -> dict:
+    """Checkpoint loading at full width through the server: the base stage
+    of Predictor().setup(seed=CKPT_SEED) written in the reference layout,
+    fp32 (io/checkpoints.py::save_pipeline_params), as build/ckpt/
+    lavie_base.pt and stable-diffusion-v1-4/{vae,text_encoder}/; then
+    Predictor().setup(ckpt_dir=build/ckpt, seed=CKPT_SEED + 1). Its base
+    UNet, VAE and text tower must equal the exporter's bit for bit on the
+    card, and option 1 at one request seed must give both predictors' videos
+    within one uint8 level. The files are deleted at the end."""
+    import shutil
+
+    from lavie_tpu_torch.io.checkpoints import BASE_CKPT, SD_DIR, save_pipeline_params
+    from lavie_tpu_torch.serve import Predictor
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "ckpt")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    prompt = "a teddy bear walking on the street, 2k, high quality"
+    request = dict(interpolation=False, super_resolution=False, seed=0)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        src = Predictor()
+        src.setup(seed=CKPT_SEED)
+        torch.cuda.synchronize()
+        setup_s = time.time() - t0
+        base = src.pipeline.base
+        modules = ("unet", "vae", "text_encoder")
+        need = sum(4 * p.numel() for m in modules for p in getattr(base, m).state_dict().values())
+        free = shutil.disk_usage(root).free
+        if free < 1.1 * need:
+            raise AssertionError(f"ckpt: {free} bytes free under {root}, the files take {need}")
+        t0 = time.time()
+        save_pipeline_params(base, os.path.join(root, BASE_CKPT), os.path.join(root, SD_DIR))
+        write_s = time.time() - t0
+        files = {os.path.relpath(os.path.join(d, f), root): os.path.getsize(os.path.join(d, f))
+                 for d, _, names in os.walk(root) for f in names}
+        want = src.pipeline(prompt, **request).video
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dst = Predictor()
+        dst.setup(ckpt_dir=root, seed=CKPT_SEED + 1)
+        torch.cuda.synchronize()
+        setup_ckpt_s = time.time() - t0
+        for m in modules:
+            a, b = getattr(base, m).state_dict(), getattr(dst.pipeline.base, m).state_dict()
+            bad = [k for k in a if not torch.equal(a[k], b[k])]
+            if bad:
+                raise AssertionError(f"ckpt: {len(bad)} {m} tensors differ after loading, e.g. {bad[:3]}")
+        zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = dst.pipeline(prompt, **request).video
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        launches = read_launches()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    diff = int(abs(got.astype(int) - want.astype(int)).max())
+    log(json.dumps({"phase": "ckpt", "files": files, "file_bytes": sum(files.values()),
+                    "write_s": write_s, "setup_s": setup_s, "setup_ckpt_s": setup_ckpt_s,
+                    "option1_seconds": secs, "shape": list(got.shape),
+                    "video_max_abs_diff": diff, "weights_equal": True, "launches": launches,
+                    "deleted": not os.path.exists(root)}))
+    if diff > 1 or got.shape != (16, 320, 512, 3):
+        raise AssertionError(f"ckpt: option 1 from the loaded predictor differs by {diff} levels "
+                             f"(shape {got.shape})")
+    for name in ("temporal_attention", "geglu"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the ckpt path")
+    assert_default_routes("ckpt", launches)
+    del src, dst, base
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_cascade() -> dict:
     """The serving entry point at full width: Predictor().setup() once and
     predict(...) for option 2 (16 → 61 frames at 320x512, 50 DDPM base
@@ -1585,6 +1804,7 @@ def main() -> int:
     phase_model("model", UNetConfig.base_t2v(), 16)
     phase_model("model_tsr", UNetConfig.interpolation(), TSR_FRAMES)
     main_launches, base_video = phase_main()
+    image_launches = phase_image()
     tsr_launches = phase_tsr(base_video)
     phase_temporal(VSR_FRAMES, rope=32, b=1,
                    levels=[(s, 64) for s, _ in VSR_LEVELS[1:3]] + [(VSR_LEVELS[3][0], 128)])
@@ -1617,12 +1837,14 @@ def main() -> int:
     turbo_rows = phase_turbo_kernels()
     phase_ab_turbo("ab_turbo_vsr", UNetConfig.vsr(), VSR_FRAMES, batch=1, h=320, w=512, ctx_dim=1024)
     phase_ab_turbo("ab_turbo_base", UNetConfig.base_t2v(), 16, batch=2, h=40, w=64, ctx_dim=768)
+    ckpt_launches = phase_ckpt()
     cascade_launches = phase_cascade()
 
-    def entry(name, source, replaces, row, note=None, counter=None, ab=None):
+    def entry(name, source, replaces, row, note=None, counter=None, ab=None, extra=None):
         counter = counter or name
-        by_path = {"main": main_launches[counter], "tsr": tsr_launches[counter],
-                   "vsr": vsr_launches[counter], "cascade": cascade_launches[counter]}
+        by_path = {"main": main_launches[counter], "image": image_launches[counter],
+                   "tsr": tsr_launches[counter], "vsr": vsr_launches[counter],
+                   "ckpt": ckpt_launches[counter], "cascade": cascade_launches[counter]}
         if ab is not None:  # the launches of one A/B forward with the route set
             by_path["ab"] = ab[counter]
         e = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1632,6 +1854,8 @@ def main() -> int:
              "library_ms": row["library_ms"], "shape": row["shape"]}
         if note:
             e["note"] = note
+        if extra:
+            e.update(extra)
         return e
 
     tconv = entry("gn_silu_tconv", "lavie_tpu_torch/csrc/temporal_resblock.cu",
@@ -1678,8 +1902,13 @@ def main() -> int:
         entry("cross_attention", "lavie_tpu_torch/csrc/cross_attention.cu",
               "lavie_tpu/kernels/cross_attention.py:75", cross_rows["cross_attention"][0],
               note="opt-in (LAVIE_ATTN2=cross); the cascade path takes LAVIE_ATTN2=fused, so its "
-                   "in-model launches are those of the ab_attn2 phase",
-              ab=ab_attn2_launches["cross"]),
+                   "in-model launches are those of the ab_attn2 phase and, over the image "
+                   "path's 154 keys (cross_long_kernel), of the image phase's A/B forward",
+              ab=ab_attn2_launches["cross"],
+              extra={"launches_image_ab": image_launches["cross_attention_ab"],
+                     "keys_154": {k: cross_rows["cross_attention_154"][0][k]
+                                  for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms", "launch_ms")}}),
         entry("fused_ln_cross_attention", "lavie_tpu_torch/csrc/cross_block.cu",
               "lavie_tpu/kernels/cross_block.py:293", cross_rows["fused_ln_cross_attention"][0],
               note="entry fused_ln_cross_attention_bf16: fused_ln_kernel (the LayerNorm pass), "

@@ -7,10 +7,11 @@ without the temporary-file round trips.
 reads the same YAML keys (text_prompt, model_scale, output_folder,
 video_length, image_size, num_sampling_steps, guidance_scale,
 sample_method, interpolation, super_resolution, seed, fps, conv_quant,
-conv_quant_exclude) and writes one video per prompt. No checkpoint loader
-is ported yet, so the models carry seeded random weights; a config that
-asks for checkpoints (`ckpt_dir`, as `Predictor.setup` names them) or a
-mesh is refused with NotImplementedError rather than run without them.
+conv_quant_exclude, ckpt_dir) and writes one video per prompt. `ckpt_dir`
+loads each stage's files from one directory, as `Predictor.setup` does
+(io/checkpoints.py::load_cascade_checkpoints); a stage without its file keeps
+seeded random weights. A mesh (multi-GPU) is refused with
+NotImplementedError.
 `conv_quant: int8` turns on the int8 turbo convs in every stage
 (`conv_quant_exclude`: comma-separated patterns, "VAE" keeps the codecs
 exact). `--device` defaults to the GPU.
@@ -23,22 +24,25 @@ import os
 import sys
 
 from lavie_tpu_torch.core.config import load_yaml_config, yaml_conv_quant
+from lavie_tpu_torch.io.checkpoints import load_cascade_checkpoints
 from lavie_tpu_torch.io.video import write_video
 from lavie_tpu_torch.pipelines.cascade import VideoCascadePipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> VideoCascadePipeline:
-    for key in ("ckpt_dir", "mesh"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key}: not ported yet (checkpoints, multi-GPU)")
+    if cfg.get("mesh"):
+        raise NotImplementedError("mesh: not ported yet (multi-GPU)")
     tiny = cfg.get("model_scale", "full") == "tiny"
     if tiny:
         print("[lavie_tpu_torch] tiny cascade (random weights, smoke mode)", file=sys.stderr)
     conv_quant, conv_quant_exclude = yaml_conv_quant(cfg)
-    return VideoCascadePipeline.init_random(
+    pipe = VideoCascadePipeline.init_random(
         cfg.get("seed") or 0, tiny=tiny, conv_quant=conv_quant,
         conv_quant_exclude=conv_quant_exclude, device=device,
     )
+    if cfg.get("ckpt_dir"):
+        load_cascade_checkpoints(pipe, str(cfg["ckpt_dir"]))
+    return pipe
 
 
 def main(argv=None):

@@ -6,9 +6,10 @@ reads the same YAML keys (the reference's `args:` block: input_folder,
 output_folder, model_scale, num_frames, num_sampling_steps, guidance_scale,
 use_ddim_sample_loop, additional_prompt, negative_prompt, mask_type, seed,
 fps, conv_quant, conv_quant_exclude), interpolates every .mp4/.npy/.gif/.avi
-video in input_folder to 61 frames and writes it at the configured fps. No
-checkpoint loader is ported yet, so the models carry seeded random weights
-(a `ckpt_path` or `pretrained_path` that exists raises NotImplementedError);
+video in input_folder to 61 frames and writes it at the configured fps. A
+`ckpt_path` that exists loads the LaVie interpolation UNet (no RoPE: nothing
+to re-base), and `pretrained_path` the SD-1.4 folder's VAE and text tower
+(io/checkpoints.py); otherwise the models carry seeded random weights.
 `--device` defaults to the GPU.
 """
 
@@ -27,16 +28,15 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
-    refuse_weight_files,
     with_conv_quant,
     yaml_conv_quant,
 )
+from lavie_tpu_torch.io.checkpoints import load_pipeline_params
 from lavie_tpu_torch.io.video import read_video, write_video
 from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> VideoInterpolationPipeline:
-    refuse_weight_files(cfg)
     use_mask = bool(cfg.get("mask_type")) or cfg.get("use_mask", False)
     unet_cfg = UNetConfig.interpolation(use_mask=use_mask)
     vae_cfg, text_cfg = VAEConfig.sd(), CLIPTextConfig.vit_l()
@@ -54,11 +54,16 @@ def build_pipeline(cfg: dict, device: str = "cuda") -> VideoInterpolationPipelin
         clip_sample=False,
     )
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
-    print("[lavie_tpu_torch] no TSR checkpoint loader yet: running with seeded random "
-          "weights (outputs are noise)", file=sys.stderr)
-    return VideoInterpolationPipeline.init_random(
+    pipe = VideoInterpolationPipeline.init_random(
         cfg.get("seed") or 0, unet_cfg, vae_cfg, text_cfg, sampling, dtype=dtype, device=device
     )
+    ckpt = cfg.get("ckpt_path")
+    if ckpt and os.path.exists(str(ckpt)):
+        load_pipeline_params(pipe, str(ckpt), cfg.get("pretrained_path"))
+    else:
+        print("[lavie_tpu_torch] no TSR checkpoint: running with seeded random weights "
+              "(outputs are noise)", file=sys.stderr)
+    return pipe
 
 
 def main(argv=None):

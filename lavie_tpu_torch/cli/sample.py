@@ -4,11 +4,14 @@
 
 reads the same YAML keys (text_prompt, image_size, video_length, beta
 schedule, sample_method, num_sampling_steps, guidance_scale, seed, fps,
-output_folder, model_scale, conv_quant, conv_quant_exclude). No checkpoint
-loader is ported yet, so the models carry seeded random weights: a
-`ckpt_path` or `pretrained_path` that exists, and any `image_path` or
-`image_paths` (image conditioning), raise NotImplementedError instead of
-being ignored. `--device` defaults to the GPU.
+output_folder, model_scale, conv_quant, conv_quant_exclude). A `ckpt_path`
+that exists loads the LaVie base UNet, and `pretrained_path` the SD-1.4
+folder's VAE and text tower (io/checkpoints.py); otherwise the models carry
+seeded random weights. `image_path` (one image for every prompt) or
+`image_paths` (one per prompt) condition the videos on images through the
+CLIP vision tower and the MappingNetwork, which have no published weights
+and stay random, as in the JAX CLI, whose checkpoint-loaded pipeline has no
+image towers. `--device` defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import argparse
 import os
 import sys
 
+import numpy as np
 import torch
 
 from lavie_tpu_torch.core.config import (
@@ -25,19 +29,15 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
-    refuse_weight_files,
     with_conv_quant,
     yaml_conv_quant,
 )
+from lavie_tpu_torch.io.checkpoints import load_pipeline_params
 from lavie_tpu_torch.io.video import write_video
 from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> TextToVideoPipeline:
-    refuse_weight_files(cfg)
-    for key in ("image_path", "image_paths"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key}: image conditioning is not ported yet")
     size = cfg.get("image_size", [320, 512])
     sampling = SamplingConfig(
         video_length=cfg.get("video_length", 16),
@@ -59,11 +59,26 @@ def build_pipeline(cfg: dict, device: str = "cuda") -> TextToVideoPipeline:
     quant = yaml_conv_quant(cfg)
     unet_cfg, vae_cfg = with_conv_quant(unet_cfg, *quant), with_conv_quant(vae_cfg, *quant)
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
-    print("[lavie_tpu_torch] running with seeded random weights (outputs are noise)",
-          file=sys.stderr)
+    ckpt_path = cfg.get("ckpt_path")
+    if ckpt_path and os.path.exists(str(ckpt_path)):
+        pipe = TextToVideoPipeline.init_random(0, unet_cfg, vae_cfg, text_cfg, sampling,
+                                               dtype=dtype, device=device)
+        load_pipeline_params(pipe, str(ckpt_path), cfg.get("pretrained_path"))
+        return pipe
+    print("[lavie_tpu_torch] no checkpoint found: running with seeded random weights "
+          "(outputs are noise)", file=sys.stderr)
     return TextToVideoPipeline.init_random(
-        cfg.get("seed") or 0, unet_cfg, vae_cfg, text_cfg, sampling, dtype=dtype, device=device
+        cfg.get("seed") or 0, unet_cfg, vae_cfg, text_cfg, sampling, dtype=dtype, device=device,
+        with_image_conditioning=bool(cfg.get("image_path") or cfg.get("image_paths")),
     )
+
+
+def read_image(path: str) -> np.ndarray:
+    """An image file → uint8 (H, W, 3). PIL is imported only here: a run
+    without images needs none."""
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
 
 
 def main(argv=None):
@@ -75,10 +90,17 @@ def main(argv=None):
     pipeline = build_pipeline(cfg, args.device)
     out_dir = cfg.get("output_folder", "./res/base/")
     os.makedirs(out_dir, exist_ok=True)
+    prompts = cfg.get("text_prompt", [])
+    # one image for every prompt, or one per prompt (the fork's sample.py
+    # zips text_prompt with image_paths, reference: base/pipelines/sample.py:78-89)
+    image_paths = cfg.get("image_paths") or [cfg.get("image_path")] * len(prompts)
     written = []
-    for prompt in cfg.get("text_prompt", []):
+    for prompt, image_path in zip(prompts, image_paths):
         print(f"Processing the ({prompt}) prompt")
-        out = pipeline(prompt, seed=cfg.get("seed"))
+        image = None
+        if image_path and os.path.exists(str(image_path)):
+            image = read_image(str(image_path))
+        out = pipeline(prompt, seed=cfg.get("seed"), image=image)
         path = os.path.join(out_dir, prompt.replace(" ", "_") + ".mp4")
         written.append(write_video(path, out.video[0], fps=cfg.get("fps", 8)))
         print(f"wrote {written[-1]}")

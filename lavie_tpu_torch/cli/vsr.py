@@ -5,9 +5,10 @@
 reads the same YAML keys (input_path, output_path, model_scale,
 noise_level, guidance_scale, inference_steps, negative_prompt, window, fps,
 conv_quant, conv_quant_exclude) and upscales every .mp4/.npy/.gif/.avi video
-in input_path ×4. No checkpoint loader is ported yet, so the models carry
-seeded random weights (a `ckpt_path` or `pretrained_path` that exists raises
-NotImplementedError); `--device` defaults to the GPU.
+in input_path ×4. A `ckpt_path` that exists loads the LaVie VSR UNet, and
+`pretrained_path` the x4 upscaler folder's VAE and OpenCLIP-H text tower
+(transformers' CLIPTextModel layout; io/checkpoints.py); otherwise the
+models carry seeded random weights. `--device` defaults to the GPU.
 """
 
 from __future__ import annotations
@@ -26,16 +27,15 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
     load_yaml_config,
-    refuse_weight_files,
     with_conv_quant,
     yaml_conv_quant,
 )
+from lavie_tpu_torch.io.checkpoints import load_pipeline_params
 from lavie_tpu_torch.io.video import read_video, write_video
 from lavie_tpu_torch.pipelines.vsr import VideoSuperResolutionPipeline
 
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> VideoSuperResolutionPipeline:
-    refuse_weight_files(cfg)
     unet_cfg, vae_cfg, text_cfg = UNetConfig.vsr(), VAEConfig.vsr(), CLIPTextConfig.open_clip_h()
     if cfg.get("model_scale", "full") == "tiny":
         unet_cfg, vae_cfg, text_cfg = unet_cfg.tiny(), vae_cfg.tiny(), text_cfg.tiny()
@@ -43,12 +43,17 @@ def build_pipeline(cfg: dict, device: str = "cuda") -> VideoSuperResolutionPipel
     unet_cfg, vae_cfg = with_conv_quant(unet_cfg, *quant), with_conv_quant(vae_cfg, *quant)
     sampling = SamplingConfig.vsr()
     dtype = torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
-    print("[lavie_tpu_torch] no VSR checkpoint loader yet: running with seeded random "
-          "weights (outputs are noise)", file=sys.stderr)
-    return VideoSuperResolutionPipeline.init_random(
+    pipe = VideoSuperResolutionPipeline.init_random(
         10, unet_cfg, vae_cfg, text_cfg, sampling, dtype=dtype, device=device,
         noise_level=cfg.get("noise_level", 50), window=cfg.get("window", 8),
     )
+    ckpt = cfg.get("ckpt_path")
+    if ckpt and os.path.exists(str(ckpt)):
+        load_pipeline_params(pipe, str(ckpt), cfg.get("pretrained_path"))
+    else:
+        print("[lavie_tpu_torch] no VSR checkpoint: running with seeded random weights "
+              "(outputs are noise)", file=sys.stderr)
+    return pipe
 
 
 def main(argv=None):

@@ -11,7 +11,6 @@ vsr/configs/sample.yaml).
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Any, Optional, Sequence, Tuple, Union
 
 
@@ -205,6 +204,8 @@ class CLIPTextConfig:
     # the MLP's activation: "quick_gelu" (the OpenAI ViT-L towers) or "gelu"
     # (erf-exact; the x4-upscaler's OpenCLIP-H text tower)
     hidden_act: str = "quick_gelu"
+    # the joint text-image embedding width of CLIPDualEncoder's projections
+    projection_dim: int = 768
 
     @classmethod
     def vit_l(cls) -> "CLIPTextConfig":
@@ -226,6 +227,29 @@ class CLIPTextConfig:
             intermediate_size=64,
             max_position_embeddings=16,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    """CLIP vision tower. Defaults are ViT-L/14, the fork's
+    image-conditioning tower (reference: base/pipelines/inference.py:286-292)."""
+
+    image_size: int = 224
+    patch_size: int = 14
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def num_positions(self) -> int:
+        """The patches and the class token."""
+        return (self.image_size // self.patch_size) ** 2 + 1
+
+    def tiny(self) -> "CLIPVisionConfig":
+        return dataclasses.replace(self, image_size=28, patch_size=14, hidden_size=32,
+                                   num_layers=2, num_heads=2, intermediate_size=64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,18 +315,6 @@ def yaml_conv_quant(cfg: dict) -> Tuple[str, Tuple[str, ...]]:
     the patterns comma-separated (lavie_tpu/cli/sample.py's surface)."""
     exclude = tuple(p for p in str(cfg.get("conv_quant_exclude", "")).split(",") if p)
     return str(cfg.get("conv_quant", "none")), exclude
-
-
-def refuse_weight_files(cfg: dict, keys: Sequence[str] = ("ckpt_path", "pretrained_path")) -> None:
-    """Raise NotImplementedError naming the key when one of `keys` names a
-    path that exists: the JAX CLIs load those weights, and the port has no
-    checkpoint loader yet, so it must not run random weights in their place.
-    A missing path keeps the random-weight run, as in the JAX CLIs."""
-    for key in keys:
-        path = cfg.get(key)
-        if path and os.path.exists(str(path)):
-            raise NotImplementedError(f"{key}: {path} exists, but the port cannot load "
-                                      "checkpoints yet")
 
 
 def load_yaml_config(path: str) -> dict:

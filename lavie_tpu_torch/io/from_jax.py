@@ -14,7 +14,12 @@ half-split RoPE basis, so this is a key map plus transposes:
   scale/bias/embedding/raw params → copied
 
 The key map is the one lavie_tpu.io.convert applies to torch checkpoints,
-kept here in the port's own code.
+kept here in the port's own code. The image-conditioning towers map by the
+same rules: the vision tower's ('layers_3', 'self_attn', 'q_proj', 'kernel')
+→ 'layers.3.self_attn.q_proj.weight', its patch conv's (14, 14, 3, O)
+kernel → Conv2d (O, 3, 14, 14), `class_embedding`/`position_embedding`
+copied; the MappingNetwork keeps the JAX names (`image_proj`,
+`image_pos_embedding`, `layers_i` → `layers.i`, `norm1..3`, `linear1/2`).
 """
 
 from __future__ import annotations

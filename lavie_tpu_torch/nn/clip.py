@@ -1,7 +1,11 @@
-"""CLIP text encoder (port of lavie_tpu.nn.clip.CLIPTextModel): pre-LN
-blocks, causal mask, a quick-gelu (ViT-L) or erf-gelu (OpenCLIP-H) MLP.
-Token ids (B, L) → last_hidden_state (B, L, hidden). Parameter names follow the JAX package's flat layout
-(`layers.N.self_attn.q_proj`, `token_embedding`, `position_embedding`)."""
+"""CLIP towers (port of lavie_tpu.nn.clip): the text encoder (pre-LN blocks,
+causal mask, a quick-gelu (ViT-L) or erf-gelu (OpenCLIP-H) MLP; token ids
+(B, L) → last_hidden_state (B, L, hidden)), the ViT vision tower of the
+fork's image conditioning (NHWC pixels → (B, 1 + patches, hidden), blocks
+without a mask) and the dual encoder that pools and projects both.
+Parameter names follow the JAX package's flat layout (`layers.N.self_attn.
+q_proj`, `token_embedding`, `position_embedding`, `patch_embedding`,
+`class_embedding`, the reference's `pre_layrnorm`)."""
 
 from __future__ import annotations
 
@@ -9,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from lavie_tpu_torch.core.config import CLIPTextConfig
+from lavie_tpu_torch.core.config import CLIPTextConfig, CLIPVisionConfig
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
@@ -20,9 +24,9 @@ def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPAttention(nn.Module):
-    def __init__(self, hidden_size: int, num_heads: int):
+    def __init__(self, hidden_size: int, num_heads: int, causal: bool = True):
         super().__init__()
-        self.num_heads = num_heads
+        self.num_heads, self.causal = num_heads, causal
         self.q_proj = nn.Linear(hidden_size, hidden_size)
         self.k_proj = nn.Linear(hidden_size, hidden_size)
         self.v_proj = nn.Linear(hidden_size, hidden_size)
@@ -35,7 +39,7 @@ class CLIPAttention(nn.Module):
             p(x).view(b, s, self.num_heads, hd).transpose(1, 2)
             for p in (self.q_proj, self.k_proj, self.v_proj)
         )
-        out = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=self.causal)
         return self.out_proj(out.transpose(1, 2).reshape(b, s, c))
 
 
@@ -59,12 +63,13 @@ class CLIPMLP(nn.Module):
 
 
 class CLIPEncoderLayer(nn.Module):
-    def __init__(self, cfg: CLIPTextConfig):
+    def __init__(self, cfg, causal: bool = True):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads)
+        self.self_attn = CLIPAttention(cfg.hidden_size, cfg.num_heads, causal)
         self.layer_norm2 = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size, cfg.hidden_act)
+        self.mlp = CLIPMLP(cfg.hidden_size, cfg.intermediate_size,
+                           getattr(cfg, "hidden_act", "quick_gelu"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.self_attn(_layer_norm(self.layer_norm1, x))
@@ -89,3 +94,63 @@ class CLIPTextModel(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return _layer_norm(self.final_layer_norm, x)
+
+
+class CLIPVisionModel(nn.Module):
+    """Pixels (B, H, W, 3), CLIP-normalised (eval.clipsim.clip_preprocess) →
+    last_hidden_state (B, 1 + patches, hidden). The image conditioning reads
+    the raw last_hidden_state; `with_post_layernorm` adds the final
+    `post_layernorm`, whose class token the dual encoder pools."""
+
+    def __init__(self, config: CLIPVisionConfig, with_post_layernorm: bool = False):
+        super().__init__()
+        self.config = config
+        c = config.hidden_size
+        self.patch_embedding = nn.Conv2d(3, c, config.patch_size, stride=config.patch_size,
+                                         bias=False)
+        self.class_embedding = nn.Parameter(torch.randn(c) * 0.02)
+        self.position_embedding = nn.Parameter(torch.randn(config.num_positions, c) * 0.02)
+        self.pre_layrnorm = nn.LayerNorm(c, eps=config.layer_norm_eps)
+        self.layers = nn.ModuleList([CLIPEncoderLayer(config, causal=False)
+                                     for _ in range(config.num_layers)])
+        self.post_layernorm = (nn.LayerNorm(c, eps=config.layer_norm_eps)
+                               if with_post_layernorm else None)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        x = pixel_values.to(self.patch_embedding.weight.dtype).permute(0, 3, 1, 2)
+        patches = self.patch_embedding(x).flatten(2).transpose(1, 2)  # (B, h·w, C), rows first
+        cls = self.class_embedding.to(patches.dtype).expand(patches.shape[0], 1, -1)
+        x = torch.cat([cls, patches], dim=1) + self.position_embedding.to(patches.dtype)
+        x = _layer_norm(self.pre_layrnorm, x)
+        for layer in self.layers:
+            x = layer(x)
+        return x if self.post_layernorm is None else _layer_norm(self.post_layernorm, x)
+
+
+class CLIPDualEncoder(nn.Module):
+    """The CLIP joint text-image embedding model (transformers CLIPModel):
+    EOS-pooled text through `text_projection`, the post-LN class token
+    through `visual_projection`, both without bias."""
+
+    def __init__(self, text_config: CLIPTextConfig, vision_config: CLIPVisionConfig):
+        super().__init__()
+        self.text_model = CLIPTextModel(text_config)
+        self.vision_model = CLIPVisionModel(vision_config, with_post_layernorm=True)
+        proj = text_config.projection_dim
+        self.text_projection = nn.Linear(text_config.hidden_size, proj, bias=False)
+        self.visual_projection = nn.Linear(vision_config.hidden_size, proj, bias=False)
+
+    def get_text_embeds(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """(B, L) ids → (B, proj), pooled at the first EOS: the end-of-text
+        id is the vocabulary's highest and the padding repeats it, so the
+        first argmax finds it."""
+        hidden = self.text_model(input_ids)
+        eos = torch.argmax(input_ids, dim=-1)
+        return self.text_projection(hidden[torch.arange(hidden.shape[0], device=hidden.device), eos])
+
+    def get_image_embeds(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 3) → (B, proj)."""
+        return self.visual_projection(self.vision_model(pixel_values)[:, 0])
+
+    def forward(self, input_ids: torch.Tensor, pixel_values: torch.Tensor):
+        return self.get_text_embeds(input_ids), self.get_image_embeds(pixel_values)

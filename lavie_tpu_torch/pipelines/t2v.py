@@ -1,11 +1,14 @@
 """Base text-to-video pipeline (port of lavie_tpu.pipelines.t2v).
 
-    pipe = TextToVideoPipeline.init_random(seed=0)          # or load weights
+    pipe = TextToVideoPipeline.init_random(seed=0)          # or io.checkpoints
     video = pipe("a teddy bear walking on the street").video  # (1,16,320,512,3) uint8
 
 The prompt batch is doubled as [uncond; cond] for classifier-free guidance,
 the UNet runs the DDPM (or DDIM / Euler) loop in Python, and the SD VAE
-decodes every frame to uint8.
+decodes every frame to uint8. A pipeline built with a vision config (the
+fork's image conditioning, reference: base/pipelines/inference.py:67-629)
+also takes an image: its CLIP vision tokens, mapped by the MappingNetwork,
+are concatenated onto both halves of the text states (2B, 77 + 77, D).
 """
 
 from __future__ import annotations
@@ -18,7 +21,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from lavie_tpu_torch.core.config import CLIPTextConfig, SamplingConfig, UNetConfig, VAEConfig
+from lavie_tpu_torch.core.config import (
+    CLIPTextConfig,
+    CLIPVisionConfig,
+    SamplingConfig,
+    UNetConfig,
+    VAEConfig,
+)
 from lavie_tpu_torch.diffusion.samplers import (
     classifier_free_guidance,
     ddim_step,
@@ -30,9 +39,11 @@ from lavie_tpu_torch.diffusion.samplers import (
     prev_timesteps,
 )
 from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
+from lavie_tpu_torch.eval.clipsim import clip_preprocess
 from lavie_tpu_torch.io.from_jax import load_jax_params
 from lavie_tpu_torch.io.tokenizer import CLIPTokenizer
-from lavie_tpu_torch.nn.clip import CLIPTextModel
+from lavie_tpu_torch.nn.clip import CLIPTextModel, CLIPVisionModel
+from lavie_tpu_torch.nn.mapping import MappingNetwork
 from lavie_tpu_torch.nn.unet import UNet3D
 from lavie_tpu_torch.nn.vae import AutoencoderKL
 
@@ -64,8 +75,15 @@ def random_init_(module: nn.Module, seed: int) -> None:
                 p.copy_(0.02 * noise)
 
 
+# the image towers' weight seeds: 2·seed and 2·seed + 1 above this, which no
+# other module of a pipeline or a cascade takes (theirs are small multiples
+# of the seed)
+IMAGE_SEED_BASE = 1 << 32
+
+
 class TextToVideoPipeline:
-    """Owns the text encoder, UNet and VAE on one device, in one dtype."""
+    """Owns the text encoder, UNet and VAE on one device, in one dtype, and
+    with a `vision_config` the CLIP vision tower and the MappingNetwork."""
 
     def __init__(
         self,
@@ -76,8 +94,10 @@ class TextToVideoPipeline:
         tokenizer: Optional[CLIPTokenizer] = None,
         dtype: torch.dtype = torch.bfloat16,
         device: Union[str, torch.device] = "cuda",
+        vision_config: Optional[CLIPVisionConfig] = None,
     ):
         self.unet_config, self.vae_config, self.text_config = unet_config, vae_config, text_config
+        self.vision_config = vision_config
         self.sampling = sampling
         self.dtype = dtype
         self.device = torch.device(device)
@@ -88,6 +108,17 @@ class TextToVideoPipeline:
             self.unet = UNet3D(unet_config).to(dtype).eval()
             self.vae = AutoencoderKL(vae_config).to(dtype).eval()
             self.text_encoder = CLIPTextModel(text_config).to(dtype).eval()
+            self.vision_encoder = self.mapping = None
+            if vision_config is not None:
+                # the JAX package's mapper: 2 layers and heads for tiny text
+                # towers, the fork's 12 at full width
+                small = text_config.hidden_size < 256
+                self.vision_encoder = CLIPVisionModel(vision_config).to(dtype).eval()
+                self.mapping = MappingNetwork(
+                    input_dim=vision_config.hidden_size, output_dim=text_config.hidden_size,
+                    num_layers=2 if small else 12, num_heads=2 if small else 12,
+                    seq_len_in=vision_config.num_positions,
+                    seq_len_out=text_config.max_position_embeddings).to(dtype).eval()
         self.schedule = NoiseSchedule.create(
             sampling.beta_schedule, sampling.num_train_timesteps, sampling.beta_start,
             sampling.beta_end,
@@ -103,19 +134,37 @@ class TextToVideoPipeline:
         sampling: SamplingConfig = SamplingConfig(),
         dtype: torch.dtype = torch.bfloat16,
         device: Union[str, torch.device] = "cuda",
+        with_image_conditioning: bool = False,
+        vision_config: Optional[CLIPVisionConfig] = None,
     ) -> "TextToVideoPipeline":
         """A pipeline with seeded random weights (random_init_), made
-        directly on `device`: for benchmarking and weight-free testing."""
-        pipe = cls(unet_config, vae_config, text_config, sampling, dtype=dtype, device=device)
+        directly on `device`: for benchmarking and weight-free testing. With
+        image conditioning the vision tower (ViT-L/14, or its tiny config
+        when the text tower is narrower than 256) and the MappingNetwork
+        take seeds of their own (IMAGE_SEED_BASE), so the UNet, VAE and text
+        weights are those of the same seed without it."""
+        towers = {}
+        if with_image_conditioning:
+            towers["vision_config"] = vision_config or (
+                CLIPVisionConfig().tiny() if text_config.hidden_size < 256 else CLIPVisionConfig())
+        pipe = cls(unet_config, vae_config, text_config, sampling, dtype=dtype, device=device,
+                   **towers)
         for i, m in enumerate((pipe.unet, pipe.vae, pipe.text_encoder)):
             random_init_(m, seed * 3 + i)
+        if pipe.mapping is not None:
+            random_init_(pipe.vision_encoder, IMAGE_SEED_BASE + 2 * seed)
+            random_init_(pipe.mapping, IMAGE_SEED_BASE + 2 * seed + 1)
         return pipe
 
     def load_jax_params(self, params: Mapping[str, Any]) -> None:
         """Load the JAX pipeline's param dict ({"unet", "vae",
-        "text_encoder"} flax trees) strictly, keeping this pipeline's dtype
+        "text_encoder"} flax trees, and "vision_encoder" and "mapping" for an
+        image-conditioned pipeline) strictly, keeping this pipeline's dtype
         and device."""
-        for name in ("unet", "vae", "text_encoder"):
+        names = ["unet", "vae", "text_encoder"]
+        if self.mapping is not None:
+            names += ["vision_encoder", "mapping"]
+        for name in names:
             module = getattr(self, name)
             load_jax_params(module, params[name])
             module.to(device=self.device, dtype=self.dtype)
@@ -128,6 +177,28 @@ class TextToVideoPipeline:
         )
         ids = torch.from_numpy(ids.astype(np.int64)).to(self.device)
         return self.text_encoder(ids).to(self.dtype)
+
+    @torch.no_grad()
+    def condition_on_image(self, states: torch.Tensor, image: np.ndarray) -> torch.Tensor:
+        """(2B, L, D) [uncond; cond] text states → (2B, L + L, D): the image,
+        uint8 (H, W, 3) (CLIP-preprocessed here) or already preprocessed
+        (image_size, image_size, 3) or (1, ...), broadcast to the B prompts;
+        the vision tower runs once over them, the mapper over both halves
+        (reference: base/pipelines/inference.py:286-349)."""
+        if self.mapping is None:
+            raise ValueError("image conditioning needs a pipeline built with "
+                             "with_image_conditioning or a vision_config")
+        img = np.asarray(image)
+        if img.dtype == np.uint8:
+            img = clip_preprocess(img[None], self.vision_config.image_size)
+        elif img.ndim == 3:
+            img = img[None]
+        batch = states.shape[0] // 2
+        img = torch.as_tensor(np.broadcast_to(img, (batch,) + img.shape[1:]).copy(),
+                              device=self.device).to(self.dtype)
+        tokens = self.vision_encoder(img)
+        mapped = self.mapping(torch.cat([tokens, tokens]), states).to(self.dtype)
+        return torch.cat([states, mapped], dim=1)
 
     @torch.no_grad()
     def decode(self, latents: torch.Tensor, decode_chunk: int = 0) -> np.ndarray:
@@ -157,9 +228,11 @@ class TextToVideoPipeline:
         latents: Optional[np.ndarray] = None,
         decode_chunk: int = 0,
         text_states: Optional[np.ndarray] = None,
+        image: Optional[np.ndarray] = None,
     ) -> PipelineOutput:
         """`latents` (B, F, h, w, 4) replace the seeded initial noise;
-        `text_states` (2B, L, D) [uncond; cond] replace the text encoder."""
+        `text_states` (2B, L, D) [uncond; cond] replace the text encoder;
+        `image` conditions every prompt on one image (condition_on_image)."""
         cfg = self.sampling
         f8 = self.vae_config.downscale_factor
         if latents is not None and video_length is None:
@@ -180,6 +253,8 @@ class TextToVideoPipeline:
         else:
             states = self.encode_prompts(prompts, negative_prompt)
             batch = len(prompts)
+        if image is not None:
+            states = self.condition_on_image(states, image)
 
         gen = torch.Generator(device=self.device).manual_seed(seed if seed is not None else 0)
         shape = (batch, video_length, height // f8, width // f8, self.unet_config.in_channels)

@@ -16,11 +16,9 @@ from typing import Optional, Union
 
 import torch
 
+from lavie_tpu_torch.io.checkpoints import load_cascade_checkpoints
 from lavie_tpu_torch.io.video import write_video
 from lavie_tpu_torch.pipelines.cascade import VideoCascadePipeline
-
-CHECKPOINTS = ("lavie_base.pt", "lavie_interpolation.pt", "lavie_vsr.pt",
-               "stable-diffusion-v1-4", "stable-diffusion-x4-upscaler")
 
 
 class Predictor:
@@ -38,16 +36,18 @@ class Predictor:
         conv_quant_exclude: tuple = (),
         device: Union[str, torch.device] = "cuda",
     ) -> None:
-        """Build the cascade with seeded random weights on `device`. Loading
-        checkpoints from `ckpt_dir` is not ported yet."""
-        if ckpt_dir:
-            raise NotImplementedError(
-                f"Predictor.setup(ckpt_dir=...): loading {', '.join(CHECKPOINTS)} from "
-                f"{ckpt_dir} is not ported yet")
+        """Build the cascade with seeded random weights on `device`, then
+        load from `ckpt_dir` whichever of lavie_base.pt,
+        lavie_interpolation.pt and lavie_vsr.pt it holds, each with its
+        stable-diffusion-v1-4/ or stable-diffusion-x4-upscaler/ VAE and text
+        tower (io/checkpoints.py::load_cascade_checkpoints); a stage whose
+        file is absent keeps its random weights."""
         self.pipeline = VideoCascadePipeline.init_random(
             seed, tiny=tiny, conv_quant=conv_quant,
             conv_quant_exclude=tuple(conv_quant_exclude), device=device,
         )
+        if ckpt_dir:
+            load_cascade_checkpoints(self.pipeline, ckpt_dir)
 
     def predict(
         self,

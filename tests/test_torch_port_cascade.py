@@ -3,7 +3,7 @@ cascade's output shapes for options 1-4 (those of tests/test_cascade.py for
 the JAX package), each bit-identical to chaining the port's three stage
 pipelines by hand with the same seeds and prompts; the Predictor writes a
 video that reads back at its shape and frame rate; the cascade CLI writes
-one video per prompt and refuses what is not ported; the int8 turbo mode
+one video per prompt and refuses a mesh; the int8 turbo mode
 through the Predictor, the cascade and the four CLIs' YAML keys. Each stage's parity
 with the JAX package is held by test_torch_port_{pipeline,tsr,vsr}.py.
 """
@@ -144,11 +144,6 @@ def test_predictor_writes_a_video(tmp_path, monkeypatch, interpolation, fps, fra
     assert video_io.read_video(path).shape == (frames, 64, 64, 3)
 
 
-def test_predictor_refuses_checkpoints():
-    with pytest.raises(NotImplementedError, match="lavie_base.pt"):
-        Predictor().setup(ckpt_dir="/nonexistent", tiny=True, device="cpu")
-
-
 def _tiny_config(tmp_path, extra=""):
     """configs/cascade_tiny.yaml with two prompts and the base stage only
     (the interpolation and VSR stages run their default 50 steps from this
@@ -172,7 +167,7 @@ def test_cli_writes_one_video_per_prompt(tmp_path):
     assert all(os.path.dirname(p) == str(tmp_path / "out") for p in written)
 
 
-@pytest.mark.parametrize("extra", ["mesh: [1, 4]\n", "ckpt_dir: /nonexistent\n"])
+@pytest.mark.parametrize("extra", ["mesh: [1, 4]\n"])
 def test_cli_refuses_what_is_not_ported(tmp_path, extra):
     from lavie_tpu_torch.cli.cascade import main
 

@@ -100,11 +100,13 @@ def test_turbo_is_off_by_default_at_every_entry_point():
 
 
 def test_every_new_module_is_checked():
-    """The text cross-attention, temporal projection and host codec modules
-    are among the files the import checks above walk."""
+    """The text cross-attention, temporal projection, host codec, checkpoint
+    and image-conditioning modules are among the files the import checks
+    above walk."""
     checked = {str(p.relative_to(ROOT)) for p in FILES}
     for rel in ("kernels/cross_attention.py", "kernels/temporal_proj.py", "native/__init__.py",
-                "native/mjpeg.py"):
+                "native/mjpeg.py", "io/checkpoints.py", "io/convert.py", "nn/clip.py",
+                "nn/mapping.py", "eval/__init__.py", "eval/clipsim.py"):
         assert f"lavie_tpu_torch/{rel}" in checked
 
 
