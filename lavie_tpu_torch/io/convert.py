@@ -28,7 +28,7 @@ inverse: a port module → the reference layout.
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping
 
 import numpy as np
 import torch
@@ -129,8 +129,7 @@ def _to_port(v: np.ndarray, target: torch.Tensor, key: str, qk: re.Pattern, head
 
 
 def load_reference_state_dict(module: nn.Module, sd: Mapping[str, np.ndarray], *,
-                              heads: int, rot_dim: int, allow_missing_temporal: bool = True,
-                              strict: bool = False) -> None:
+                              heads: int, rot_dim: int, strict: bool = False) -> None:
     """Load a reference (diffusers-keyed, interleaved-RoPE) state dict into
     a port module in place: keys normalised, 1×1 convs squeezed onto Linear,
     conv_in widened, the q/k rows of every temporal attention re-based.
@@ -144,7 +143,7 @@ def load_reference_state_dict(module: nn.Module, sd: Mapping[str, np.ndarray], *
     for key, target in module.state_dict().items():
         if key in sd:
             out[key] = torch.from_numpy(_to_port(sd[key], target, key, qk, heads, rot_dim))
-        elif allow_missing_temporal and _is_temporal(key):
+        elif _is_temporal(key):
             out[key] = target
         else:
             missing.append(key)
@@ -196,14 +195,14 @@ def convert_clip_dual_encoder(module: CLIPDualEncoder, sd: Mapping[str, np.ndarr
         layer.load_state_dict({"weight": torch.from_numpy(np.ascontiguousarray(w))})
 
 
-def export_reference_state_dict(module: nn.Module, *, heads: int = 1, rot_dim: int = 0,
-                                vsr: Optional[bool] = None) -> Dict[str, np.ndarray]:
+def export_reference_state_dict(module: nn.Module, *, heads: int = 1,
+                                rot_dim: int = 0) -> Dict[str, np.ndarray]:
     """A port module → fp32 numpy arrays in the reference layout, the inverse
     of load_reference_state_dict (and of convert_clip_text/vision for the
     CLIP towers, which come out in transformers' keys): the temporal q/k rows
     back in the interleaved basis; a UNet's proj_in/proj_out as 1×1 convs,
-    but for the VSR UNet's (`vsr`, by default a UNet3D with temporal
-    modules), which are Linear there, as is its temporal attention's name
+    but for the VSR UNet's (the UNet with temporal modules), which are
+    Linear there, as is its temporal attention's name
     `attn_temporal`/`norm_temporal`; TemporalConv weights as Conv3d's
     (O, I, k, 1, 1). Rotary `inv_freq` buffers, derived constants that the
     loader drops, are not written."""
@@ -211,8 +210,7 @@ def export_reference_state_dict(module: nn.Module, *, heads: int = 1, rot_dim: i
         return _export_clip(module, "text_model.", _CLIP_TEXT_KEYS)
     if isinstance(module, CLIPVisionModel):
         return _export_clip(module, "vision_model.", _CLIP_VISION_KEYS)
-    if vsr is None:
-        vsr = isinstance(module, UNet3D) and module.config.use_temporal_modules
+    vsr = isinstance(module, UNet3D) and module.config.use_temporal_modules
     conv_proj = isinstance(module, UNet3D) and not vsr
     qk = _BARE_QK if isinstance(module, TemporalAttention) else _TEMPORAL_QK
     conv3d = {f"{name}.weight" for name, m in module.named_modules() if isinstance(m, TemporalConv)}
