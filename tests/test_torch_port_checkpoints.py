@@ -36,6 +36,7 @@ from lavie_tpu_torch.io.checkpoints import (
     save_pipeline_params,
     unet_rebasis,
 )
+from lavie_tpu_torch.io.from_jax import load_jax_params
 from lavie_tpu_torch.io.convert import (
     convert_clip_text,
     convert_clip_vision,
@@ -122,29 +123,31 @@ def _write(path, sd, wrap):
 # --- the goldens through the files ---------------------------------------------------
 
 
-@pytest.mark.parametrize("wrap", ["ema", "state_dict", None])
-@pytest.mark.parametrize("name", sorted(PSNR_FLOOR))
+@pytest.mark.parametrize("name,wrap", [("pipeline_base", "ema"), ("pipeline_tsr", "ema"),
+                                       ("pipeline_vsr", "ema"), ("pipeline_base", "state_dict"),
+                                       ("pipeline_base", None)])
 def test_golden_replays_through_checkpoint_files(tmp_path, name, wrap):
     """The golden's fp16 state dicts written as a .pt (wrapped in `ema`, in
     `state_dict`, or bare) and a diffusers `vae/` folder, loaded by
-    load_pipeline_params, replay the reference run at no less than the
-    direct loader's PSNR, to the uint8 level the direct loader's video."""
+    load_pipeline_params: the same weights, bit for bit, as the golden
+    tests' direct loading from the arrays, and the reference run replayed
+    at no less than their PSNR."""
     z, meta, sds = _golden(name)
     _write(str(tmp_path / "unet.pt"), sds["unet"], wrap)
     _write(str(tmp_path / "sd" / "vae" / "diffusion_pytorch_model.bin"), sds["vae"], None)
     pipe = _golden_pipeline(name, meta)
     load_pipeline_params(pipe, str(tmp_path / "unet.pt"), str(tmp_path / "sd"))
-    video = _replay(name, pipe, z, meta)
-    psnr = _psnr(video, z["video"])
+    direct = _golden_pipeline(name, meta)
+    rebasis = unet_rebasis(direct.unet_config)
+    for module in ("unet", "vae"):
+        sd = {k: v.astype(np.float32) for k, v in sds[module].items()}
+        load_reference_state_dict(getattr(direct, module), sd,
+                                  **(rebasis if module == "unet" else {"heads": 1, "rot_dim": 0}))
+        a, b = getattr(pipe, module).state_dict(), getattr(direct, module).state_dict()
+        assert all(torch.equal(a[k], b[k]) for k in a), module
+    psnr = _psnr(_replay(name, pipe, z, meta), z["video"])
     print(f"{name} through the files ({wrap}): {psnr:.2f} dB")
     assert round(psnr, 2) >= PSNR_FLOOR[name], f"{name}: {psnr:.2f} dB < {PSNR_FLOOR[name]}"
-    direct = _golden_pipeline(name, meta)  # the golden tests' loading, from the arrays
-    rebasis = unet_rebasis(direct.unet_config)
-    load_reference_state_dict(direct.unet, {k: v.astype(np.float32) for k, v in sds["unet"].items()},
-                              **rebasis)
-    load_reference_state_dict(direct.vae, {k: v.astype(np.float32) for k, v in sds["vae"].items()},
-                              **rebasis)
-    np.testing.assert_array_equal(video, _replay(name, direct, z, meta))
 
 
 @pytest.mark.parametrize("name", sorted(PSNR_FLOOR))
@@ -170,13 +173,16 @@ def test_loader_matches_the_jax_loader_with_rebasis(tmp_path, name):
     junet, jvae = jcfg(JUNet, meta["unet"]), jcfg(JVAE, meta["vae"])
     jcls, jtext = {"pipeline_base": (JT2V, JText.vit_l()), "pipeline_tsr": (JTSR, JText.vit_l()),
                    "pipeline_vsr": (JVSR, JText.open_clip_h())}[name]
-    jpipe = jcls.init_random(jax.random.PRNGKey(0), unet_config=junet, vae_config=jvae,
-                             text_config=jtext.tiny(), dtype=jnp.float32)
-    jparams = jax_load(jpipe.params, str(tmp_path / "unet.pt"), str(tmp_path / "sd"),
-                       unet_config=junet)
+    # the param tree's structure alone (traced, not compiled): the loader
+    # fills every leaf from the files
+    init = jax.eval_shape(lambda key: jcls.init_random(
+        key, unet_config=junet, vae_config=jvae, text_config=jtext.tiny(), dtype=jnp.float32).params,
+        jax.random.PRNGKey(0))
+    jparams = jax_load(init, str(tmp_path / "unet.pt"), str(tmp_path / "sd"), unet_config=junet)
 
     want = _golden_pipeline(name, meta)
-    want.load_jax_params(jax.device_get(jparams))
+    for module in ("unet", "vae"):
+        load_jax_params(getattr(want, module), jax.device_get(jparams[module]))
     got = _golden_pipeline(name, meta)
     load_pipeline_params(got, str(tmp_path / "unet.pt"), str(tmp_path / "sd"))
     for module in ("unet", "vae"):
