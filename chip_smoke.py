@@ -666,7 +666,9 @@ def kernel_ms(fn, calls: int = 3):
 def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w: int = 64,
                   ctx_dim: int = 768, keys: int = 77) -> None:
     """Device time of one UNet forward (CFG-batched, or one VSR half), by
-    kernel group; then a second forward, traced with shapes, attributes the
+    kernel group, and the host ops with the most self time (host_top; the
+    SDPA backend ops each attention call went through, sdpa_ops); then a
+    second forward, traced with shapes, attributes the
     dtype/layout copies (recording shapes slows the host: on an H100 80GB
     HBM3 at 700 W it stretched the base forward's wall from 123 to 172 ms)."""
     from torch.profiler import ProfilerActivity, profile
@@ -694,6 +696,13 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
         groups[group] += us / 1e3
     busy = sum(groups.values())
     top.sort(reverse=True)
+    # the host side of the same forward: the ops with the most self time, and
+    # which SDPA backend each attention call took
+    averages = prof.key_averages()
+    host = sorted(((e.self_cpu_time_total / 1e3, e.key, e.count) for e in averages
+                   if e.self_cpu_time_total > 0), reverse=True)
+    sdpa = {e.key: {"calls": e.count, "cpu_ms": e.cpu_time_total / 1e3} for e in averages
+            if "scaled_dot_product" in e.key}
     # dtype/layout copies (aten::copy_: .float(), .to(), .contiguous()) by
     # (destination, source) shape, with the device time of their kernels
     copies = []
@@ -710,6 +719,8 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
         "busy_share": busy / wall_ms if busy > 0 else "not measured",
         "groups_ms": groups,
         "top_kernels": [{"ms": ms, "name": k, "calls": n} for ms, k, n in top[:12]],
+        "host_top": [{"ms": ms, "name": k, "calls": n} for ms, k, n in host[:10]],
+        "sdpa_ops": sdpa,
         "copies": {"calls": sum(n for _, n, _ in copies), "ms": sum(ms for ms, _, _ in copies),
                    "by_shape": [{"ms": ms, "calls": n, "shapes": sh} for ms, n, sh in copies[:12]]},
     }))
