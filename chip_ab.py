@@ -3,6 +3,7 @@
     python3 chip_ab.py ROOT TAG          # once per checkout, in turns
     python3 chip_ab.py --compare TAG1 TAG2
     python3 chip_ab.py --cluster4 ROOT DEST
+    python3 chip_ab.py --video ROOT TAG  # once per checkout, in turns
 
 The first form imports chip_smoke.py and lavie_tpu_torch from the checkout
 at ROOT, builds that checkout's kernels there and prints one JSON line for
@@ -31,7 +32,11 @@ held to SUMS_TOL of max|Σ|); the yardstick of a change to the int8 kernels
 is the tag of a checkout that computes the same function. The
 third copies the checkout at ROOT to DEST with the d=512 flash kernel's
 cluster of 2 CTAs set to 4 (csrc/flash_attention.cu's W_CLUSTER), a
-variant for the first form to time beside the checkout.
+variant for the first form to time beside the checkout. The fourth makes
+three full-width base videos (16x320x512, 50 DDPM steps, CFG 7.5, the
+same seeds) with the checkout at ROOT in a process of its own and prints
+their seconds (the first builds the kernels it needs) and the last video's
+md5: the default path of two checkouts, timed end to end in turns.
 """
 
 from __future__ import annotations
@@ -198,10 +203,34 @@ def cluster4(root: str, dest: str) -> None:
         f.write(text.replace(line, "constexpr int W_CLUSTER = 4;"))
 
 
+def video(root: str, tag: str) -> None:
+    sys.path.insert(0, os.path.abspath(root))
+    import hashlib
+    import time
+
+    from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    pipe = TextToVideoPipeline.init_random(seed=0)
+    prompt = "a teddy bear walking on the street, 2k, high quality"
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = pipe(prompt, num_inference_steps=50, guidance_scale=7.5, sample_method="ddpm", seed=400)
+        torch.cuda.synchronize()
+        runs.append(time.time() - t0)
+    print(json.dumps({"tag": tag, "root": root, "seconds": runs,
+                      "video_md5": hashlib.md5(out.video.tobytes()).hexdigest()}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         compare(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "--cluster4":
         cluster4(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--video":
+        video(sys.argv[2], sys.argv[3])
     else:
         run(sys.argv[1], sys.argv[2])
