@@ -10,7 +10,8 @@ loaded back through io/checkpoints.py and every entry point:
   - the port's loader fills the same weights, bit for bit, as the JAX
     package's load_pipeline_params(..., unet_config=cfg) (the call with the
     RoPE re-basis) on the same files;
-  - export ∘ load and load ∘ export are the identity, bit for bit;
+  - export ∘ load and load ∘ export are the identity, bit for bit, and
+    the CLIP converters take transformers' keys as the JAX ones do;
   - missing temporal keys keep their values, any other missing key raises;
   - the sample, interpolation and VSR CLIs, Predictor.setup(ckpt_dir) and
     the cascade CLI reproduce a seeded pipeline's output bit for bit from
@@ -38,13 +39,14 @@ from lavie_tpu_torch.io.checkpoints import (
 )
 from lavie_tpu_torch.io.from_jax import load_jax_params
 from lavie_tpu_torch.io.convert import (
+    convert_clip_dual_encoder,
     convert_clip_text,
     convert_clip_vision,
     export_reference_state_dict,
     load_reference_state_dict,
     load_torch_state_dict,
 )
-from lavie_tpu_torch.nn.clip import CLIPTextModel, CLIPVisionModel
+from lavie_tpu_torch.nn.clip import CLIPDualEncoder, CLIPTextModel, CLIPVisionModel
 from lavie_tpu_torch.nn.unet import UNet3D
 from lavie_tpu_torch.nn.vae import AutoencoderKL
 from lavie_tpu_torch.pipelines import (
@@ -307,6 +309,39 @@ def test_text_tower_takes_transformers_keys(tmp_path):
     torch.save({"state_dict": {"w": torch.ones(2, dtype=torch.bfloat16) / 3}}, tmp_path / "bf16.pt")
     got = load_torch_state_dict(str(tmp_path / "bf16.pt"))
     assert got["w"].dtype == np.float32 and got["w"][0] == torch.tensor(1 / 3).bfloat16().item()
+
+
+def test_dual_encoder_takes_transformers_keys_as_the_jax_converter_does():
+    """A transformers CLIPModel state dict (`text_model.`, `vision_model.`,
+    the two projections; `logit_scale` unused) fills the port's
+    CLIPDualEncoder bit for bit, and as the JAX package's
+    convert_clip_dual_encoder carried over by from_jax does."""
+    import jax
+    import jax.numpy as jnp
+
+    from lavie_tpu.core.config import CLIPTextConfig as JText
+    from lavie_tpu.io.convert import convert_clip_dual_encoder as jax_convert
+    from lavie_tpu.nn.clip import CLIPDualEncoder as JDual
+    from lavie_tpu.nn.clip import CLIPVisionConfig as JVision
+
+    make = lambda: CLIPDualEncoder(CLIPTextConfig.vit_l().tiny(), CLIPVisionConfig().tiny())  # noqa: E731
+    src, dst, via_jax = make(), make(), make()
+    random_init_(src, 21)
+    random_init_(dst, 22)
+    sd = {**export_reference_state_dict(src.text_model), **export_reference_state_dict(src.vision_model),
+          "logit_scale": np.array(2.6592, np.float32)}
+    for name in ("text_projection", "visual_projection"):
+        sd[f"{name}.weight"] = getattr(src, name).weight.detach().numpy().copy()
+    assert "vision_model.post_layernorm.weight" in sd
+    convert_clip_dual_encoder(dst, sd)
+    jm = JDual(text_config=JText.vit_l().tiny(), vision_config=JVision().tiny())
+    init = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, 16), jnp.int32),
+                          jnp.zeros((1, 28, 28, 3)))["params"]
+    load_jax_params(via_jax, jax.device_get(jax_convert(init, sd)))
+    want = src.state_dict()
+    for got in (dst.state_dict(), via_jax.state_dict()):
+        assert got.keys() == want.keys()
+        assert all(torch.equal(got[k], want[k]) for k in want)
 
 
 # --- the five entry points -----------------------------------------------------------
