@@ -26,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels._autograd import refuse_grad
 
 MAX_KV = 256
 MAX_HEAD_DIM = 160
@@ -103,10 +104,12 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     """Attention of q (B, S, H, D) over k, v (B, L, H, D). On a CUDA tensor
     this launches the kernel, or raises for what it does not take (dtype
     other than bf16, D not a multiple of 8 or above 160, more than 256 keys,
-    non-contiguous or misaligned tensors)."""
+    non-contiguous or misaligned tensors), and when autograd would need its
+    gradient (it has none)."""
     if q.device.type == "cpu":
         return cross_attention_reference(q, k, v, scale)
     name = "cross_attention"
+    refuse_grad(name, (q, k, v))
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     b, s, h, d = q.shape

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from lavie_tpu_torch.kernels import _build
 from lavie_tpu_torch.kernels import cross_attention as _cross
 from lavie_tpu_torch.kernels import geglu as _geglu
+from lavie_tpu_torch.kernels._autograd import refuse_grad
 
 HEAD_DIM = 64
 MAX_KV = 80  # text keys: the attention loads 80 rows, zero-filled past L
@@ -115,6 +116,9 @@ def transformer_tail_reference(x: torch.Tensor, residual: torch.Tensor, g3: torc
 
 
 def _check(name: str, x: torch.Tensor, weights, f32) -> None:
+    """Raise for what a kernel does not take, or when autograd would need
+    its gradient (these kernels have none)."""
+    refuse_grad(name, (x, *weights, *f32))
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if any(t.dtype != torch.bfloat16 for t in weights):

@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels._autograd import refuse_grad
 
 MAX_HEAD_DIM = 160
 WIDE_HEAD_DIM = 512  # the d=512 entry (one VAE head)
@@ -102,8 +103,10 @@ def flash_sparse_causal_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
            wide: bool = False) -> int:
-    """Raise for what the kernel does not take; return the head dim. `wide`
-    also admits d = 512."""
+    """Raise for what the kernel does not take, or when autograd would need
+    its gradient (it has none); return the head dim. `wide` also admits
+    d = 512."""
+    refuse_grad(name, (q, k, v))
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if any(x.dtype != torch.bfloat16 for x in (q, k, v)):

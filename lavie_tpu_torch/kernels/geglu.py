@@ -6,7 +6,9 @@ GEGLU's `proj`), w2 (C, I).
 
   geglu            the wrapper: the CUDA kernels (csrc/geglu.cu, two wgmma
                    GEMMs through a bf16 act scratch) for a CUDA tensor, the
-                   plain version for a CPU tensor
+                   plain version for a CPU tensor; under autograd the kernel
+                   forward with the plain version's backward
+                   (_autograd.KernelWithPlainBackward)
   geglu_reference  the plain PyTorch version of the same math
   launch_plan      the kernels' launch plan for one call: tile widths, ring
                    depths, shared bytes and grid, computed here so
@@ -22,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels._autograd import KernelWithPlainBackward, needs_grad
 
 KERNEL_WIDTHS = (128, 256, 320, 512, 640, 1024, 1280)
 SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
@@ -99,7 +102,9 @@ def geglu(
 ) -> torch.Tensor:
     """GEGLU over x (..., C). On a CUDA tensor this launches the kernel, or
     raises for what the kernel does not take (dtype other than bf16, a width
-    outside KERNEL_WIDTHS, I != 4C, non-contiguous or misaligned tensors)."""
+    outside KERNEL_WIDTHS, I != 4C, non-contiguous or misaligned tensors).
+    When grad mode is on and an input requires grad, the backward
+    recomputes geglu_reference from the saved inputs."""
     if x.device.type == "cpu":
         return geglu_reference(x, w0, b0, w2, b2)
     if x.device.type != "cuda":
@@ -118,7 +123,15 @@ def geglu(
 
     n = x.numel() // c
     sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
-    out = _launch(x, w0, b0, w2, b2, launch_plan(n, c, sms))
+    plan = launch_plan(n, c, sms)
+
+    def launch(*t):
+        return _launch(*t, plan)
+
+    if needs_grad(tensors):
+        out = KernelWithPlainBackward.apply(launch, geglu_reference, *tensors)
+    else:
+        out = launch(*tensors)
     geglu.launches += 1
     return out
 

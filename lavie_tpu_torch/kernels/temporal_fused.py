@@ -9,7 +9,9 @@ and its channel-major (C, B, F, S) re-layout are both gone.
 
   temporal_attention            the wrapper: the CUDA kernel
                                 (csrc/temporal_fused.cu) for a CUDA tensor,
-                                the plain version for a CPU tensor
+                                the plain version for a CPU tensor; under
+                                autograd the kernel forward with the plain
+                                version's backward
   temporal_attention_reference  the plain PyTorch version of the same math
 
   temporal_attention_folded            port of lavie_tpu.kernels.
@@ -19,7 +21,9 @@ and its channel-major (C, B, F, S) re-layout are both gone.
                                        already rotated, with an (H, F, F)
                                        bias and no RoPE inside; it launches
                                        the same kernel with rope_dim = 0 and
-                                       counts its launches on its own
+                                       counts its launches on its own; it
+                                       has no gradient and raises under
+                                       autograd on the card
 
   launch_plan                   the kernel's launch plan for one call: tile,
                                 ring depth, threads, grid and shared bytes,
@@ -36,6 +40,7 @@ from typing import Optional
 import torch
 
 from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels._autograd import KernelWithPlainBackward, needs_grad, refuse_grad
 from lavie_tpu_torch.nn.embeddings import apply_rope_half
 
 SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
@@ -144,10 +149,23 @@ def temporal_attention(
 ) -> torch.Tensor:
     """Frame-axis attention over (B, F, S, C). On a CUDA tensor this launches
     the kernel, or raises for what the kernel does not take (dtype other than
-    bf16, head_dim not a multiple of 8, F > 64, non-contiguous inputs)."""
+    bf16, head_dim not a multiple of 8, F > 64, non-contiguous inputs).
+    When grad mode is on and q, k, v or the bias requires grad, the backward
+    recomputes temporal_attention_reference from the saved inputs."""
     if q.device.type == "cpu":
         return temporal_attention_reference(q, k, v, bias, cos, sin, scale, rope_dim, heads)
-    out = _launch("temporal_attention", q, k, v, bias, cos, sin, scale, rope_dim, heads)
+    tensors = (q, k, v, bias, cos, sin)
+
+    def launch(*t):
+        return _launch("temporal_attention", *t, scale, rope_dim, heads)
+
+    if needs_grad(tensors):
+        def plain(*t):
+            return temporal_attention_reference(*t, scale, rope_dim, heads)
+
+        out = KernelWithPlainBackward.apply(launch, plain, *tensors)
+    else:
+        out = launch(*tensors)
     temporal_attention.launches += 1
     return out
 
@@ -170,6 +188,7 @@ def temporal_attention_folded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return temporal_attention_folded_reference(q, k, v, bias, scale, heads)
     if bias is None:
         raise ValueError("temporal_attention_folded takes an (H, F, F) bias")
+    refuse_grad("temporal_attention_folded", (q, k, v, bias))
     out = _launch("temporal_attention_folded", q, k, v, bias, None, None, scale, 0, heads)
     temporal_attention_folded.launches += 1
     return out

@@ -69,6 +69,7 @@ import torch
 import torch.nn.functional as F
 
 from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels._autograd import refuse_grad
 from lavie_tpu_torch.nn.quant import quantize
 
 
@@ -293,11 +294,13 @@ def gn_silu_tconv(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.
     sums (B, O) fp32. On a CUDA tensor this launches the kernel, or raises
     for what it does not take (x, taps or residual not bf16, w/u/bias not
     fp32, C not a multiple of 32 (of 64 with int8), O not a multiple of 128,
-    C above 1024, even k or k > 7, non-contiguous or misaligned tensors)."""
+    C above 1024, even k or k > 7, non-contiguous or misaligned tensors),
+    and when autograd would need its gradient (it has none)."""
     if x.device.type == "cpu":
         return gn_silu_tconv_reference(x, w, u, weight, bias, residual, activation=activation,
                                        emit_stats=emit_stats, quant=quant, block=block)
     name = "gn_silu_tconv"
+    refuse_grad(name, (x, w, u, weight, bias, residual))
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if activation not in ACTIVATIONS:
