@@ -40,6 +40,21 @@ its result line:
                 (16 launches of cross_attention, its long-kv body; outputs
                 compared), and "fused" refused before any launch; the
                 profile of one base UNet forward over 154 keys
+  7c. train     the fork's training path at full width on the image phase's
+                modules (909M UNet, SD VAE, ViT-L/14 text and vision towers,
+                12-layer mapper; LoRA rank 16 on all 384 adapters): seeded
+                synthetic MSVD-shaped clips written to build/train/ (the
+                native .avi codec where it builds, else .npy);
+                cli.finetune's loop (method 1) at batch 1, 16x320x512, two
+                steps with a checkpoint each, then one more resumed from the
+                latest (checkpoint-1 rotated out); cli.train_mapping for two
+                steps; then one fixed batch with fixed draws and B drawn
+                nonzero: the LoRA and mapper gradients through the kernels
+                against the plain route's (relative norm error within
+                TRAIN_GRAD_TOL, cosine), launches per step (temporal_attention
+                and geglu > 0, no opt-in entry), the step's forward/backward
+                split (CUDA events) and the plain recompute's device span
+                (torch.profiler); the files deleted
   8. tsr        VideoInterpolationPipeline at full width interpolates the
                 first main-phase video to 61 frames: 50 DDIM steps, CFG 4.0
   9. profile_tsr  the same profile for one CFG-batched TSR UNet forward
@@ -117,8 +132,8 @@ its result line:
                 switches set and one cut, 5 VSR steps; stage seconds,
                 shapes, peak memory and exact launch counts per stage
  23. result     a `kernels` JSON line, then the `ok` JSON line last
-Launch counts are zeroed just before each path (main, image, tsr, vsr, ckpt,
-cascade) and
+Launch counts are zeroed just before each path (main, image, train, tsr,
+vsr, ckpt, cascade) and
 read just after it; the paths before the cascade run the default routes and
 launch no opt-in entry. Imports nothing of JAX or of the JAX package.
 """
@@ -164,6 +179,13 @@ CASCADE_VSR_STEPS = 5
 IMAGE_KEYS = 154
 # the ckpt phase's exporter seed (the loading predictor takes CKPT_SEED + 1)
 CKPT_SEED = 5
+# the train phase: frames of a training clip (16 fit: 16.8 GB at peak on an
+# H100 80GB), and the relative norm error allowed between the kernel route's
+# and the plain route's LoRA and mapper gradients: the two forwards differ by
+# the kernels' bf16 roundings (each within 1-2% of max|plain|); the first
+# full-width runs read 0.0037 (LoRA) and 0.0080 (mapper)
+TRAIN_FRAMES = 16
+TRAIN_GRAD_TOL = 3e-2
 # int8 turbo against bf16, relative L2 error of a random-init UNet's output:
 # the JAX package's own bound (tests/test_quant.py)
 TURBO_REL_TOL = 0.35
@@ -924,9 +946,205 @@ def phase_image() -> dict:
         raise AssertionError(f"image: LAVIE_ATTN2=fused over 154 keys: raised {refused!r}, "
                              f"{fused_launches} launches")
     phase_profile("profile_image", pipe.unet, 16, keys=IMAGE_KEYS)
-    del pipe, out, outs, states, text
+    del out, outs, states, text
     torch.cuda.empty_cache()
-    return {**launches, "cross_attention_ab": ab["cross"]["cross_attention"]}
+    return {**launches, "cross_attention_ab": ab["cross"]["cross_attention"]}, pipe
+
+
+def write_train_clips(folder: str, n: int = 4, frames: int = 24, h: int = 240, w: int = 320,
+                      seed: int = 31) -> str:
+    """n seeded synthetic MSVD-shaped clips (24 frames of 240x320: a ramp
+    drifting across noise) and their annotations.txt, through the port's
+    MJPEG .avi codec where it builds, else as .npy; returns the format."""
+    import numpy as np
+
+    from lavie_tpu_torch.native import mjpeg_available, write_avi
+
+    os.makedirs(folder, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    fmt = "avi" if mjpeg_available() else "npy"
+    lines = []
+    for i in range(n):
+        x = np.arange(w)[None, None, :, None] + 9 * np.arange(frames)[:, None, None, None]
+        clip = (np.sin(x / (17.0 + 5 * i)) * 100 + 128 + rng.normal(0, 20, (frames, h, w, 3)))
+        clip = np.clip(clip, 0, 255).astype(np.uint8)
+        path = os.path.join(folder, f"clip{i}.{fmt}")
+        if fmt == "avi":
+            write_avi(path, clip, fps=8)
+        else:
+            np.save(path, clip)
+        lines += [f"clip{i} a synthetic video number {i}", f"clip{i} stripes drifting sideways"]
+    with open(os.path.join(folder, "annotations.txt"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return fmt
+
+
+def _grad_stats(got: dict, want: dict, prefix: str) -> dict:
+    keys = [k for k in want if k.startswith(prefix)]
+    g = torch.cat([got[k].float().flatten() for k in keys])
+    p = torch.cat([want[k].float().flatten() for k in keys])
+    return {"tensors": len(keys), "rel_norm_err": ((g - p).norm() / p.norm()).item(),
+            "cosine": (torch.dot(g, p) / (g.norm() * p.norm())).item(),
+            "norm": p.norm().item(), "finite": bool(torch.isfinite(g).all())}
+
+
+def phase_train(pipe) -> dict:
+    """The fork's training path at full width, on the image phase's modules
+    (the 909M base UNet, the SD VAE, the ViT-L/14 text and vision towers,
+    the 12-layer mapper; LoRA rank 16): cli.finetune's loop (method 1) on
+    seeded synthetic MSVD-shaped clips at batch 1, TRAIN_FRAMES x 320x512,
+    two steps with a checkpoint at each, then one more resumed from the
+    latest (the oldest of the three rotated out); cli.train_mapping for two
+    steps; then, on one fixed batch and fixed draws with B drawn nonzero,
+    the LoRA and mapper gradients through the kernels against those of the
+    plain versions, and the step's forward/backward split (CUDA events and
+    torch.profiler)."""
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from lavie_tpu_torch.cli import finetune as ft_cli
+    from lavie_tpu_torch.cli import train_mapping as map_cli
+    from lavie_tpu_torch.data import MSVDDataset
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "train")
+    shutil.rmtree(root, ignore_errors=True)
+    clips, out = os.path.join(root, "clips"), os.path.join(root, "out")
+    fmt = write_train_clips(clips)
+    free = shutil.disk_usage(os.path.dirname(root)).free
+    if free < 8e9:
+        raise AssertionError(f"train: {free} bytes free for the checkpoints")
+    cfg = {"train_data_dir": clips, "annotations_path": os.path.join(clips, "annotations.txt"),
+           "video_length": TRAIN_FRAMES, "image_size": [320, 512], "train_batch_size": 1,
+           "max_train_steps": 2, "checkpointing_steps": 1, "checkpoints_total_limit": 2,
+           "rank": 16, "learning_rate": 1e-4, "snr_gamma": 5, "output_dir": out,
+           "logging_dir": os.path.join(root, "logs"), "seed": 0}
+    losses, stamps = [], []
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        stamps.append(time.time())
+        losses.append({k: float(v) for k, v in m.items()})
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.time()
+    state = ft_cli.train(cfg, "cuda", pipe=pipe, on_step=on_step)
+    first = sorted(os.listdir(out))
+    state = ft_cli.train({**cfg, "max_train_steps": 3, "resume_from_checkpoint": "latest"}, "cuda",
+                         pipe=pipe, on_step=on_step)
+    finetune_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    kept = sorted(os.listdir(out))
+    ckpt_bytes = sum(os.path.getsize(os.path.join(out, d, f)) for d in kept
+                     for f in os.listdir(os.path.join(out, d)))
+    zero_map = read_launches()
+    t0 = time.time()
+    _, history = map_cli.train({**cfg, "train_batch_size": 2, "max_train_steps": 2,
+                                "output_dir": os.path.join(root, "mapper_out")}, "cuda")
+    mapping_s = time.time() - t0
+    launches = read_launches()
+    ok = (state.step == 3 and first == ["checkpoint-1", "checkpoint-2"]
+          and kept == ["checkpoint-2", "checkpoint-3"] and len(losses) == 3 and len(history) == 2
+          and all(np.isfinite(list(m.values())).all() for m in losses + history))
+    log(json.dumps({"phase": "train", "clips": fmt, "frames": TRAIN_FRAMES, "batch": 1,
+                    "finetune_s": finetune_s, "steps": state.step, "losses": losses,
+                    # the wall between consecutive steps: the checkpoint saves, and
+                    # before step 3 the second invocation's set-up and resume
+                    "between_steps_s": [b - a for a, b in zip(stamps, stamps[1:])],
+                    "checkpoints_after_2": first, "checkpoints_after_resume": kept,
+                    "checkpoint_bytes": ckpt_bytes, "peak_mem_gb": peak_gb,
+                    "mapping_s": mapping_s, "mapping_losses": history,
+                    "launches": launches, "mapping_launches": {
+                        k: v - zero_map[k] for k, v in launches.items() if v != zero_map[k]}}))
+    if not ok:
+        raise AssertionError(f"train: steps {state.step}, checkpoints {first} then {kept}, "
+                             f"{len(losses)} finetune and {len(history)} mapping losses")
+    for name in ("temporal_attention", "geglu"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the train path")
+    assert_default_routes("train", launches)
+    del state
+
+    # one fixed batch: the gradients through the kernels against the plain route's
+    tuner, _ = ft_cli._build(cfg, "cuda", pipe)
+    ds = MSVDDataset(clips, cfg["annotations_path"], num_frames=TRAIN_FRAMES, size=(320, 512),
+                     augment=False)
+    sample = ds[0]
+    batch = {"video": torch.from_numpy(sample["video"][None]).cuda(),
+             "token_ids": torch.from_numpy(pipe.tokenizer([sample["caption"]]).astype(np.int64)).cuda(),
+             "cond_image": torch.from_numpy(ft_cli.cond_images(sample["cond_frame"][None], 224)).cuda()}
+    g = torch.Generator(device="cuda").manual_seed(41)
+    state = tuner.init_state(g)
+    with torch.no_grad():
+        for k, v in state.lora.items():
+            if k.endswith("lora_b"):
+                v.normal_(0.0, 0.01, generator=g)
+    draws = {"posterior_noise": torch.randn(TRAIN_FRAMES, 40, 64, 4, generator=g, device="cuda"),
+             "t": torch.tensor([500], device="cuda"),
+             "noise": torch.randn(1, TRAIN_FRAMES, 40, 64, 4, generator=g, device="cuda")}
+    zero_launches()
+    loss_k, aux_k, grads_k = tuner.grads(state, batch, **draws)
+    per_step = read_launches()
+    with plain_kernels():
+        loss_p, aux_p, grads_p = tuner.grads(state, batch, **draws)
+    plain_launches = sum(read_launches().values()) - sum(per_step.values())
+    stats = {"lora": _grad_stats(grads_k, grads_p, "lora/"),
+             "mapper": _grad_stats(grads_k, grads_p, "mapper/")}
+    del grads_p
+
+    # the step's forward/backward split: CUDA events, then torch.profiler
+    params = state.trainables()
+    split = []
+    for _ in range(3):  # the first is a warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, _ = tuner._loss({"lora": state.lora, "mapper": state.mapper}, batch, **draws)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+        split.append({"forward_s": t1 - t0, "backward_s": time.time() - t1})
+    # the ranges' device spans: "forward" (the loss), "plain_backward" (each
+    # recompute of rows 1 and 3 and its VJP; the autograd engine's thread
+    # runs the backward, outside a range opened on this one)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("forward"):
+            loss, _ = tuner._loss({"lora": state.lora, "mapper": state.mapper}, batch, **draws)
+        torch.autograd.grad(loss, list(params.values()))
+        torch.cuda.synchronize()
+    ranges, busy = {}, 0.0
+    for e, us in device_kernels(prof):
+        if e.key in ("forward", "plain_backward"):
+            ranges[e.key] = {"calls": e.count, "device_span_ms": us / 1e3}
+        else:
+            busy += us / 1e3
+    step_s = split[-1]["forward_s"] + split[-1]["backward_s"]
+    row = {"phase": "train_grads", "frames": TRAIN_FRAMES, "loss_kernels": loss_k.item(),
+           "loss_plain": loss_p.item(), "mse": [aux_k[0].item(), aux_p[0].item()],
+           "align": [aux_k[1].item(), aux_p[1].item()], "tol": TRAIN_GRAD_TOL, **stats,
+           "launches_per_step": {k: v for k, v in per_step.items() if v},
+           "plain_route_launches": plain_launches, "split_s": split, "s_per_step": step_s,
+           "backward_share": split[-1]["backward_s"] / step_s, "profile": ranges or "not measured",
+           "profile_device_ms": busy if busy > 0 else "not measured",
+           "plain_backward_share": (ranges["plain_backward"]["device_span_ms"] / 1e3 / step_s
+                                    if "plain_backward" in ranges else "not measured"),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(json.dumps(row))
+    for name in ("temporal_attention", "geglu"):
+        if per_step[name] <= 0:
+            raise AssertionError(f"train: {name} launched 0 times in the step")
+    assert_default_routes("train step", per_step)
+    if plain_launches:
+        raise AssertionError(f"train: the plain route launched {plain_launches} kernels")
+    for group, st in stats.items():
+        if not (st["finite"] and st["rel_norm_err"] <= TRAIN_GRAD_TOL):
+            raise AssertionError(f"train: {group} gradients, kernels vs plain: {st}")
+    del tuner, state, params, grads_k, batch
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_tsr(base_video) -> dict:
@@ -1824,7 +2042,10 @@ def main() -> int:
     phase_model("model", UNetConfig.base_t2v(), 16)
     phase_model("model_tsr", UNetConfig.interpolation(), TSR_FRAMES)
     main_launches, base_video = phase_main()
-    image_launches = phase_image()
+    image_launches, image_pipe = phase_image()
+    train_launches = phase_train(image_pipe)
+    del image_pipe
+    torch.cuda.empty_cache()
     tsr_launches = phase_tsr(base_video)
     phase_temporal(VSR_FRAMES, rope=32, b=1,
                    levels=[(s, 64) for s, _ in VSR_LEVELS[1:3]] + [(VSR_LEVELS[3][0], 128)])
@@ -1863,7 +2084,8 @@ def main() -> int:
     def entry(name, source, replaces, row, note=None, counter=None, ab=None, extra=None):
         counter = counter or name
         by_path = {"main": main_launches[counter], "image": image_launches[counter],
-                   "tsr": tsr_launches[counter], "vsr": vsr_launches[counter],
+                   "train": train_launches[counter], "tsr": tsr_launches[counter],
+                   "vsr": vsr_launches[counter],
                    "ckpt": ckpt_launches[counter], "cascade": cascade_launches[counter]}
         if ab is not None:  # the launches of one A/B forward with the route set
             by_path["ab"] = ab[counter]

@@ -4,6 +4,11 @@ sub-dict preferred, reference: base/download.py:10-18) and the diffusers
 component folders (`vae/`, `text_encoder/`) of SD-1.4 and the x4 upscaler,
 converted by io.convert into the pipeline's own modules, in place.
 
+Native checkpoints (`save_native`/`load_native`, in place of the JAX
+package's orbax checkpoints): any tree of dicts, lists, tensors and numbers
+written with torch.save into a directory, as the training layer's
+`checkpoint-{step}` directories hold them.
+
 Every UNet is re-based from the reference's interleaved RoPE into the port's
 half-split basis by its stage config (rot_dim 0 where the temporal attention
 has no RoPE, as in the TSR UNet). The JAX package's entry points skip that
@@ -13,7 +18,7 @@ re-basis; the port does not copy the omission.
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 
@@ -94,3 +99,36 @@ def load_cascade_checkpoints(cascade, ckpt_dir: str) -> None:
         path = os.path.join(ckpt_dir, name)
         if stage is not None and os.path.exists(path):
             load_pipeline_params(stage, path, folder)
+
+
+# ---------------------------------------------------------------------------
+# native checkpoints
+# ---------------------------------------------------------------------------
+
+NATIVE_FILE = "state.pt"
+
+
+def _detached(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_detached(v) for v in tree)
+    return tree
+
+
+def save_native(path: str, tree: Any) -> None:
+    """Write `tree` (dicts, lists, tuples, tensors, numbers, strings) as the
+    directory `path`, replacing its file whole: the file is written beside
+    it first and then renamed over it."""
+    os.makedirs(path, exist_ok=True)
+    target = os.path.join(path, NATIVE_FILE)
+    torch.save(_detached(tree), target + ".tmp")
+    os.replace(target + ".tmp", target)
+
+
+def load_native(path: str, map_location: Any = "cpu") -> Any:
+    """The tree save_native wrote at `path`, its tensors on map_location."""
+    return torch.load(os.path.join(path, NATIVE_FILE), map_location=map_location,
+                      weights_only=True)

@@ -20,6 +20,10 @@ same rules: the vision tower's ('layers_3', 'self_attn', 'q_proj', 'kernel')
 kernel → Conv2d (O, 3, 14, 14), `class_embedding`/`position_embedding`
 copied; the MappingNetwork keeps the JAX names (`image_proj`,
 `image_pos_embedding`, `layers_i` → `layers.i`, `norm1..3`, `linear1/2`).
+`lora_from_jax` carries a JAX LoRA tree ({module path: {"lora": {"a", "b"}}},
+lavie_tpu.train.lora) to the port's adapter dict: ('down_blocks_0', ...,
+'to_q', 'lora', 'a') → 'down_blocks.0.....to_q.lora_a', A (in, r) and B
+(r, out) as they are.
 """
 
 from __future__ import annotations
@@ -130,3 +134,16 @@ def load_jax_params(module: nn.Module, params: Mapping[str, Any]) -> None:
     """Load a flax param tree into `module` strictly: raises when a key is
     missing, unused, or of the wrong shape."""
     module.load_state_dict(state_dict_from_jax(params), strict=True)
+
+
+def lora_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX LoRA tree → the port's adapters {"<module>.lora_a": (in, r),
+    "<module>.lora_b": (r, out)} as fp32 CPU tensors."""
+    out = {}
+    for path, value in _walk(tree):
+        if len(path) < 3 or path[-2] != "lora" or path[-1] not in ("a", "b"):
+            raise KeyError(f"not a LoRA leaf: {path}")
+        module = flax_path_to_torch_key(path[:-2] + ("kernel",))[: -len(".weight")]
+        out[f"{module}.lora_{path[-1]}"] = torch.from_numpy(
+            np.ascontiguousarray(np.asarray(value, np.float32)))
+    return out

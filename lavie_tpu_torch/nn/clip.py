@@ -2,12 +2,16 @@
 causal mask, a quick-gelu (ViT-L) or erf-gelu (OpenCLIP-H) MLP; token ids
 (B, L) → last_hidden_state (B, L, hidden)), the ViT vision tower of the
 fork's image conditioning (NHWC pixels → (B, 1 + patches, hidden), blocks
-without a mask) and the dual encoder that pools and projects both.
+without a mask), the dual encoder that pools and projects both, and
+`token_drop`/`TextEmbedder`, the text tower with the training recipe's
+caption dropout.
 Parameter names follow the JAX package's flat layout (`layers.N.self_attn.
 q_proj`, `token_embedding`, `position_embedding`, `patch_embedding`,
 `class_embedding`, the reference's `pre_layrnorm`)."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -94,6 +98,45 @@ class CLIPTextModel(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return _layer_norm(self.final_layer_norm, x)
+
+
+def token_drop(token_ids: torch.Tensor, uncond_ids: torch.Tensor,
+               generator: Optional[torch.Generator] = None, drop_prob: float = 0.1,
+               force_drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Classifier-free-guidance caption dropout: with probability
+    `drop_prob` a row of token_ids (B, L) is replaced by the empty prompt's
+    ids uncond_ids (L,) or (1, L) (reference: TextEmbedder.token_drop
+    base/models/clip.py:70-81, which blanks the prompt string before
+    tokenising: the same operation on ids). force_drop (B,) bool overrides
+    the draw."""
+    b = token_ids.shape[0]
+    if force_drop is None:
+        gen_device = generator.device if generator is not None else "cpu"
+        drop = (torch.rand((b,), generator=generator, device=gen_device) < drop_prob).to(
+            token_ids.device)
+    else:
+        drop = force_drop.to(device=token_ids.device, dtype=torch.bool)
+    uncond = torch.as_tensor(uncond_ids, device=token_ids.device).reshape(1, -1).expand_as(token_ids)
+    return torch.where(drop[:, None], uncond.to(token_ids.dtype), token_ids)
+
+
+class TextEmbedder(nn.Module):
+    """The CLIP text tower with CFG caption dropout for training (reference:
+    TextEmbedder base/models/clip.py:61-88); parameters under `text_model`."""
+
+    def __init__(self, config: CLIPTextConfig, dropout_prob: float = 0.1):
+        super().__init__()
+        self.dropout_prob = dropout_prob
+        self.text_model = CLIPTextModel(config)
+
+    def forward(self, token_ids: torch.Tensor, uncond_ids: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, train: bool = False,
+                force_drop: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if (train and self.dropout_prob > 0) or force_drop is not None:
+            if uncond_ids is None:
+                raise ValueError("token_drop needs the empty prompt's ids")
+            token_ids = token_drop(token_ids, uncond_ids, generator, self.dropout_prob, force_drop)
+        return self.text_model(token_ids)
 
 
 class CLIPVisionModel(nn.Module):

@@ -100,14 +100,29 @@ def test_turbo_is_off_by_default_at_every_entry_point():
 
 
 def test_every_new_module_is_checked():
-    """The text cross-attention, temporal projection, host codec, checkpoint
-    and image-conditioning modules are among the files the import checks
-    above walk."""
+    """The text cross-attention, temporal projection, host codec, checkpoint,
+    image-conditioning and training modules are among the files the import
+    checks above walk, and the training CLIs take --device cuda by default."""
     checked = {str(p.relative_to(ROOT)) for p in FILES}
     for rel in ("kernels/cross_attention.py", "kernels/temporal_proj.py", "native/__init__.py",
                 "native/mjpeg.py", "io/checkpoints.py", "io/convert.py", "nn/clip.py",
-                "nn/mapping.py", "eval/__init__.py", "eval/clipsim.py"):
+                "nn/mapping.py", "eval/__init__.py", "eval/clipsim.py", "kernels/_autograd.py",
+                "train/__init__.py", "train/lora.py", "train/optim.py", "train/step.py",
+                "train/timestep_sampler.py", "train/finetune.py", "train/mapping_trainer.py",
+                "data/__init__.py", "data/transforms.py", "data/datasets.py", "data/loader.py",
+                "utils/ema.py", "utils/logging.py", "cli/finetune.py", "cli/train_mapping.py"):
         assert f"lavie_tpu_torch/{rel}" in checked
+    import inspect
+
+    from lavie_tpu_torch.cli import finetune, train_mapping
+
+    for fn in (finetune._build, finetune.train, train_mapping.train):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    for name in ("finetune", "train_mapping"):
+        tree = ast.parse((ROOT / "lavie_tpu_torch" / "cli" / f"{name}.py").read_text())
+        assert [k.value.value for node in ast.walk(tree) if isinstance(node, ast.Call)
+                and node.args and getattr(node.args[0], "value", None) == "--device"
+                for k in node.keywords if k.arg == "default"] == ["cuda"]
 
 
 def test_native_codec_builds_beside_the_kernels():

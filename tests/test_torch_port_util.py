@@ -1,14 +1,25 @@
 """Helpers shared by the PyTorch-port tests (tests/test_torch_port_*.py):
 seeded numpy randomisation of a flax param tree, so that every parameter —
 zero-initialised ones included — is random, and conversions between the
-JAX and PyTorch sides. No tests live here."""
+JAX and PyTorch sides. No tests live here.
+
+Importing it caps torch's intra-op threads at the host's cores shared among
+the pytest-xdist workers: every worker collects this module, and six
+workers each spinning one OpenMP thread per core on an eight-core host ran
+the port's files many times slower than alone (the cascade file: 43 s alone
+at eight threads, 1154 s in the suite)."""
 
 from __future__ import annotations
 
+import os
 from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // WORKERS))
 
 
 def randomize_params(tree: Mapping[str, Any], seed: int) -> dict:
