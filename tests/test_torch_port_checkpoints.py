@@ -25,6 +25,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_util import default_threads
+
 from lavie_tpu_torch.core.config import (
     CLIPTextConfig,
     CLIPVisionConfig,
@@ -147,7 +149,8 @@ def test_golden_replays_through_checkpoint_files(tmp_path, name, wrap):
                                   **(rebasis if module == "unet" else {"heads": 1, "rot_dim": 0}))
         a, b = getattr(pipe, module).state_dict(), getattr(direct, module).state_dict()
         assert all(torch.equal(a[k], b[k]) for k in a), module
-    psnr = _psnr(_replay(name, pipe, z, meta), z["video"])
+    with default_threads():  # the floors were printed at torch's own thread count
+        psnr = _psnr(_replay(name, pipe, z, meta), z["video"])
     print(f"{name} through the files ({wrap}): {psnr:.2f} dB")
     assert round(psnr, 2) >= PSNR_FLOOR[name], f"{name}: {psnr:.2f} dB < {PSNR_FLOOR[name]}"
 

@@ -11,15 +11,30 @@ at eight threads, 1154 s in the suite)."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
+DEFAULT_THREADS = torch.get_num_threads()
 WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
 if WORKERS > 1:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // WORKERS))
+
+
+@contextlib.contextmanager
+def default_threads():
+    """torch's own intra-op thread count within the block, for a check whose
+    bound was read at that count: the fp32 sums of a convolution or a
+    matmul are taken in another order with another count."""
+    capped = torch.get_num_threads()
+    torch.set_num_threads(DEFAULT_THREADS)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(capped)
 
 
 def randomize_params(tree: Mapping[str, Any], seed: int) -> dict:
