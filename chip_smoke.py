@@ -53,8 +53,9 @@ its result line:
                 against the plain route's (relative norm error within
                 TRAIN_GRAD_TOL, cosine), launches per step (temporal_attention
                 and geglu > 0, no opt-in entry), the step's forward/backward
-                split (CUDA events) and the plain recompute's device span
-                (torch.profiler); the files deleted
+                split (CUDA events, and each one's device ms under
+                torch.profiler) and the plain recompute's device span; the
+                files deleted
   8. tsr        VideoInterpolationPipeline at full width interpolates the
                 first main-phase video to 61 frames: 50 DDIM steps, CFG 4.0
   9. profile_tsr  the same profile for one CFG-batched TSR UNet forward
@@ -1002,7 +1003,7 @@ def phase_train(pipe) -> dict:
     import shutil
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
     from lavie_tpu_torch.cli import finetune as ft_cli
     from lavie_tpu_torch.cli import train_mapping as map_cli
@@ -1106,28 +1107,32 @@ def phase_train(pipe) -> dict:
         torch.autograd.grad(loss, list(params.values()))
         torch.cuda.synchronize()
         split.append({"forward_s": t1 - t0, "backward_s": time.time() - t1})
-    # the ranges' device spans: "forward" (the loss), "plain_backward" (each
-    # recompute of rows 1 and 3 and its VJP; the autograd engine's thread
-    # runs the backward, outside a range opened on this one)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("forward"):
-            loss, _ = tuner._loss({"lora": state.lora, "mapper": state.mapper}, batch, **draws)
+    # the same step under torch.profiler, forward and backward traced apart:
+    # each one's device kernels, and the device span of the "plain_backward"
+    # ranges (each recompute of rows 1 and 3 and its VJP, gaps included)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof_f:
+        loss, _ = tuner._loss({"lora": state.lora, "mapper": state.mapper}, batch, **draws)
+        torch.cuda.synchronize()
+    with profile(activities=activities) as prof_b:
         torch.autograd.grad(loss, list(params.values()))
         torch.cuda.synchronize()
-    ranges, busy = {}, 0.0
-    for e, us in device_kernels(prof):
-        if e.key in ("forward", "plain_backward"):
-            ranges[e.key] = {"calls": e.count, "device_span_ms": us / 1e3}
+    ranges = {"forward_ms": sum(us for _, us in device_kernels(prof_f)) / 1e3,
+              "backward_ms": 0.0}
+    for e, us in device_kernels(prof_b):
+        if e.key == "plain_backward":
+            ranges["plain_backward"] = {"calls": e.count, "device_span_ms": us / 1e3}
         else:
-            busy += us / 1e3
+            ranges["backward_ms"] += us / 1e3
+    busy = ranges["forward_ms"] + ranges["backward_ms"]
     step_s = split[-1]["forward_s"] + split[-1]["backward_s"]
     row = {"phase": "train_grads", "frames": TRAIN_FRAMES, "loss_kernels": loss_k.item(),
            "loss_plain": loss_p.item(), "mse": [aux_k[0].item(), aux_p[0].item()],
            "align": [aux_k[1].item(), aux_p[1].item()], "tol": TRAIN_GRAD_TOL, **stats,
            "launches_per_step": {k: v for k, v in per_step.items() if v},
            "plain_route_launches": plain_launches, "split_s": split, "s_per_step": step_s,
-           "backward_share": split[-1]["backward_s"] / step_s, "profile": ranges or "not measured",
-           "profile_device_ms": busy if busy > 0 else "not measured",
+           "backward_share": split[-1]["backward_s"] / step_s,
+           "profile": ranges if busy > 0 else "not measured",
            "plain_backward_share": (ranges["plain_backward"]["device_span_ms"] / 1e3 / step_s
                                     if "plain_backward" in ranges else "not measured"),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
