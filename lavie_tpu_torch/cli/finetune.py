@@ -5,8 +5,13 @@ lavie_tpu.cli.finetune; reference: base/pipelines/fine_tuning.py:455-847):
 
 method 1 trains the UNet's LoRA adapters and the MappingNetwork on an
 MSVD-style folder (train_data_dir, annotations_path), method 2 samples
-through cli.sample.build_pipeline. Methods 3 and 4 (CLIPSIM, FVD) need the
-evaluation modules, which the port does not have yet: they raise.
+through cli.sample.build_pipeline, method 3 prints the CLIPSIM of the videos
+in eval_video_dir against their file names, method 4 the FVD between
+real_video_dir and eval_video_dir (8 frames at 64×64 each, as the JAX CLI
+reads them; `clipsim` and `fvd` take the scorer or extractor, which is
+otherwise a ViT-L/14 dual encoder or an R3D-18 with seeded random weights,
+as in the JAX CLI; `model_scale: tiny` takes the tiny towers for method 3,
+for a CPU run).
 `ckpt_path` and `pretrained_path` load the base UNet and the SD-1.4 VAE and
 text tower (io/checkpoints.py); without them the frozen models carry seeded
 random weights, as in the JAX CLI. The image towers have no published
@@ -27,15 +32,12 @@ import torch
 
 from lavie_tpu_torch.core.config import (
     CLIPTextConfig,
+    CLIPVisionConfig,
     UNetConfig,
     VAEConfig,
     load_yaml_config,
 )
 from lavie_tpu_torch.utils.logging import MetricLogger, create_logger
-
-NOT_PORTED = ("method {} needs lavie_tpu_torch.eval (the CLIPSIM scorer, FVD and R3D), "
-              "which is not ported yet: ROADMAP.md, queue 1, the evaluation modules")
-
 
 def _build(cfg: dict, device: str = "cuda", pipe=None):
     """(LoRAFinetuner, pipeline): the image-conditioned base pipeline's
@@ -147,6 +149,50 @@ def train(cfg: dict, device: str = "cuda", pipe=None, on_step=None):
     return state
 
 
+def _uint8(video: np.ndarray) -> np.ndarray:
+    """A dataset's [-1, 1] float video → uint8, as the JAX CLI converts it."""
+    return ((video + 1) * 127.5).astype(np.uint8)
+
+
+def clipsim(cfg: dict, scorer=None, device: str = "cuda") -> float:
+    """Method 3: the mean CLIPSIM of every readable video in
+    cfg["eval_video_dir"] (8 frames at 64x64) against its file name."""
+    from lavie_tpu_torch.data import VideoFolderDataset
+    from lavie_tpu_torch.eval import CLIPSimilarityScorer
+
+    ds = VideoFolderDataset(cfg["eval_video_dir"], num_frames=8, size=(64, 64))
+    if scorer is None:
+        text_cfg, vision_cfg = CLIPTextConfig.vit_l(), CLIPVisionConfig()
+        if cfg.get("model_scale", "full") == "tiny":
+            text_cfg, vision_cfg = text_cfg.tiny(), vision_cfg.tiny()
+        scorer = CLIPSimilarityScorer(text_cfg, vision_cfg, device=device)
+    scores = []
+    for i in range(len(ds)):
+        s = ds[i]
+        if s is None:
+            continue
+        scores.append(scorer.score(_uint8(s["video"]), s["caption"]))
+    mean = float(np.mean(scores))
+    print(f"CLIPSIM over {len(scores)} videos: {mean:.4f}")
+    return mean
+
+
+def fvd(cfg: dict, extractor=None, device: str = "cuda") -> float:
+    """Method 4: the FVD between the videos of cfg["real_video_dir"] and of
+    cfg["eval_video_dir"] (8 frames at 64x64, R3D-18 at 8x64x64)."""
+    from lavie_tpu_torch.data import VideoFolderDataset
+    from lavie_tpu_torch.eval import compute_fvd
+    from lavie_tpu_torch.eval.fvd import FVDFeatureExtractor
+
+    real_ds = VideoFolderDataset(cfg["real_video_dir"], num_frames=8, size=(64, 64))
+    fake_ds = VideoFolderDataset(cfg["eval_video_dir"], num_frames=8, size=(64, 64))
+    to_uint8 = lambda ds: np.stack([_uint8(ds[i]["video"]) for i in range(len(ds))])  # noqa: E731
+    extractor = extractor or FVDFeatureExtractor(num_frames=8, size=64, device=device)
+    value = compute_fvd(to_uint8(real_ds), to_uint8(fake_ds), extractor)
+    print(f"FVD: {value:.2f}")
+    return value
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser()
     parser.add_argument("--config", type=str, required=True)
@@ -171,8 +217,10 @@ def main(argv=None):
                                        out.video[0], fps=8))
             print(written[-1])
         return written
-    if args.method in (3, 4):
-        raise NotImplementedError(NOT_PORTED.format(args.method))
+    if args.method == 3:
+        return clipsim(cfg, device=args.device)
+    if args.method == 4:
+        return fvd(cfg, device=args.device)
     raise ValueError(f"unknown method {args.method}")
 
 

@@ -604,9 +604,11 @@ def test_finetune_cli_trains_rotates_and_resumes(tmp_path):
     state = main(["--config", _train_yaml(tmp_path, resume_from_checkpoint="latest",
                                           max_train_steps=3), "--device", "cpu"])
     assert state.step == 3 and os.listdir(tmp_path / "out") == ["checkpoint-3"]
-    for method in (3, 4):
-        with pytest.raises(NotImplementedError, match="eval"):
-            main(["--config", _train_yaml(tmp_path), "--method", str(method), "--device", "cpu"])
+    dirs = dict(eval_video_dir=str(tmp_path / "clips"), real_video_dir=str(tmp_path / "clips"))
+    for method in (3, 4):  # the evaluation methods: CLIPSIM, FVD of the clips against themselves
+        value = main(["--config", _train_yaml(tmp_path, **dirs), "--method", str(method),
+                      "--device", "cpu"])
+        assert np.isfinite(value)
 
 
 def test_finetune_cli_reads_the_schedule_keys():
