@@ -80,9 +80,14 @@ class UNetConfig:
     use_temporal_modules: bool = False
     # every Transformer3D starts with a ResnetBlock3DCNN(k=3) inside its residual
     transformer_temporal_resblock: bool = False
-    # branches of the temporal module that the shipped config switches off;
-    # the port raises NotImplementedError when one is switched on
+    # the temporal modules' versatile attention, which the shipped config
+    # switches off with ("", "") (reference: vsr/configs/unet_3d_config.json:
+    # 52-55), its cross-frame mode and TSM fold, and the WarpModule paths
+    # (reference: vsr/models/temporal_module.py:570-663; use_dcn_warpping:
+    # false in the shipped config)
     temporal_module_attention_types: Tuple[str, str] = ("", "")
+    temporal_module_cross_frame_mode: str = "0_i-1_i"
+    temporal_module_shift_fold_div: int = 2
     temporal_module_use_dcn_warpping: bool = False
     temporal_module_use_deformable_conv: bool = False
 

@@ -5,7 +5,10 @@ The reference UNet is diffusers-keyed and was trained with interleaved RoPE
 
   - key normalisation (normalize_reference_keys): rotary `inv_freq` buffers
     dropped, the VSR `attn_temporal`/`norm_temporal` names mapped to
-    `attn_temp`/`norm_temp`, and the diffusers ≥0.15 VAE mid-attention
+    `attn_temp`/`norm_temp` (but under a `*_temporal_block(s)` module,
+    whose versatile TemporalTransformerBlock keeps its `attn_temporal`,
+    a RoPE-free attention that _TEMPORAL_QK does not match), and the
+    diffusers ≥0.15 VAE mid-attention
     names (to_q/to_k/to_v/to_out.0) mapped to the classic
     query/key/value/proj_attn;
   - 1×1 conv weights (O, I, 1, 1) of proj_in/proj_out squeezed onto Linear;
@@ -129,15 +132,22 @@ def _to_port(v: np.ndarray, target: torch.Tensor, key: str, qk: re.Pattern, head
 
 
 def load_reference_state_dict(module: nn.Module, sd: Mapping[str, np.ndarray], *,
-                              heads: int, rot_dim: int, strict: bool = False) -> None:
+                              heads: int, rot_dim: int, strict: bool = False,
+                              prefix: str = "") -> None:
     """Load a reference (diffusers-keyed, interleaved-RoPE) state dict into
     a port module in place: keys normalised, 1×1 convs squeezed onto Linear,
     conv_in widened, the q/k rows of every temporal attention re-based.
-    `module` may be a whole UNet3D, a VAE or a bare TemporalAttention.
-    Temporal keys may be missing (they keep the module's values); any other
-    missing key raises KeyError, and so does an unused key when `strict`."""
+    `module` may be a whole UNet3D, a VAE or a bare TemporalAttention, or a
+    submodule whose keys sit under `prefix` in `sd` (only those are read):
+    a VSR temporal module under "mid_temporal_block.", whose prefix keeps
+    its versatile `attn_temporal` as it is, as in a whole checkpoint (no
+    RoPE, no re-basis). Temporal keys may be missing (they keep the module's
+    values); any other missing key raises KeyError, and so does an unused
+    key when `strict`."""
     qk = _BARE_QK if isinstance(module, TemporalAttention) else _TEMPORAL_QK
     sd = normalize_reference_keys(sd)
+    if prefix:
+        sd = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
     out: Dict[str, torch.Tensor] = {}
     missing = []
     for key, target in module.state_dict().items():

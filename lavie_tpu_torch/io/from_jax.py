@@ -10,7 +10,9 @@ half-split RoPE basis, so this is a key map plus transposes:
   Dense kernel (I, O) → Linear weight (O, I)
   Conv kernel (kh, kw, I, O) → Conv2d weight (O, I, kh, kw); the VSR
     temporal convs' (k, 1, I, O) kernels land on TemporalConv's (O, I, k, 1)
-    by the same transpose
+    by the same transpose; R3D-18's (kd, kh, kw, I, O) → Conv3d (O, I, kd,
+    kh, kw), its BatchNorm statistics (`running_mean`/`running_var`) copied
+    onto the buffers of the same names
   scale/bias/embedding/raw params → copied
 
 The key map is the one lavie_tpu.io.convert applies to torch checkpoints,
@@ -20,6 +22,11 @@ same rules: the vision tower's ('layers_3', 'self_attn', 'q_proj', 'kernel')
 kernel → Conv2d (O, 3, 14, 14), `class_embedding`/`position_embedding`
 copied; the MappingNetwork keeps the JAX names (`image_proj`,
 `image_pos_embedding`, `layers_i` → `layers.i`, `norm1..3`, `linear1/2`).
+The versatile attention's keys map by the same rules (AdaLayerNorm's
+('norm1', 'emb', 'embedding') → 'norm1.emb.weight'), but for the
+WarpModule's bare conv, whose flax name 'conv' is kept: ('dcn_module',
+'conv', 'kernel') → 'dcn_module.conv.weight'; `dcn_weight` (already torch's
+(O, C, 3, 3)) and `alpha` are copied.
 `lora_from_jax` carries a JAX LoRA tree ({module path: {"lora": {"a", "b"}}},
 lavie_tpu.train.lora) to the port's adapter dict: ('down_blocks_0', ...,
 'to_q', 'lora', 'a') → 'down_blocks.0.....to_q.lora_a', A (in, r) and B
@@ -58,8 +65,9 @@ def flax_path_to_torch_key(path: Tuple[str, ...]) -> str:
     parts = list(path)
     leaf = parts.pop()
     # the JAX GroupNorm/LayerNorm ('norm') and InflatedConv ('conv') wrappers
-    # add one level that the torch modules do not have
-    if len(parts) >= 2 and parts[-1] in ("norm", "conv"):
+    # add one level that the torch modules do not have; the WarpModule's
+    # bare nn.Conv is itself named 'conv' (dcn_module.conv in the port)
+    if len(parts) >= 2 and parts[-1] in ("norm", "conv") and parts[-2] != "dcn_module":
         parts.pop()
     name = ".".join(parts)
     for old, new in _SPECIAL:
@@ -107,6 +115,8 @@ def flax_tensor_to_torch(value: np.ndarray, leaf: str) -> np.ndarray:
             v = v.T
         elif v.ndim == 4:  # Conv (kh, kw, I, O) → (O, I, kh, kw)
             v = v.transpose(3, 2, 0, 1)
+        elif v.ndim == 5:  # Conv3d (kd, kh, kw, I, O) → (O, I, kd, kh, kw), R3D-18
+            v = v.transpose(4, 3, 0, 1, 2)
     return v
 
 

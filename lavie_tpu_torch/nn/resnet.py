@@ -24,18 +24,20 @@ from lavie_tpu_torch.nn.layers import (
 
 class ResnetBlock3D(nn.Module):
     """GN→SiLU→conv→(+temb)→GN→SiLU→conv with shortcut. The GroupNorms take
-    their statistics over all frames of a video, (F, H, W)."""
+    their statistics over all frames of a video, (F, H, W); norm2 has
+    `groups_out` groups when given (the VSR v_cond_conv: 3 on its RGB input,
+    32 after)."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 1280, groups: int = 32, eps: float = 1e-6,
-                 output_scale_factor: float = 1.0):
+                 output_scale_factor: float = 1.0, groups_out: Optional[int] = None):
         super().__init__()
         out_ch = out_channels or in_channels
         self.output_scale_factor = output_scale_factor
         self.norm1 = GroupNorm(groups, in_channels, eps)
         self.conv1 = InflatedConv(in_channels, out_ch, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_channels, out_ch) if temb_channels else None
-        self.norm2 = GroupNorm(groups, out_ch, eps)
+        self.norm2 = GroupNorm(groups_out or groups, out_ch, eps)
         self.conv2 = InflatedConv(out_ch, out_ch, 3, padding=1)
         self.conv_shortcut = (
             InflatedConv(in_channels, out_ch, 1) if in_channels != out_ch else None

@@ -191,7 +191,10 @@ class UNet3D(nn.Module):
         if cfg.use_temporal_modules:
             tm = lambda ch: TemporalModule3D(  # noqa: E731
                 ch, cfg.time_embed_dim, cfg.norm_num_groups, cfg.temporal_module_attention_types,
-                cfg.temporal_module_use_dcn_warpping, cfg.temporal_module_use_deformable_conv)
+                cfg.temporal_module_cross_frame_mode, cfg.temporal_module_shift_fold_div,
+                num_attention_heads=cfg.num_attention_heads,
+                use_dcn_warpping=cfg.temporal_module_use_dcn_warpping,
+                use_deformable_conv=cfg.temporal_module_use_deformable_conv)
             self.down_temporal_blocks = nn.ModuleList([tm(boc[i]) for i in range(len(boc))])
             self.mid_temporal_block = tm(boc[-1])
             self.up_temporal_blocks = nn.ModuleList([tm(c) for c in rev])
@@ -212,10 +215,14 @@ class UNet3D(nn.Module):
             n += 1
         return n
 
+    @staticmethod
+    def _batch_timesteps(sample: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        """A scalar step broadcast to (B,): the temporal modules' versatile
+        attention reads the steps as the embedding does."""
+        return timesteps.expand(sample.shape[0]) if timesteps.ndim == 0 else timesteps
+
     def _embed(self, sample: torch.Tensor, timesteps: torch.Tensor,
                class_labels: Optional[torch.Tensor]) -> torch.Tensor:
-        if timesteps.ndim == 0:
-            timesteps = timesteps.expand(sample.shape[0])
         emb = self.time_embedding(timesteps)
         if self.class_embedding is not None:
             if class_labels is None:
@@ -225,22 +232,23 @@ class UNet3D(nn.Module):
         return emb
 
     def _down(self, x: torch.Tensor, skips: List[torch.Tensor], emb: torch.Tensor,
-              ehs: Optional[torch.Tensor], blocks: range) -> torch.Tensor:
+              ehs: Optional[torch.Tensor], blocks: range, timesteps: torch.Tensor) -> torch.Tensor:
         for i in blocks:
             x, res = self.down_blocks[i](x, emb, ehs)
             skips.extend(res)
             if self.down_temporal_blocks is not None:
-                x = self.down_temporal_blocks[i](x, emb)
+                x = self.down_temporal_blocks[i](x, emb, timesteps)
         return x
 
     def forward_prefix(self, sample: torch.Tensor, timesteps: torch.Tensor,
                        class_labels: Optional[torch.Tensor] = None) -> Prefix:
         """The text-independent prefix; feed it to forward(..., prefix=) of
         each CFG half."""
+        timesteps = self._batch_timesteps(sample, timesteps)
         emb = self._embed(sample, timesteps, class_labels)
         x = self.conv_in(sample.to(self.conv_in.weight.dtype))
         skips = [x]
-        x = self._down(x, skips, emb, None, range(self.num_prefix_blocks))
+        x = self._down(x, skips, emb, None, range(self.num_prefix_blocks), timesteps)
         return x, skips
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
@@ -248,6 +256,7 @@ class UNet3D(nn.Module):
                 class_labels: Optional[torch.Tensor] = None,
                 prefix: Optional[Prefix] = None) -> torch.Tensor:
         dtype = self.conv_in.weight.dtype
+        timesteps = self._batch_timesteps(sample, timesteps)
         emb = self._embed(sample, timesteps, class_labels)
         if encoder_hidden_states is not None:
             encoder_hidden_states = encoder_hidden_states.to(dtype)
@@ -257,14 +266,15 @@ class UNet3D(nn.Module):
         else:
             x, skips = prefix[0], list(prefix[1])
             start = self.num_prefix_blocks
-        x = self._down(x, skips, emb, encoder_hidden_states, range(start, len(self.down_blocks)))
+        x = self._down(x, skips, emb, encoder_hidden_states, range(start, len(self.down_blocks)),
+                       timesteps)
         x = self.mid_block(x, emb, encoder_hidden_states)
         if self.mid_temporal_block is not None:
-            x = self.mid_temporal_block(x, emb)
+            x = self.mid_temporal_block(x, emb, timesteps)
         for i, block in enumerate(self.up_blocks):
             n = len(block.resnets)
             res, skips = skips[-n:], skips[:-n]
             x = block(x, res, emb, encoder_hidden_states)
             if self.up_temporal_blocks is not None:
-                x = self.up_temporal_blocks[i](x, emb)
+                x = self.up_temporal_blocks[i](x, emb, timesteps)
         return self.conv_out(F.silu(self.conv_norm_out(x)))

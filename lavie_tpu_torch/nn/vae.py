@@ -1,7 +1,9 @@
 """AutoencoderKL, the SD f8 VAE and the x4-upscaler's f4 VAE (port of
 lavie_tpu.nn.vae for `VAEConfig.sd()` and `.vsr()`): encode to (mean,
 logvar), sample the posterior, decode latents to RGB, whole or in two phases
-(decode_mid at latent resolution, decode_up through the upsampling half).
+(decode_mid at latent resolution, decode_up through the upsampling half),
+or tiled (tiled_encode, tiled_decode: overlapping tiles blended by linear
+seam ramps, for frames whose whole pass does not fit).
 The mid-block attention at 4096 positions or more (the f4 decoder's
 163,840 at 320×512 latents, one head of 512) runs the flash kernel
 (kernels/flash_attention.py); the SD VAE's 2,560 stay on PyTorch's
@@ -204,6 +206,41 @@ class AutoencoderKL(nn.Module):
         """The upsampling half; decode_up(decode_mid(z)) is decode(z)."""
         return self.decoder.forward_up(h)
 
+    def tiled_encode(self, x: torch.Tensor, tile: int = 256,
+                     overlap: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
+        """encode in overlapping tiles of `tile` image pixels, `overlap`
+        apart, the moments blended by linear ramps on each overlapped edge
+        (reference: vsr/models/autoencoder_kl.py:214-258 with
+        blend_h/blend_v); (mean, logvar) at latent resolution, logvar
+        clipped to [-30, 20]. An image within one tile is encoded whole."""
+        n, h, w, _ = x.shape
+        if h <= tile and w <= tile:
+            return self.encode(x)
+        f = self.config.downscale_factor
+        tiles = []
+        for i0, i1, j0, j1 in _tile_spans(h, w, tile, overlap):
+            mean, logvar = self.encode(x[:, i0:i1, j0:j1])
+            tiles.append((i0, i1, j0, j1, torch.cat([mean, logvar], dim=-1)))
+        moments = _blend(tiles, (n, h // f, w // f, 2 * self.config.latent_channels), h, w,
+                         overlap // f, lambda i: i // f)
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def tiled_decode(self, z: torch.Tensor, tile: int = 64, overlap: int = 16) -> torch.Tensor:
+        """decode in overlapping tiles of `tile` latent pixels, `overlap`
+        apart, blended by linear ramps on each overlapped edge (reference:
+        vsr/models/autoencoder_kl.py:214-307, blend_h/blend_v :204-212). A
+        64-latent tile's f4 mid attention sees 4096 positions, so it takes
+        the flash kernel. A latent within one tile is decoded whole."""
+        n, h, w, _ = z.shape
+        if h <= tile and w <= tile:
+            return self.decode(z)
+        f = self.config.downscale_factor
+        tiles = [(i0, i1, j0, j1, self.decode(z[:, i0:i1, j0:j1]))
+                 for i0, i1, j0, j1 in _tile_spans(h, w, tile, overlap)]
+        return _blend(tiles, (n, h * f, w * f, self.config.out_channels), h, w, overlap * f,
+                      lambda i: i * f)
+
     @staticmethod
     def sample_posterior(mean: torch.Tensor, logvar: torch.Tensor,
                          noise: Optional[torch.Tensor] = None,
@@ -214,3 +251,41 @@ class AutoencoderKL(nn.Module):
             noise = torch.randn(mean.shape, generator=generator, device=mean.device,
                                 dtype=torch.float32)
         return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
+
+
+def _tile_spans(h: int, w: int, tile: int, overlap: int):
+    """(i0, i1, j0, j1) of every tile, rows first, as the JAX package walks
+    them: starts `tile - overlap` apart, each tile cut at the edge."""
+    stride = tile - overlap
+    for i0 in range(0, max(h - overlap, 1), stride):
+        for j0 in range(0, max(w - overlap, 1), stride):
+            yield i0, min(i0 + tile, h), j0, min(j0 + tile, w)
+
+
+def _blend(tiles, shape, h: int, w: int, ov: int, to_out) -> torch.Tensor:
+    """The tiles' outputs summed onto a canvas of `shape`, each weighted by
+    linear ramps (1..ov)/(ov + 1) over `ov` output pixels on every edge that
+    another tile overlaps, then divided by the summed weights. (i0, i1, j0,
+    j1) are in input pixels of an (h, w) input; to_out maps a start to the
+    output's pixels."""
+    out = tiles[0][4]
+    canvas = torch.zeros(shape, dtype=out.dtype, device=out.device)
+    weight = torch.zeros((1, shape[1], shape[2], 1), dtype=torch.float32, device=out.device)
+    ramp = (torch.arange(ov, dtype=torch.float32, device=out.device) + 1) / (ov + 1)
+    for i0, i1, j0, j1, t in tiles:
+        th, tw = t.shape[1], t.shape[2]
+        wy = torch.ones(th, dtype=torch.float32, device=out.device)
+        wx = torch.ones(tw, dtype=torch.float32, device=out.device)
+        if i0 > 0:
+            wy[:ov] = ramp
+        if i1 < h:
+            wy[-ov:] = ramp.flip(0)
+        if j0 > 0:
+            wx[:ov] = ramp
+        if j1 < w:
+            wx[-ov:] = ramp.flip(0)
+        wmap = (wy[:, None] * wx[None, :])[None, :, :, None]
+        y0, x0 = to_out(i0), to_out(j0)
+        canvas[:, y0:y0 + th, x0:x0 + tw] += t * wmap.to(t.dtype)
+        weight[:, y0:y0 + th, x0:x0 + tw] += wmap
+    return canvas / torch.clamp(weight, min=1e-8).to(canvas.dtype)
