@@ -29,6 +29,14 @@ its result line:
   5. model_tsr  the same for the full-width TSR UNet (2x61x40x64x8 inputs)
   6. main       TextToVideoPipeline at full width answers two prompts: 16
                 frames of 320x512, 50 DDPM steps, CFG 7.5
+  6b. eval      the fork's evaluation harness on those two videos: CLIPSIM
+                through a seeded random ViT-L/14 dual encoder (fp32) against
+                their prompts; FVD through a seeded random R3D-18 (fp32, 16
+                frames, crop 270 -> 224) between the two videos plus two
+                synthetic clips (write_train_clips) and four other synthetic
+                clips; the card's CLIPSIM and features against the same
+                modules on the CPU, FVD of a set against itself ~ 0; seconds
+                and peak memory; no kernel of the port launched
   7. profile    one CFG-batched base UNet forward under torch.profiler:
                 device time by kernel group and the device's busy share
   7b. image     the fork's image-conditioned base path at full width: the
@@ -74,6 +82,20 @@ its result line:
                 v-prediction DDIM steps (the one cut; 50 in a user's run),
                 CFG 5.0, noise level 50
  13. profile_vsr  the profile of one VSR UNet half-forward
+ 13b. branch_kernels  geglu at the versatile feed-forward's widths (N = 8
+                frames x 163840, 40960, 2560 positions at C = 128, 256, 512)
+                and the d=512 flash attention at a tiled_decode tile's
+                (8, 4096, 1, 512), each against its plain version, timed
+                beside the library call where there is one and the bound
+ 13c. vsr_branches  one full-width VSR UNet half-forward (1x8x320x512x7)
+                with the temporal modules' versatile attention
+                ("SpatialTemporalShift", "CrossFrame") in all nine, every
+                parameter random: kernels vs plain, ms, peak memory, exact
+                launches (geglu 6 + 9); WarpModule, both paths, at 64x64
+                tokens of width 128 and 256 on the card against the CPU
+ 13d. tiled_decode  the f4 VAE's tiled codec on one frame: a 320x512
+                latent to 1280x2048 (60 tiles' mid attention on the flash
+                kernel) against the plain route, and tiled_encode back
  14. optin      the JAX package's opt-in float routes: temporal_attention_folded
                 (the temporal kernel on q/k rotated beforehand, with a bias)
                 at the base and VSR shapes; gn_silu_tconv with emit_stats at
@@ -133,14 +155,15 @@ its result line:
                 switches set and one cut, 5 VSR steps; stage seconds,
                 shapes, peak memory and exact launch counts per stage
  23. result     a `kernels` JSON line, then the `ok` JSON line last
-Launch counts are zeroed just before each path (main, image, train, tsr,
-vsr, ckpt, cascade) and
+Launch counts are zeroed just before each path (main, eval, image, train,
+tsr, vsr, vsr_branches, tiled_decode, ckpt, cascade) and
 read just after it; the paths before the cascade run the default routes and
 launch no opt-in entry. Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -802,6 +825,10 @@ def assert_default_routes(path: str, launches: dict) -> None:
             raise AssertionError(f"{name} launched {launches[name]} times on the {path} path")
 
 
+MAIN_PROMPTS = ["a teddy bear walking on the street, 2k, high quality",
+                "a panda playing the guitar by a lake"]
+
+
 def phase_main() -> tuple:
     from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
 
@@ -809,8 +836,7 @@ def phase_main() -> tuple:
     pipe = TextToVideoPipeline.init_random(seed=0)  # full width, bf16, on the card
     torch.cuda.synchronize()
     log(f"[main] init {time.time() - t0:.1f} s")
-    prompts = ["a teddy bear walking on the street, 2k, high quality",
-               "a panda playing the guitar by a lake"]
+    prompts = MAIN_PROMPTS
     steps = 50
     videos = []
     torch.cuda.reset_peak_memory_stats()
@@ -841,7 +867,7 @@ def phase_main() -> tuple:
     phase_profile("profile", pipe.unet, 16)
     del pipe
     torch.cuda.empty_cache()
-    return launches, videos[0]
+    return launches, videos
 
 
 def phase_image() -> dict:
@@ -2028,6 +2054,329 @@ def phase_cascade() -> dict:
     return launches
 
 
+# the keys of a kernel row at the new paths' shapes in the kernels line
+BRANCH_ROW_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+# the eval phase: CLIPSIM of the card against the CPU (a cosine, absolute),
+# R3D-18 features of the card against the CPU (of max|CPU|), and FVD of a set
+# against itself (of the sets' feature variance, trace(Σ)); fp32 on both
+# devices with TF32 off, so only the summation order differs
+EVAL_CLIPSIM_TOL, EVAL_FEATURE_TOL, EVAL_SELF_FVD_TOL = 1e-4, 1e-3, 1e-4
+EVAL_CPU_FRAMES = 4  # frames of the first video scored on the CPU as well
+# vsr_branches: the VSR UNet with the versatile attention in every temporal
+# module, kernels vs plain, of max|plain| (the shipped VSR UNet's MODEL_TOL);
+# the warp on the card against the CPU, fp32, of max|CPU|; the flow path's
+# mask may flip where a warped value lies within WARP_MASK_BAND of 0.9999
+BRANCH_TYPES = ("SpatialTemporalShift", "CrossFrame")
+WARP_TOL, WARP_MASK_BAND = 1e-4, 1e-4
+# tiled_decode: the f4 decoder's tiles (64 latents, 16 apart) with the flash
+# kernel against the plain version, of max|plain|
+TILED_TOL = 2e-2
+
+
+def _features(ext, groups):
+    """R3D-18 features of clips in groups of one shape each, concatenated."""
+    import numpy as np
+
+    return np.concatenate([ext(np.stack(g)) for g in groups], axis=0)
+
+
+def phase_eval(videos: list, prompts: list) -> dict:
+    """The fork's evaluation harness at full width on the main phase's two
+    16x320x512 videos: CLIPSIM through a seeded random ViT-L/14 dual encoder
+    (fp32) against their prompts; FVD through a seeded random R3D-18 (fp32,
+    16 frames, crop 270 -> 224) between set A (the two videos and two
+    synthetic clips of write_train_clips, seed 41) and set B (four synthetic
+    clips, seed 31); both models held against their CPU copies (the first
+    video's first EVAL_CPU_FRAMES frames scored, two clips' features), and
+    FVD(A, A) ~ 0. No kernel of the port runs on this path."""
+    import copy
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from lavie_tpu_torch.eval import CLIPSimilarityScorer, frechet_distance
+    from lavie_tpu_torch.eval.fvd import FVDFeatureExtractor
+    from lavie_tpu_torch.io.video import read_video
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "eval")
+    shutil.rmtree(root, ignore_errors=True)
+    synth = {}
+    for name, n, seed in (("a", 2, 41), ("b", 4, 31)):
+        write_train_clips(os.path.join(root, name), n=n, seed=seed)
+        synth[name] = [read_video(p) for p in sorted(glob.glob(os.path.join(root, name, "clip*")))]
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.time()
+    scorer = CLIPSimilarityScorer(seed=0)  # ViT-L/14, fp32, on the card
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    scorer.score(videos[0][:1], prompts[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    scores = [scorer.score(v, p) for v, p in zip(videos, prompts)]
+    torch.cuda.synchronize()
+    clipsim_s = time.time() - t0
+    clipsim = scorer.score_batch(videos, prompts)
+    cpu = CLIPSimilarityScorer(model=copy.deepcopy(scorer.model).cpu(), device="cpu")
+    head = videos[0][:EVAL_CPU_FRAMES]
+    card_head, cpu_head = scorer.score(head, prompts[0]), cpu.score(head, prompts[0])
+    del cpu
+
+    ext = FVDFeatureExtractor(seed=0)  # R3D-18, fp32, 16 frames at 224, on the card
+    set_a = [list(videos), synth["a"]]
+    set_b = [synth["b"]]
+    _features(ext, [synth["b"][:1]])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    feats_a = _features(ext, set_a)
+    feats_b = _features(ext, set_b)
+    torch.cuda.synchronize()
+    features_s = time.time() - t0
+    t0 = time.time()
+    fvd = frechet_distance(feats_a, feats_b)
+    fvd_self = frechet_distance(feats_a, feats_a)
+    frechet_s = time.time() - t0
+    cpu_ext = FVDFeatureExtractor(net=copy.deepcopy(ext.net).cpu(), device="cpu")
+    cpu_feats = cpu_ext(np.stack(synth["b"][:2]))
+    feat_err = float(np.abs(feats_b[:2] - cpu_feats).max())
+    feat_scale = float(np.abs(cpu_feats).max())
+    trace_a = float(np.trace(np.cov(feats_a, rowvar=False)))
+    launches = read_launches()
+    row = {"phase": "eval", "prompts": prompts, "clipsim_per_video": scores, "clipsim": clipsim,
+           "clipsim_card_vs_cpu": [card_head, cpu_head], "clipsim_frames_on_cpu": EVAL_CPU_FRAMES,
+           "fvd": fvd, "fvd_self": fvd_self, "trace_cov_a": trace_a,
+           "clips": {"a": len(feats_a), "b": len(feats_b)},
+           "feature_max_abs_err": feat_err, "feature_max_abs_cpu": feat_scale,
+           "seconds": {"scorer_init": init_s, "clipsim_2_videos": clipsim_s,
+                       "r3d_features": features_s, "frechet": frechet_s},
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": {k: v for k, v in launches.items() if v}}
+    log(json.dumps(row))
+    if any(launches.values()):
+        raise AssertionError(f"eval: a kernel of the port was launched: {launches}")
+    if not (np.isfinite(scores).all() and np.isfinite(fvd) and np.isfinite(feats_a).all()):
+        raise AssertionError(f"eval: CLIPSIM {scores}, FVD {fvd} not finite")
+    if feats_a.shape != (4, 512) or feats_b.shape != (4, 512):
+        raise AssertionError(f"eval: features {feats_a.shape}, {feats_b.shape}")
+    if abs(card_head - cpu_head) > EVAL_CLIPSIM_TOL:
+        raise AssertionError(f"eval: CLIPSIM card {card_head} vs CPU {cpu_head}")
+    if feat_err > EVAL_FEATURE_TOL * feat_scale:
+        raise AssertionError(f"eval: R3D-18 features card vs CPU {feat_err} > "
+                             f"{EVAL_FEATURE_TOL}·{feat_scale}")
+    if abs(fvd_self) > EVAL_SELF_FVD_TOL * trace_a or fvd <= abs(fvd_self):
+        raise AssertionError(f"eval: FVD(A, A) {fvd_self} (trace {trace_a}), FVD(A, B) {fvd}")
+    del scorer, ext
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_branch_kernels() -> dict:
+    """The two kernels at the shapes the new paths give them: GEGLU at the
+    versatile feed-forward's widths (dim = C/2: 128 at up 3, 256 at up 1,
+    512 at the L3 width) and the d=512 flash attention at a tiled_decode
+    tile's mid attention (64x64 latents, 8 frames' worth)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from lavie_tpu_torch.kernels import flash_attention as fa
+
+    f = VSR_FRAMES
+    geglu_rows = phase_geglu(f, shapes=[(f * 163840, 128), (f * 40960, 256), (f * 2560, 512)])
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q, k, v = (torch.randn(f, 4096, 1, 512, generator=g, device="cuda").bfloat16() for _ in range(3))
+    ql, kl, vl = (t.transpose(1, 2) for t in (q, k, v))
+
+    def efficient_sdpa():
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(ql, kl, vl)
+
+    flash_row = check_row(
+        "flash_attention", {"B": f, "S": 4096, "H": 1, "d": 512},
+        fa.flash_attention(q, k, v, 512 ** -0.5), fa.flash_attention_reference(q, k, v, 512 ** -0.5),
+        FLASH_TOL, lambda: fa.flash_attention(q, k, v, 512 ** -0.5),
+        lambda: fa.flash_attention_reference(q, k, v, 512 ** -0.5), efficient_sdpa,
+        4 * q.numel() * 2, ((4 * f * 4096 * 4096 * 512, BF16_FLOPS),), iters=10)
+    del q, k, v, ql, kl, vl
+    torch.cuda.empty_cache()
+    return {"geglu": geglu_rows, "flash_attention": flash_row}
+
+
+def _warp_check(c: int, deformable: bool) -> dict:
+    """WarpModule at 64x64 tokens of width c over 8 frames, random weights
+    (alpha and the flow conv too), fp32 on the card against its CPU copy."""
+    import copy
+
+    from lavie_tpu_torch.nn.versatile_attention import WarpModule
+    from lavie_tpu_torch.pipelines.t2v import random_init_
+
+    m = WarpModule(c, deformable)
+    random_init_(m, seed=13 + c)
+    g = torch.Generator().manual_seed(14 + c)
+    x = torch.randn(VSR_FRAMES, 4096, c, generator=g) * 0.5 + 1.0  # half past the mask's 0.9999
+    off = torch.randn(VSR_FRAMES, 4096, c, generator=g)
+    card = copy.deepcopy(m).cuda()
+    with torch.no_grad():
+        want = m(x, off)
+        xd, od = x.cuda(), off.cuda()
+        card(xd, od)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.time()
+        got = card(xd, od)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+    got = got.cpu()
+    diff = (got - want).abs()
+    scale = want.abs().max().item()
+    bad = diff > WARP_TOL * scale
+    if not deformable:  # a mask flip at the threshold: one side 0, the other the value
+        near = (torch.maximum(got.abs(), want.abs()) - 0.9999).abs() <= WARP_MASK_BAND
+        bad &= ~near
+    return {"C": c, "path": "deformable" if deformable else "flow", "ms": ms,
+            "max_abs_err": diff.max().item(), "max_abs_ref": scale,
+            "elements_past_tol": int((diff > WARP_TOL * scale).sum()),
+            "unexplained": int(bad.sum()), "finite": bool(torch.isfinite(got).all())}
+
+
+def phase_vsr_branches() -> dict:
+    """One full-width VSR UNet half-forward (1x8x320x512x7, text and noise
+    level, every parameter random) with the versatile attention in all nine
+    temporal modules, attention types BRANCH_TYPES, cross-frame mode
+    "0_i-1_i": kernels against the plain versions, ms of each (CUDA events),
+    peak memory and the launches of the kernel run (geglu > 0: the
+    versatile feed-forward); then WarpModule, both paths, at a square
+    64x64-token grid of width 128 and 256 on the card against the CPU (the
+    VSR latents are not square, so the UNet cannot run the warp, as in JAX)."""
+    import dataclasses
+
+    from lavie_tpu_torch.core.config import UNetConfig
+    from lavie_tpu_torch.nn.unet import UNet3D
+    from lavie_tpu_torch.pipelines.t2v import random_init_
+
+    cfg = dataclasses.replace(UNetConfig.vsr(), temporal_module_attention_types=BRANCH_TYPES)
+    with torch.device("cuda"):
+        unet = UNet3D(cfg).to(torch.bfloat16).eval()
+    random_init_(unet, seed=7)
+    x, ts, ctx, labels = unet_inputs(cfg, 1, VSR_FRAMES, 320, 512, 1024, seed=3, t=981.0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        unet(x, ts, ctx, labels)  # warm-up: the attention's first calls at each shape
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        start.record()
+        got = unet(x, ts, ctx, labels)
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        ms = start.elapsed_time(end)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        got = got.float()
+        with plain_kernels():
+            start.record()
+            want = unet(x, ts, ctx, labels).float()
+            end.record()
+            torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    warps = [_warp_check(c, d) for c in (128, 256) for d in (False, True)]
+    row = {"phase": "vsr_branches", "shape": list(x.shape), "attention_types": list(BRANCH_TYPES),
+           "cross_frame_mode": cfg.temporal_module_cross_frame_mode, "ms": ms, "plain_ms": plain_ms,
+           "max_abs_err": err, "max_abs_ref": scale, "rel_err": err / scale, "finite": finite,
+           "peak_mem_gb": peak, "launches": {k: v for k, v in launches.items() if v},
+           "warp": warps}
+    log(json.dumps(row))
+    if not (finite and err <= MODEL_TOL["model_vsr"] * scale):
+        raise AssertionError(f"vsr_branches: kernels vs plain {err} > {MODEL_TOL['model_vsr']}·{scale}")
+    # the shipped VSR UNet's launches a half (phase_vsr) plus one geglu in
+    # each of the nine temporal modules' versatile blocks
+    for name, n in {"geglu": 6 + 9, "temporal_attention": 16, "cross_attention_head": 10,
+                    "transformer_tail": 10, "flash_attention": 6, "gn_silu_tconv": 50}.items():
+        if launches[name] != n:
+            raise AssertionError(f"vsr_branches: {name} launched {launches[name]} times, expected {n}")
+    assert_default_routes("vsr_branches", launches)
+    for w in warps:
+        if not w["finite"] or w["unexplained"]:
+            raise AssertionError(f"vsr_branches: WarpModule card vs CPU: {w}")
+    del unet, got, want
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tiled_decode() -> dict:
+    """The f4 VAE's tiled codec at full width on one frame: a 320x512 latent
+    to 1280x2048 through tiled_decode (64-latent tiles, 16 apart: 77 tiles,
+    the 60 of 64x64 latents with their mid attention on the flash kernel),
+    the kernel route against the plain route, twice each in turns, and each
+    route's device ms (torch.profiler); then tiled_encode of that frame back
+    to a 320x512 latent (256-pixel tiles, 64 apart), shape and finiteness.
+    Seconds, peak memory, launches."""
+    from lavie_tpu_torch.core.config import VAEConfig
+    from lavie_tpu_torch.nn.vae import AutoencoderKL
+    from lavie_tpu_torch.pipelines.t2v import random_init_
+
+    with torch.device("cuda"):
+        vae = AutoencoderKL(VAEConfig.vsr()).to(torch.bfloat16).eval()
+    random_init_(vae, seed=8)
+    g = torch.Generator(device="cuda").manual_seed(15)
+    z = torch.randn(1, 320, 512, 4, generator=g, device="cuda").bfloat16()
+    routes = {"kernels": contextlib.nullcontext, "plain": plain_kernels}
+    secs, device_ms, outs, launches = {r: [] for r in routes}, {}, {}, {}
+    with torch.no_grad():
+        for route in routes.values():  # warm-up: the four tile shapes, both routes
+            with route():
+                vae.tiled_decode(z[:, :80, :80])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for name in ("kernels", "plain", "kernels", "plain"):  # in turns: the host swings
+            with routes[name]():
+                zero_launches()
+                t0 = time.time()
+                outs[name] = vae.tiled_decode(z)
+                torch.cuda.synchronize()
+                secs[name].append(time.time() - t0)
+                launches[name] = read_launches()
+        decode_launches = launches["kernels"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for name, route in routes.items():  # the device's share of a decode
+            with route():
+                ms = kernel_ms(lambda: vae.tiled_decode(z), calls=1)
+            device_ms[name] = sum(ms.values()) if isinstance(ms, dict) else ms
+        got, want = outs["kernels"], outs["plain"]
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        t0 = time.time()
+        mean, logvar = vae.tiled_encode(got)
+        torch.cuda.synchronize()
+        encode_s = time.time() - t0
+        encode_launches = read_launches()
+        encode_peak = torch.cuda.max_memory_allocated() / 1e9
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    ok = (tuple(got.shape) == (1, 1280, 2048, 3) and bool(torch.isfinite(got).all())
+          and tuple(mean.shape) == tuple(logvar.shape) == (1, 320, 512, 4)
+          and bool(torch.isfinite(mean).all()) and bool(torch.isfinite(logvar).all()))
+    row = {"phase": "tiled_decode", "latent": list(z.shape), "shape": list(got.shape),
+           "decode_s": secs["kernels"], "plain_decode_s": secs["plain"],
+           "device_ms": device_ms["kernels"], "plain_device_ms": device_ms["plain"], "max_abs_err": err,
+           "max_abs_ref": scale, "peak_mem_gb": peak,
+           "decode_launches": {k: v for k, v in decode_launches.items() if v},
+           "encode_s": encode_s, "encode_shape": list(mean.shape), "encode_peak_mem_gb": encode_peak,
+           "encode_launches": {k: v for k, v in encode_launches.items() if v}, "ok": ok}
+    log(json.dumps(row))
+    if not ok or err > TILED_TOL * scale:
+        raise AssertionError(f"tiled_decode: {row}")
+    if (decode_launches["flash_attention"] != 60 or encode_launches["flash_attention"] != 60
+            or launches["plain"]["flash_attention"]):
+        raise AssertionError(f"tiled_decode: flash launched {decode_launches['flash_attention']} "
+                             f"and {encode_launches['flash_attention']} times, expected 60 each")
+    del vae, got, want
+    torch.cuda.empty_cache()
+    return {k: decode_launches[k] + encode_launches[k] for k in decode_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2046,7 +2395,9 @@ def main() -> int:
 
     phase_model("model", UNetConfig.base_t2v(), 16)
     phase_model("model_tsr", UNetConfig.interpolation(), TSR_FRAMES)
-    main_launches, base_video = phase_main()
+    main_launches, main_videos = phase_main()
+    base_video = main_videos[0]
+    eval_launches = phase_eval(main_videos, MAIN_PROMPTS)
     image_launches, image_pipe = phase_image()
     train_launches = phase_train(image_pipe)
     del image_pipe
@@ -2058,6 +2409,10 @@ def main() -> int:
     vsr_rows = phase_vsr_kernels()
     phase_model("model_vsr", UNetConfig.vsr(), VSR_FRAMES, batch=1, h=320, w=512, ctx_dim=1024)
     vsr_launches = phase_vsr(base_video)
+    # the temporal module's versatile branch and the tiled f4 codec
+    branch_rows = phase_branch_kernels()
+    branch_launches = phase_vsr_branches()
+    tiled_launches = phase_tiled_decode()
     # the opt-in routes: kernels, then each route in the model against the default
     folded_rows = phase_temporal(16, rope=32, folded=True)
     phase_temporal(VSR_FRAMES, rope=32, b=1, folded=True,
@@ -2088,9 +2443,11 @@ def main() -> int:
 
     def entry(name, source, replaces, row, note=None, counter=None, ab=None, extra=None):
         counter = counter or name
-        by_path = {"main": main_launches[counter], "image": image_launches[counter],
+        by_path = {"main": main_launches[counter], "eval": eval_launches[counter],
+                   "image": image_launches[counter],
                    "train": train_launches[counter], "tsr": tsr_launches[counter],
-                   "vsr": vsr_launches[counter],
+                   "vsr": vsr_launches[counter], "vsr_branches": branch_launches[counter],
+                   "tiled_decode": tiled_launches[counter],
                    "ckpt": ckpt_launches[counter], "cascade": cascade_launches[counter]}
         if ab is not None:  # the launches of one A/B forward with the route set
             by_path["ab"] = ab[counter]
@@ -2128,7 +2485,9 @@ def main() -> int:
     log(json.dumps({"kernels": [
         entry("temporal_attention", "lavie_tpu_torch/csrc/temporal_fused.cu",
               "lavie_tpu/kernels/temporal_fused.py:446", temporal_rows[0]),
-        entry("geglu", "lavie_tpu_torch/csrc/geglu.cu", "lavie_tpu/kernels/geglu.py:85", geglu_rows[0]),
+        entry("geglu", "lavie_tpu_torch/csrc/geglu.cu", "lavie_tpu/kernels/geglu.py:85", geglu_rows[0],
+              extra={"versatile_ff": [{k: r[k] for k in BRANCH_ROW_KEYS}
+                                      for r in branch_rows["geglu"]]}),
         entry("flash_sparse_causal", "lavie_tpu_torch/csrc/flash_attention.cu",
               "lavie_tpu/kernels/flash_attention.py:407", sparse_rows[0]),
         entry("flash_attention_kv", "lavie_tpu_torch/csrc/flash_attention.cu",
@@ -2136,7 +2495,9 @@ def main() -> int:
               note="kernels phase only: no path of the port materialises the sparse kv"),
         entry("flash_attention", "lavie_tpu_torch/csrc/flash_attention.cu",
               "lavie_tpu/kernels/flash_attention.py:453", vsr_rows["flash_attention"][1],
-              note="the VAE's d=512 shape; the L3 d=128 row is in the vsr_kernels phase"),
+              note="the VAE's d=512 shape; the L3 d=128 row is in the vsr_kernels phase",
+              extra={"tiled_decode_tile": {k: branch_rows["flash_attention"][k]
+                                           for k in BRANCH_ROW_KEYS}}),
         entry("cross_attention_head", "lavie_tpu_torch/csrc/cross_head.cu",
               "lavie_tpu/kernels/cross_block.py:383", vsr_rows["cross_attention_head"][0]),
         entry("transformer_tail", "lavie_tpu_torch/csrc/transformer_tail.cu",
