@@ -39,6 +39,7 @@ from lavie_tpu_torch.core.config import (
 )
 from lavie_tpu_torch.utils.logging import MetricLogger, create_logger
 
+
 def _build(cfg: dict, device: str = "cuda", pipe=None):
     """(LoRAFinetuner, pipeline): the image-conditioned base pipeline's
     modules (`pipe`, or one built from cfg) under the fine-tuning config."""
