@@ -2059,8 +2059,11 @@ BRANCH_ROW_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_
 # the eval phase: CLIPSIM of the card against the CPU (a cosine, absolute),
 # R3D-18 features of the card against the CPU (of max|CPU|), and FVD of a set
 # against itself (of the sets' feature variance, trace(Σ)); fp32 on both
-# devices with TF32 off, so only the summation order differs
-EVAL_CLIPSIM_TOL, EVAL_FEATURE_TOL, EVAL_SELF_FVD_TOL = 1e-4, 1e-3, 1e-4
+# devices, the models turning TF32 off themselves (the phase turns it on
+# around them), so only the summation order differs. The first two are
+# about ten times an H100's readings (4.5e-8, and 1.9e-6 of 3.21: PERF.md
+# §6); the features with TF32 are reported beside (feature_max_abs_err_tf32).
+EVAL_CLIPSIM_TOL, EVAL_FEATURE_TOL, EVAL_SELF_FVD_TOL = 1e-6, 1e-5, 1e-4
 EVAL_CPU_FRAMES = 4  # frames of the first video scored on the CPU as well
 # vsr_branches: the VSR UNet with the versatile attention in every temporal
 # module, kernels vs plain, of max|plain| (the shipped VSR UNet's MODEL_TOL);
@@ -2088,15 +2091,13 @@ def phase_eval(videos: list, prompts: list) -> dict:
     synthetic clips of write_train_clips, seed 41) and set B (four synthetic
     clips, seed 31); both models held against their CPU copies (the first
     video's first EVAL_CPU_FRAMES frames scored, two clips' features), and
-    FVD(A, A) ~ 0. No kernel of the port runs on this path."""
-    import copy
+    FVD(A, A) ~ 0. TF32 is on for the phase, as cuDNN's default has it, so
+    the check holds the models' own exact_fp32; the features with TF32 (the
+    net called outside it) are reported beside. No kernel of the port runs
+    on this path."""
     import glob
     import shutil
 
-    import numpy as np
-
-    from lavie_tpu_torch.eval import CLIPSimilarityScorer, frechet_distance
-    from lavie_tpu_torch.eval.fvd import FVDFeatureExtractor
     from lavie_tpu_torch.io.video import read_video
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "eval")
@@ -2106,6 +2107,23 @@ def phase_eval(videos: list, prompts: list) -> dict:
         write_train_clips(os.path.join(root, name), n=n, seed=seed)
         synth[name] = [read_video(p) for p in sorted(glob.glob(os.path.join(root, name, "clip*")))]
     shutil.rmtree(root, ignore_errors=True)
+    flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        return _eval_with_tf32_on(videos, prompts, synth)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def _eval_with_tf32_on(videos: list, prompts: list, synth: dict) -> dict:
+    """phase_eval's measurements and checks."""
+    import copy
+
+    import numpy as np
+
+    from lavie_tpu_torch.eval import CLIPSimilarityScorer, frechet_distance
+    from lavie_tpu_torch.eval.fvd import FVDFeatureExtractor, fvd_preprocess
+
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     t0 = time.time()
@@ -2142,6 +2160,9 @@ def phase_eval(videos: list, prompts: list) -> dict:
     cpu_feats = cpu_ext(np.stack(synth["b"][:2]))
     feat_err = float(np.abs(feats_b[:2] - cpu_feats).max())
     feat_scale = float(np.abs(cpu_feats).max())
+    with torch.no_grad():  # outside exact_fp32: the convolutions in TF32
+        clips = torch.from_numpy(fvd_preprocess(np.stack(synth["b"][:2]))).cuda()
+        tf32_err = float(np.abs(ext.net(clips).cpu().numpy() - cpu_feats).max())
     trace_a = float(np.trace(np.cov(feats_a, rowvar=False)))
     launches = read_launches()
     row = {"phase": "eval", "prompts": prompts, "clipsim_per_video": scores, "clipsim": clipsim,
@@ -2149,6 +2170,7 @@ def phase_eval(videos: list, prompts: list) -> dict:
            "fvd": fvd, "fvd_self": fvd_self, "trace_cov_a": trace_a,
            "clips": {"a": len(feats_a), "b": len(feats_b)},
            "feature_max_abs_err": feat_err, "feature_max_abs_cpu": feat_scale,
+           "feature_max_abs_err_tf32": tf32_err,
            "seconds": {"scorer_init": init_s, "clipsim_2_videos": clipsim_s,
                        "r3d_features": features_s, "frechet": frechet_s},
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,

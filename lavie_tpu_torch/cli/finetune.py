@@ -10,8 +10,7 @@ in eval_video_dir against their file names, method 4 the FVD between
 real_video_dir and eval_video_dir (8 frames at 64×64 each, as the JAX CLI
 reads them; `clipsim` and `fvd` take the scorer or extractor, which is
 otherwise a ViT-L/14 dual encoder or an R3D-18 with seeded random weights,
-as in the JAX CLI; `model_scale: tiny` takes the tiny towers for method 3,
-for a CPU run).
+as in the JAX CLI).
 `ckpt_path` and `pretrained_path` load the base UNet and the SD-1.4 VAE and
 text tower (io/checkpoints.py); without them the frozen models carry seeded
 random weights, as in the JAX CLI. The image towers have no published
@@ -32,7 +31,6 @@ import torch
 
 from lavie_tpu_torch.core.config import (
     CLIPTextConfig,
-    CLIPVisionConfig,
     UNetConfig,
     VAEConfig,
     load_yaml_config,
@@ -162,11 +160,7 @@ def clipsim(cfg: dict, scorer=None, device: str = "cuda") -> float:
     from lavie_tpu_torch.eval import CLIPSimilarityScorer
 
     ds = VideoFolderDataset(cfg["eval_video_dir"], num_frames=8, size=(64, 64))
-    if scorer is None:
-        text_cfg, vision_cfg = CLIPTextConfig.vit_l(), CLIPVisionConfig()
-        if cfg.get("model_scale", "full") == "tiny":
-            text_cfg, vision_cfg = text_cfg.tiny(), vision_cfg.tiny()
-        scorer = CLIPSimilarityScorer(text_cfg, vision_cfg, device=device)
+    scorer = scorer or CLIPSimilarityScorer(device=device)  # ViT-L/14
     scores = []
     for i in range(len(ds)):
         s = ds[i]

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from lavie_tpu_torch.core.config import CLIPTextConfig, CLIPVisionConfig
+from lavie_tpu_torch.utils.precision import exact_fp32
 
 CLIP_IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
 CLIP_IMAGE_STD = np.array([0.26862954, 0.26130258, 0.27577711], np.float32)
@@ -47,8 +48,9 @@ def clip_preprocess(frames: np.ndarray, image_size: int = 224) -> np.ndarray:
 class CLIPSimilarityScorer:
     """score(video, prompt): the mean cosine similarity of a uint8 video's
     frames to its prompt. The dual encoder runs on `device` (the card
-    unless given "cpu") in fp32, as the JAX scorer does; without a `model`
-    its weights are seeded random (random_init_). Prompts are tokenized to the text tower's
+    unless given "cpu") in fp32 without TF32 (exact_fp32), as the JAX
+    scorer does; without a `model` its weights are seeded random
+    (random_init_). Prompts are tokenized to the text tower's
     max_position_embeddings (77 at ViT-L), the scorer's own length."""
 
     def __init__(self, text_config: CLIPTextConfig = CLIPTextConfig.vit_l(),
@@ -93,7 +95,7 @@ class CLIPSimilarityScorer:
         """video: uint8 (F, H, W, 3) → mean frame-prompt cosine similarity."""
         frames = torch.from_numpy(clip_preprocess(video, self.vision_config.image_size))
         ids = torch.from_numpy(self.tokenizer([prompt]).astype(np.int64))
-        with torch.no_grad():
+        with torch.no_grad(), exact_fp32():
             return float(self._score(ids.to(self.device), frames.to(self.device)))
 
     def score_batch(self, videos: Sequence[np.ndarray], prompts: Sequence[str]) -> float:

@@ -22,6 +22,7 @@ import torch
 
 from lavie_tpu_torch.data.transforms import resize_bilinear
 from lavie_tpu_torch.eval.r3d import R3D18, convert_r3d18
+from lavie_tpu_torch.utils.precision import exact_fp32
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -83,9 +84,9 @@ def fvd_preprocess(videos: np.ndarray, num_frames: int = 16, crop: int = 270,
 class FVDFeatureExtractor:
     """R3D-18 penultimate features: uint8 (B, F, H, W, 3) → float32 (B, 512),
     `batch` clips a forward. The network runs on `device` (the card unless
-    given "cpu") in fp32, as the JAX extractor does; without a `net` its
-    weights are seeded random (random_init_; BatchNorm's running
-    statistics stay 0 and 1)."""
+    given "cpu") in fp32 without TF32 (exact_fp32), as the JAX extractor
+    does; without a `net` its weights are seeded random (random_init_;
+    BatchNorm's running statistics stay 0 and 1)."""
 
     def __init__(self, net: Optional[R3D18] = None, seed: int = 0, num_frames: int = 16,
                  size: int = 224, batch: int = 4, device: Union[str, torch.device] = "cuda"):
@@ -94,7 +95,7 @@ class FVDFeatureExtractor:
         self.device = torch.device(device)
         if net is None:
             with torch.device(self.device):
-                net = R3D18(features_only=True)
+                net = R3D18()
             random_init_(net, seed)
         self.net = net.to(device=self.device, dtype=torch.float32).eval()
         self.num_frames = num_frames
@@ -105,14 +106,14 @@ class FVDFeatureExtractor:
     def from_torchvision_state_dict(cls, state_dict, **kw) -> "FVDFeatureExtractor":
         """Weights from a torchvision r3d_18 state dict (numpy or torch
         tensors)."""
-        net = R3D18(features_only=True)
+        net = R3D18()
         convert_r3d18(net, state_dict)
         return cls(net=net, **kw)
 
     def __call__(self, videos: np.ndarray) -> np.ndarray:
         clips = fvd_preprocess(videos, self.num_frames, size=self.size)
         outs = []
-        with torch.no_grad():
+        with torch.no_grad(), exact_fp32():
             for i in range(0, clips.shape[0], self.batch):
                 x = torch.from_numpy(np.ascontiguousarray(clips[i:i + self.batch]))
                 outs.append(self.net(x.to(self.device)).cpu().numpy())

@@ -16,11 +16,13 @@ Module names are torchvision's state-dict keys (`stem.0.weight`,
 
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import Mapping
 
 import numpy as np
 import torch
 from torch import nn
+
+WIDTHS = (64, 128, 256, 512)  # the four stages' channels (torchvision's r3d_18)
 
 
 class BatchNormInference(nn.Module):
@@ -72,38 +74,32 @@ class BasicBlock3D(nn.Module):
 
 
 class R3D18(nn.Module):
-    """(B, F, H, W, 3) video → (B, 512) penultimate features, or
-    (B, num_classes) logits with `features_only=False`."""
+    """(B, F, H, W, 3) video → (B, 512) penultimate features: torchvision's
+    r3d_18 without its classifier, at its widths."""
 
-    def __init__(self, num_classes: int = 400, features_only: bool = True,
-                 widths: Sequence[int] = (64, 128, 256, 512)):
+    def __init__(self):
         super().__init__()
-        self.features_only = features_only
-        w0 = widths[0]
-        self.stem = nn.Sequential(_Conv3d(3, w0, (3, 7, 7), stride=(1, 2, 2), padding=(1, 3, 3),
-                                          bias=False), BatchNormInference(w0))
-        cin = w0
-        for i, w in enumerate(widths):
+        self.stem = nn.Sequential(_Conv3d(3, WIDTHS[0], (3, 7, 7), stride=(1, 2, 2),
+                                          padding=(1, 3, 3), bias=False),
+                                  BatchNormInference(WIDTHS[0]))
+        cin = WIDTHS[0]
+        for i, w in enumerate(WIDTHS):
             stride = 1 if i == 0 else 2
             setattr(self, f"layer{i + 1}",
                     nn.Sequential(BasicBlock3D(cin, w, stride), BasicBlock3D(w, w, 1)))
             cin = w
-        self.num_stages = len(widths)
-        self.fc = None if features_only else nn.Linear(cin, num_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = torch.relu(self.stem(x))
-        for i in range(self.num_stages):
+        for i in range(len(WIDTHS)):
             x = getattr(self, f"layer{i + 1}")(x)
-        x = x.mean(dim=(1, 2, 3))  # adaptive average pool to (1, 1, 1)
-        return x if self.fc is None else self.fc(x)
+        return x.mean(dim=(1, 2, 3))  # adaptive average pool to (1, 1, 1)
 
 
 def convert_r3d18(module: R3D18, state_dict: Mapping[str, np.ndarray]) -> None:
     """A torchvision r3d_18 state dict (numpy or torch tensors) → `module`,
-    in place. The `num_batches_tracked` buffers, and the classifier of a
-    features-only module, are not used; any other missing key, or a shape
-    that differs, raises."""
+    in place. The `num_batches_tracked` buffers and the classifier (`fc`)
+    are not used; any other missing key, or a shape that differs, raises."""
     own = module.state_dict()
     out = {}
     for key, target in own.items():

@@ -30,12 +30,18 @@ from lavie_tpu_torch.nn.layers import InflatedConv
 from lavie_tpu_torch.nn.resnet import ResnetBlock3D, ResnetBlock3DCNN
 from lavie_tpu_torch.nn.versatile_attention import TemporalTransformer3D
 
+# the versatile branch's head dim is C / heads / ATTENTION_DIM_DIV
+# (reference: temporal_module.py:117-143), and its GroupNorm takes
+# ATTENTION_NORM_GROUPS groups while the resnets take 32 (reference:
+# temporal_module.py:83)
+ATTENTION_DIM_DIV = 2
+ATTENTION_NORM_GROUPS = 8
+
 
 class TemporalModule3D(nn.Module):
     def __init__(self, channels: int, temb_channels: int, norm_num_groups: int = 32,
                  attention_block_types=("", ""), cross_frame_attention_mode: str = "0_i-1_i",
-                 temporal_shift_fold_div: int = 2, attention_dim_div: int = 2,
-                 num_attention_heads: int = 8, attention_norm_num_groups: int = 8,
+                 temporal_shift_fold_div: int = 2, num_attention_heads: int = 8,
                  use_dcn_warpping: bool = False, use_deformable_conv: bool = False,
                  video_condition: bool = False, use_scale_shift: bool = False):
         super().__init__()
@@ -50,12 +56,10 @@ class TemporalModule3D(nn.Module):
         self.resblocks_3d_s = ResnetBlock3D(channels, channels, temb_channels, norm_num_groups)
         self.attentions = None
         if any(attention_block_types):
-            # head_dim = C / heads / attention_dim_div (reference:
-            # temporal_module.py:117-143)
-            head_dim = max(channels // num_attention_heads // attention_dim_div, 1)
+            head_dim = max(channels // num_attention_heads // ATTENTION_DIM_DIV, 1)
             self.attentions = nn.ModuleList([TemporalTransformer3D(
                 channels, num_attention_heads * head_dim, num_attention_heads, head_dim,
-                attention_block_types, attention_norm_num_groups, cross_frame_attention_mode,
+                attention_block_types, ATTENTION_NORM_GROUPS, cross_frame_attention_mode,
                 temporal_shift_fold_div, use_dcn_warpping, use_deformable_conv)])
         self.use_scale_shift = use_scale_shift
         out = InflatedConv(channels, 2 * channels if use_scale_shift else channels, 1)

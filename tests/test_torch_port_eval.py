@@ -52,7 +52,7 @@ def _r3d_params(seed, frames=8, size=32):
 
 
 def _port_r3d(params):
-    net = R3D18(features_only=True)
+    net = R3D18()
     load_jax_params(net, params)
     return net.eval()
 
@@ -72,7 +72,7 @@ def test_convert_r3d18_matches_jax():
     classifier included, unused by the features-only net) lands where the
     JAX conversion puts it."""
     rng = np.random.RandomState(3)
-    own = R3D18(features_only=True).state_dict()
+    own = R3D18().state_dict()
     sd = {k: rng.randn(*v.shape).astype(np.float32) for k, v in own.items()}
     for k in own:
         if k.endswith("running_var"):
@@ -81,7 +81,7 @@ def test_convert_r3d18_matches_jax():
     init = jr3d.R3D18(features_only=True).init(jax.random.PRNGKey(0),
                                                jnp.zeros((1, 4, 16, 16, 3)))["params"]
     want = state_dict_from_jax(jr3d.convert_r3d18(jax.device_get(init), sd))
-    net = R3D18(features_only=True)
+    net = R3D18()
     convert_r3d18(net, sd)
     got = net.state_dict()
     assert got.keys() == want.keys()
@@ -200,6 +200,31 @@ def test_clipsim_scorer_takes_a_transformers_state_dict():
         sd, CLIPTextConfig.vit_l().tiny(), CLIPVisionConfig().tiny(), device="cpu")
     v = np.random.RandomState(12).randint(0, 256, (2, 30, 30, 3)).astype(np.uint8)
     assert again.score(v, "a dog") == scorer.score(v, "a dog")
+
+
+def _tf32_switches():
+    return torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision
+
+
+def test_eval_models_run_without_tf32_whatever_the_callers_flags():
+    """cuDNN takes TF32 for fp32 convolutions by default: the scorer's and
+    the extractor's forwards run with it off, as their fp32 is stated, and
+    give the caller's switches back."""
+    _, scorer = _scorers(20)
+    ext = FVDFeatureExtractor(seed=0, num_frames=4, size=32, device="cpu")
+    seen = []
+    for m in (scorer.model.vision_model, ext.net):
+        m.register_forward_pre_hook(lambda *_: seen.append(_tf32_switches()))
+    saved = _tf32_switches()
+    torch.backends.cuda.matmul.fp32_precision = "tf32"
+    torch.backends.cudnn.conv.fp32_precision = "tf32"
+    try:
+        scorer.score(np.zeros((2, 30, 30, 3), np.uint8), "a dog")
+        ext(np.zeros((1, 4, 40, 40, 3), np.uint8))
+        assert _tf32_switches() == ("tf32", "tf32")
+    finally:
+        torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision = saved
+    assert seen == [("ieee", "ieee")] * 2
 
 
 def test_profiling_counts_match_jax(tmp_path):

@@ -20,7 +20,8 @@ from_jax):
   written into tmp_path;
 - checkpoint rotation, and resume: k steps, save, resume, one more step
   equals k + 1 straight steps, bit for bit;
-- both CLIs on tiny YAMLs (methods 3 and 4 refuse);
+- both CLIs on tiny YAMLs: method 4 through main, method 3 through
+  clipsim() with a tiny scorer;
 - KernelWithPlainBackward run with the plain forward equals plain autograd
   bit for bit, for GEGLU and the temporal attention.
 
@@ -593,7 +594,9 @@ def _train_yaml(tmp_path, **extra):
 
 
 def test_finetune_cli_trains_rotates_and_resumes(tmp_path):
-    from lavie_tpu_torch.cli.finetune import main
+    from lavie_tpu_torch.cli.finetune import clipsim, main
+    from lavie_tpu_torch.core.config import CLIPTextConfig, CLIPVisionConfig, load_yaml_config
+    from lavie_tpu_torch.eval import CLIPSimilarityScorer
 
     state = main(["--config", _train_yaml(tmp_path), "--device", "cpu"])
     assert state.step == 2
@@ -605,10 +608,13 @@ def test_finetune_cli_trains_rotates_and_resumes(tmp_path):
                                           max_train_steps=3), "--device", "cpu"])
     assert state.step == 3 and os.listdir(tmp_path / "out") == ["checkpoint-3"]
     dirs = dict(eval_video_dir=str(tmp_path / "clips"), real_video_dir=str(tmp_path / "clips"))
-    for method in (3, 4):  # the evaluation methods: CLIPSIM, FVD of the clips against themselves
-        value = main(["--config", _train_yaml(tmp_path, **dirs), "--method", str(method),
-                      "--device", "cpu"])
-        assert np.isfinite(value)
+    # the evaluation methods: FVD of the clips against themselves through the
+    # CLI, CLIPSIM through its function with tiny towers (the CLI's is ViT-L/14)
+    assert np.isfinite(main(["--config", _train_yaml(tmp_path, **dirs), "--method", "4",
+                             "--device", "cpu"]))
+    scorer = CLIPSimilarityScorer(CLIPTextConfig.vit_l().tiny(), CLIPVisionConfig().tiny(),
+                                  device="cpu")
+    assert np.isfinite(clipsim(load_yaml_config(_train_yaml(tmp_path, **dirs)), scorer=scorer))
 
 
 def test_finetune_cli_reads_the_schedule_keys():

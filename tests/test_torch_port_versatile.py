@@ -343,8 +343,7 @@ def _cl(x):  # (B, C, F, H, W) → (B, F, H, W, C)
 def test_temporal_module3d_versatile_golden():
     z, sd = _golden("temporal_module3d_versatile")
     m = TemporalModule3D(32, 24, 32, attention_block_types=("SpatialTemporalShift", "CrossFrame"),
-                         cross_frame_attention_mode="0_i-1_i", num_attention_heads=8,
-                         attention_dim_div=2).eval()
+                         cross_frame_attention_mode="0_i-1_i", num_attention_heads=8).eval()
     load_reference_state_dict(m, sd, heads=1, rot_dim=0, prefix="mid_temporal_block.", strict=True)
     with torch.no_grad():
         got = m(_cl(z["in.x"]), torch.from_numpy(z["in.temb"]), torch.from_numpy(z["in.timesteps"]))
