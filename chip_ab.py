@@ -4,6 +4,8 @@
     python3 chip_ab.py --compare TAG1 TAG2
     python3 chip_ab.py --cluster4 ROOT DEST
     python3 chip_ab.py --video ROOT TAG  # once per checkout, in turns
+    python3 chip_ab.py --sparse ROOT TAG  # once per checkout, in turns
+    python3 chip_ab.py --compare-sparse TAG1 TAG2
 
 The first form imports chip_smoke.py and lavie_tpu_torch from the checkout
 at ROOT, builds that checkout's kernels there and prints one JSON line for
@@ -36,7 +38,12 @@ variant for the first form to time beside the checkout. The fourth makes
 three full-width base videos (16x320x512, 50 DDPM steps, CFG 7.5, the
 same seeds) with the checkout at ROOT in a process of its own and prints
 their seconds (the first builds the kernels it needs) and the last video's
-md5: the default path of two checkouts, timed end to end in turns.
+md5: the default path of two checkouts, timed end to end in turns. The
+fifth runs the checkout's sparse-causal flash entry (row 6) over the whole
+video at the four TSR levels (B·F = 2·61 rows, 8 heads) on seeded inputs,
+the same for every checkout, prints its ms per call (CUDA events) and saves
+its outputs to build/ab_sparse_TAG.pt beside this script; the sixth says
+whether two tags' outputs are equal bit for bit.
 """
 
 from __future__ import annotations
@@ -225,6 +232,32 @@ def video(root: str, tag: str) -> None:
                       "video_md5": hashlib.md5(out.video.tobytes()).hexdigest()}), flush=True)
 
 
+def sparse(root: str, tag: str) -> None:
+    sys.path.insert(0, os.path.abspath(root))
+    import chip_smoke as cs
+    from lavie_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    outs, ms = [], {}
+    for s, d in TSR_LEVELS:
+        q, k, v = (torch.randn(122, s, 8 * d, generator=g, device="cuda").bfloat16() for _ in range(3))
+        outs.append(fa.flash_sparse_causal(q, k, v, 61, 8, d ** -0.5))
+        ms[f"S={s} d={d}"] = cs.time_ms(lambda: fa.flash_sparse_causal(q, k, v, 61, 8, d ** -0.5))
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    torch.save(outs, os.path.join(HERE, "build", f"ab_sparse_{tag}.pt"))
+    print(json.dumps({"tag": tag, "root": root, "device": torch.cuda.get_device_name(0),
+                      "flash_sparse_causal_ms": ms}), flush=True)
+
+
+def compare_sparse(a: str, b: str) -> None:
+    load = lambda t: torch.load(os.path.join(HERE, "build", f"ab_sparse_{t}.pt"))  # noqa: E731
+    equal = [bool(torch.equal(x, y)) for x, y in zip(load(a), load(b))]
+    print(json.dumps({"compare": [a, b], "levels": [f"S={s} d={d}" for s, d in TSR_LEVELS],
+                      "flash_sparse_causal_equal": equal}), flush=True)
+    if not all(equal):
+        sys.exit(1)
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "--compare":
         compare(sys.argv[2], sys.argv[3])
@@ -232,5 +265,9 @@ if __name__ == "__main__":
         cluster4(sys.argv[2], sys.argv[3])
     elif sys.argv[1] == "--video":
         video(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--sparse":
+        sparse(sys.argv[2], sys.argv[3])
+    elif sys.argv[1] == "--compare-sparse":
+        compare_sparse(sys.argv[2], sys.argv[3])
     else:
         run(sys.argv[1], sys.argv[2])

@@ -17,9 +17,14 @@
 //
 // What it computes, per query row r, head h and query position i:
 //   out[r, i, h] = softmax_j(q[r, i, h] . K_r[j, h] * scale) V_r[j, h]
-// sparse: K_r = concat(k[r0], k[rp]) over 2S keys, r0 = r - r % F (frame 0
-//   of the video), rp = r - 1, or r itself for frame 0 (whose key set is
-//   frame 0 twice, not deduplicated, exactly as the JAX package computes it);
+// sparse: K_r = concat(anchor[b], prev) over 2S keys for row r = b F + i
+//   (frame i of video b): prev = k[r - 1] for i > 0 and halo[b] for i = 0.
+//   anchor and halo are operands of their own, B = rows / F rows apart by a
+//   stride: a frame-sharded video's frame 0 lives on the first rank and the
+//   frame before a shard's first on the rank before. The unsharded call
+//   passes frame 0 of each video of k as both (stride F rows), so frame 0
+//   attends to itself twice, not deduplicated, exactly as the JAX package
+//   computes it;
 // kv:     K_r = k[r] over Sk keys.
 // Scores and the online softmax are fp32; the probabilities go to the
 // tensor cores in bf16 (as the TPU body casts p to v's dtype); the output
@@ -38,9 +43,10 @@
 // each item's Q and of each K and V tile into a ring of 2-4 stages guarded
 // by mbarriers (full: the tile arrived; empty: both consumers are done with
 // it; Q has its own pair), running ahead into the next item while the
-// consumers finish one; the tile's source row (r0 for the first S keys, rp
-// for the rest) is computed from the tile index, so the (rows, 2S, C)
-// concat is never materialised; setmaxnreg gives its registers to the
+// consumers finish one; the tile's source tensor and row (the anchor's row
+// b for the first S keys, k's row r - 1 or the halo's row b for the rest)
+// are computed from the tile index, so the (rows, 2S, C) concat is never
+// materialised; setmaxnreg gives its registers to the
 // consumers. Warpgroups 1 and 2 each own 64 query rows and run wgmma:
 // S = Q K^T with both operands K-major in shared memory, and O += P V with P
 // from registers (the score accumulator converted in place to bf16) and V
@@ -109,6 +115,7 @@ struct FlashArgs {
 // walk the query blocks, then the heads, then the rows.
 struct Item {
   int qb, h, r, src0, src1, ntiles, tiles_per_half;
+  int map0, map1;  // each half's source: 0 k and v, 1 the anchor, 2 the halo
 };
 
 template <int BN>
@@ -118,15 +125,20 @@ __device__ __forceinline__ Item item_at(const FlashArgs& a, int w) {
   it.qb = w % qblocks;
   it.h = (w / qblocks) % a.H;
   it.r = w / (qblocks * a.H);
-  // key/value source rows: sparse-causal (frames > 0) walks two halves of
-  // Sk keys each, frame 0 of the video then frame i-1; otherwise one half
-  // over the row's own keys
+  // key/value sources: sparse-causal (frames > 0) walks two halves of Sk
+  // keys each, the anchor's row of the video, then k's row r - 1 or, for
+  // the first frame, the halo's row of the video; otherwise one half over
+  // the row's own keys
   it.src0 = it.r, it.src1 = it.r;
+  it.map0 = it.map1 = 0;
   int halves = 1;
   if (a.frames > 0) {
-    const int i = it.r % a.frames;
-    it.src0 = it.r - i;
-    it.src1 = i == 0 ? it.r : it.r - 1;
+    const int i = it.r % a.frames, b = it.r / a.frames;
+    it.src0 = b, it.map0 = 1;
+    if (i == 0)
+      it.src1 = b, it.map1 = 2;
+    else
+      it.src1 = it.r - 1;
     halves = 2;
   }
   it.tiles_per_half = (a.Sk + BN - 1) / BN;
@@ -137,7 +149,9 @@ __device__ __forceinline__ Item item_at(const FlashArgs& a, int w) {
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v, const FlashArgs a) {
+    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_ka,
+    const __grid_constant__ CUtensorMap tm_va, const __grid_constant__ CUtensorMap tm_kh,
+    const __grid_constant__ CUtensorMap tm_vh, const FlashArgs a) {
   using Cfg = FlashCfg<DP>;
   constexpr int BN = Cfg::BN, SLABS = Cfg::SLABS, STAGES = Cfg::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -174,12 +188,14 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
           if (g >= STAGES) mbar_wait(empty(stage), ((g / STAGES) - 1) & 1);
           const int half = t / it.tiles_per_half;
           const int k0 = (t - half * it.tiles_per_half) * BN;
-          const int src = half ? it.src1 : it.src0;
+          const int src = half ? it.src1 : it.src0, m = half ? it.map1 : it.map0;
+          const CUtensorMap* mk = m == 0 ? &tm_k : m == 1 ? &tm_ka : &tm_kh;
+          const CUtensorMap* mv = m == 0 ? &tm_v : m == 1 ? &tm_va : &tm_vh;
           const uint32_t kd = kv_smem + stage * 2 * Cfg::KV_BYTES, vd = kd + Cfg::KV_BYTES;
           mbar_expect_tx(full(stage), 2 * Cfg::KV_BYTES);
           for (int sl = 0; sl < SLABS; ++sl) {
-            tma_load_4d(kd + sl * Cfg::KV_SLAB, &tm_k, full(stage), sl * SLAB, it.h, k0, src);
-            tma_load_4d(vd + sl * Cfg::KV_SLAB, &tm_v, full(stage), sl * SLAB, it.h, k0, src);
+            tma_load_4d(kd + sl * Cfg::KV_SLAB, mk, full(stage), sl * SLAB, it.h, k0, src);
+            tma_load_4d(vd + sl * Cfg::KV_SLAB, mv, full(stage), sl * SLAB, it.h, k0, src);
           }
           if (t == 0) {  // Q after the first K/V tile: the previous item's
                          // last Q K^T frees it
@@ -380,13 +396,41 @@ __global__ void __launch_bounds__(THREADS, 1) flash_kernel(
   }
 }
 
+// make_map over `rows` rows of (S, H*d) that lie row_stride elements apart:
+// the anchor and halo operands, which may be rows of k itself
+inline bool make_map_rows(CUtensorMap* map, const void* ptr, int d, int H, int S, int rows,
+                          long long row_stride, int box_rows) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)rows};
+  cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)H * d * 2, (cuuint64_t)row_stride * 2};
+  cuuint32_t box[4] = {SLAB, 1, (cuuint32_t)box_rows, 1};
+  cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The sparse-causal entry's borrowed keys and values: (k, v) rows of
+// (S, H*d), `rows` of them, `stride` elements apart.
+struct Borrowed {
+  const void *k, *v;
+  int rows;
+  long long stride;
+};
+
 template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int rows, int Sq,
-                   int Sk, int H, int d, int frames, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, const Borrowed& anchor,
+                   const Borrowed& halo, void* out, int rows, int Sq, int Sk, int H, int d,
+                   int frames, float scale, cudaStream_t stream) {
   using Cfg = FlashCfg<DP>;
-  CUtensorMap mq, mk, mv;
+  CUtensorMap mq, mk, mv, mka, mva, mkh, mvh;
   if (!make_map(&mq, q, d, H, Sq, rows, BM) || !make_map(&mk, k, d, H, Sk, rows, Cfg::BN) ||
-      !make_map(&mv, v, d, H, Sk, rows, Cfg::BN))
+      !make_map(&mv, v, d, H, Sk, rows, Cfg::BN) ||
+      !make_map_rows(&mka, anchor.k, d, H, Sk, anchor.rows, anchor.stride, Cfg::BN) ||
+      !make_map_rows(&mva, anchor.v, d, H, Sk, anchor.rows, anchor.stride, Cfg::BN) ||
+      !make_map_rows(&mkh, halo.k, d, H, Sk, halo.rows, halo.stride, Cfg::BN) ||
+      !make_map_rows(&mvh, halo.v, d, H, Sk, halo.rows, halo.stride, Cfg::BN))
     return cudaErrorNotSupported;
   cudaError_t err = cudaFuncSetAttribute(flash_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg::SMEM);
@@ -398,19 +442,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int r
   const int grid = (int)(items < sms ? items : sms);
   const FlashArgs a{static_cast<__nv_bfloat16*>(out), Sq, Sk, H, d, frames, rows,
                     scale * 1.4426950408889634f};
-  flash_kernel<DP><<<grid, THREADS, Cfg::SMEM, stream>>>(mq, mk, mv, a);
+  flash_kernel<DP><<<grid, THREADS, Cfg::SMEM, stream>>>(mq, mk, mv, mka, mva, mkh, mvh, a);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, int rows, int Sq,
-                     int Sk, int H, int d, int frames, float scale, cudaStream_t st) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, const Borrowed& anchor,
+                     const Borrowed& halo, void* out, int rows, int Sq, int Sk, int H, int d,
+                     int frames, float scale, cudaStream_t st) {
   if (rows < 1 || rows > 65535 || Sq < 1 || Sk < 1 || H < 1 || H > 65535 || d < 8 || d % 8 ||
       d > 160)
     return cudaErrorInvalidValue;
   switch ((d + 15) / 16 * 16) {
 #define FLASH_CASE(DP) \
   case DP:             \
-    return launch<DP>(q, k, v, out, rows, Sq, Sk, H, d, frames, scale, st);
+    return launch<DP>(q, k, v, anchor, halo, out, rows, Sq, Sk, H, d, frames, scale, st);
     FLASH_CASE(16) FLASH_CASE(32) FLASH_CASE(48) FLASH_CASE(64) FLASH_CASE(80)
     FLASH_CASE(96) FLASH_CASE(112) FLASH_CASE(128) FLASH_CASE(144) FLASH_CASE(160)
 #undef FLASH_CASE
@@ -762,13 +807,22 @@ extern "C" int flash_attention_d512_bf16(const void* q, const void* k, const voi
 }
 
 // q, k, v, out: (BF, S, H*d) bf16, contiguous, 16-byte aligned; BF a
-// multiple of F. Keys/values of row r: concat(row r - r%F, row r-1 or r).
-// Requires d % 8 == 0, d <= 160. Returns cudaGetLastError().
-extern "C" int flash_sparse_causal_bf16(const void* q, const void* k, const void* v, void* out,
-                                        int BF, int F, int S, int H, int d, float scale,
-                                        void* stream) {
-  if (F < 1 || BF % F != 0) return (int)cudaErrorInvalidValue;
-  return (int)dispatch(q, k, v, out, BF, S, S, H, d, F, scale, static_cast<cudaStream_t>(stream));
+// multiple of F. Keys/values of row r = b F + i: concat(anchor row b, row
+// r - 1 for i > 0 or halo row b for i = 0). ka, va (kh, vh): BF / F rows of
+// (S, H*d), row b at b * anchor_stride (halo_stride) elements, 16-byte
+// aligned, strides multiples of 8 elements. Requires d % 8 == 0, d <= 160.
+// Returns cudaGetLastError().
+extern "C" int flash_sparse_causal_bf16(const void* q, const void* k, const void* v,
+                                        const void* ka, const void* va, const void* kh,
+                                        const void* vh, void* out, int BF, int F, int S, int H,
+                                        int d, long long anchor_stride, long long halo_stride,
+                                        float scale, void* stream) {
+  if (F < 1 || BF % F != 0 || anchor_stride < (long long)S * H * d ||
+      halo_stride < (long long)S * H * d || anchor_stride % 8 || halo_stride % 8)
+    return (int)cudaErrorInvalidValue;
+  const Borrowed anchor{ka, va, BF / F, anchor_stride}, halo{kh, vh, BF / F, halo_stride};
+  return (int)dispatch(q, k, v, anchor, halo, out, BF, S, S, H, d, F, scale,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // q, out: (B, Sq, H*d); k, v: (B, Sk, H*d); bf16, contiguous, 16-byte
@@ -776,5 +830,7 @@ extern "C" int flash_sparse_causal_bf16(const void* q, const void* k, const void
 extern "C" int flash_attention_kv_bf16(const void* q, const void* k, const void* v, void* out,
                                        int B, int Sq, int Sk, int H, int d, float scale,
                                        void* stream) {
-  return (int)dispatch(q, k, v, out, B, Sq, Sk, H, d, 0, scale, static_cast<cudaStream_t>(stream));
+  const Borrowed unused{k, v, B, (long long)Sk * H * d};  // no sparse half reads it
+  return (int)dispatch(q, k, v, unused, unused, out, B, Sq, Sk, H, d, 0, scale,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -6,7 +6,10 @@ Port of lavie_tpu.kernels.flash_attention's channel-major entries:
   flash_sparse_causal            flash_cmajor_sparse: each frame row's keys
                                  and values are concat(frame 0, frame i-1)
                                  of its video (frame 0: itself twice), never
-                                 materialised. The CUDA kernel
+                                 materialised; frame 0 (the anchor) and the
+                                 frame before the first (the halo) may come
+                                 as operands of their own, as a frame shard
+                                 of the video needs. The CUDA kernel
                                  (csrc/flash_attention.cu) for a CUDA tensor,
                                  the plain version for a CPU tensor
   flash_attention_kv             flash_cmajor: the same loop over explicit
@@ -23,7 +26,8 @@ Port of lavie_tpu.kernels.flash_attention's channel-major entries:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,14 +40,24 @@ WIDE_HEAD_DIM = 512  # the d=512 entry (one VAE head)
 _SCORE_BYTES = 4 << 30
 
 
+Pair = Tuple[torch.Tensor, torch.Tensor]  # (k, v), each (B, S, C)
+
+
 def sparse_causal_kv(x: torch.Tensor, frames: int, start: int = 0,
-                     stop: Optional[int] = None) -> torch.Tensor:
+                     stop: Optional[int] = None, anchor: Optional[torch.Tensor] = None,
+                     halo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Rows start..stop of the materialised sparse-causal kv of x (B·F, S, C):
-    row r's keys are concat(frame 0 of its video, frame i-1), frame 0 taking
-    itself twice; (stop - start, 2S, C)."""
+    row r (frame i of video b) takes concat(anchor[b], x[r-1]), or
+    concat(anchor[b], halo[b]) for i = 0; (stop - start, 2S, C). anchor
+    and halo (B, S, C) default to frame 0 of each video, so frame 0 takes
+    itself twice."""
     r = torch.arange(start, x.shape[0] if stop is None else stop, device=x.device)
-    i = r % frames
-    return torch.cat([x[r - i], x[r - (i > 0).long()]], dim=1)
+    i, b = r % frames, r // frames
+    first = x[r - i] if anchor is None else anchor[b]
+    prev = x[r - (i > 0).long()]
+    if halo is not None:
+        prev = torch.where((i == 0)[:, None, None], halo[b], prev)
+    return torch.cat([first, prev], dim=1)
 
 
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
@@ -88,15 +102,19 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_sparse_causal_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                  frames: int, heads: int, scale: float) -> torch.Tensor:
-    """q/k/v (B·F, S, C) → (B·F, S, C). The kv is materialised for a bounded
-    number of frame rows at a time, so the fp32 scores stay near 4 GB or
-    less."""
+                                  frames: int, heads: int, scale: float,
+                                  anchor: Optional[Pair] = None,
+                                  halo: Optional[Pair] = None) -> torch.Tensor:
+    """q/k/v (B·F, S, C) → (B·F, S, C); anchor and halo as
+    flash_sparse_causal's. The kv is materialised for a bounded number of
+    frame rows at a time, so the fp32 scores stay near 4 GB or less."""
     bf, s, _ = q.shape
     n = _chunk_rows(heads, s, 2 * s)
+    ak, av = anchor if anchor is not None else (None, None)
+    hk, hv = halo if halo is not None else (None, None)
     return torch.cat([
-        _attend(q[i:i + n], sparse_causal_kv(k, frames, i, min(i + n, bf)),
-                sparse_causal_kv(v, frames, i, min(i + n, bf)), heads, scale)
+        _attend(q[i:i + n], sparse_causal_kv(k, frames, i, min(i + n, bf), ak, hk),
+                sparse_causal_kv(v, frames, i, min(i + n, bf), av, hv), heads, scale)
         for i in range(0, bf, n)
     ])
 
@@ -137,20 +155,64 @@ def _launch(entry: str, q, k, v, ints, scale: float) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sparse_entry():
+    """flash_sparse_causal_bf16, typed once: 8 pointers, 5 ints, the two row
+    strides (64-bit), the scale and the stream."""
+    fn = _build.load("flash_attention").flash_sparse_causal_bf16
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2
+                   + [ctypes.c_float, ctypes.c_void_p])
+    return fn
+
+
+def _borrowed_stride(name: str, x: torch.Tensor, b: int, s: int, c: int, like: torch.Tensor) -> int:
+    """The row stride of an anchor or halo operand (B, S, C) the kernel
+    takes: each row contiguous and 16-byte aligned, rows any multiple of 8
+    elements apart (frame 0 of each video of k is F·S·C apart)."""
+    if (x.shape != (b, s, c) or x.dtype != torch.bfloat16 or x.device != like.device
+            or x.stride(2) != 1 or x.stride(1) != c or x.stride(0) % 8 or x.data_ptr() % 16):
+        raise ValueError(f"flash_sparse_causal: {name} {tuple(x.shape)} {x.dtype} strides "
+                         f"{x.stride()} on {x.device}: want ({b}, {s}, {c}) bf16, rows "
+                         "contiguous and 16-byte aligned")
+    return x.stride(0)
+
+
 def flash_sparse_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, frames: int,
-                        heads: int, scale: float) -> torch.Tensor:
-    """Sparse-causal attention over (B·F, S, C) frame rows. On a CUDA tensor
-    this launches the kernel, or raises for what it does not take (dtype
-    other than bf16, head dim not a multiple of 8 or above 160, C != H·d,
+                        heads: int, scale: float, anchor: Optional[Pair] = None,
+                        halo: Optional[Pair] = None) -> torch.Tensor:
+    """Sparse-causal attention over (B·F, S, C) frame rows: frame i of video
+    b attends to concat(anchor[b], frame i-1), frame 0 to concat(anchor[b],
+    halo[b]). anchor and halo are (k, v) pairs of (B, S, C), by default
+    frame 0 of each video (the whole video's call); a frame shard passes
+    the video's frame 0 and the frame before its first
+    (core.collectives.sparse_causal_halo). On a CUDA tensor this launches
+    the kernel, or raises for what it does not take (dtype other than
+    bf16, head dim not a multiple of 8 or above 160, C != H·d,
     non-contiguous or misaligned tensors, rows not a multiple of frames)."""
     if q.device.type == "cpu":
-        return flash_sparse_causal_reference(q, k, v, frames, heads, scale)
+        return flash_sparse_causal_reference(q, k, v, frames, heads, scale, anchor, halo)
     d = _check("flash_sparse_causal", q, k, v, heads)
-    bf, s, _ = q.shape
+    bf, s, c = q.shape
     if k.shape != q.shape or bf % frames:
         raise ValueError(f"flash_sparse_causal: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"frames={frames}")
-    out = _launch("flash_sparse_causal_bf16", q, k, v, (bf, frames, s, heads, d), scale)
+    # frame 0 of each video of k and v (checked with them) unless given
+    ptrs, strides = [k.data_ptr(), v.data_ptr()] * 2, [frames * s * c] * 4
+    for i, name, pair in ((0, "anchor", anchor), (2, "halo", halo if halo is not None else anchor)):
+        if pair is not None:
+            refuse_grad("flash_sparse_causal", pair)
+            ptrs[i:i + 2] = [x.data_ptr() for x in pair]
+            strides[i:i + 2] = [_borrowed_stride(f"{name} {kv}", x, bf // frames, s, c, q)
+                                for kv, x in zip("kv", pair)]
+    if strides[0] != strides[1] or strides[2] != strides[3]:
+        raise ValueError(f"flash_sparse_causal: k and v of the anchor or the halo differ in "
+                         f"row stride: {strides}")
+    out = torch.empty_like(q)
+    err = _sparse_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(), bf,
+                          frames, s, heads, d, strides[0], strides[2], float(scale),
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_sparse_causal_bf16")
     flash_sparse_causal.launches += 1
     return out
 
