@@ -31,7 +31,10 @@ from lavie_tpu_torch.pipelines.cascade import VideoCascadePipeline
 
 def build_pipeline(cfg: dict, device: str = "cuda") -> VideoCascadePipeline:
     if cfg.get("mesh"):
-        raise NotImplementedError("mesh: not ported yet (multi-GPU)")
+        raise NotImplementedError(
+            "mesh: the CLI runs one process, as the JAX CLI does; run the ranks yourself "
+            "(torch.distributed), build lavie_tpu_torch.core.mesh.make_mesh on each and "
+            "call VideoCascadePipeline.set_mesh")
     tiny = cfg.get("model_scale", "full") == "tiny"
     if tiny:
         print("[lavie_tpu_torch] tiny cascade (random weights, smoke mode)", file=sys.stderr)

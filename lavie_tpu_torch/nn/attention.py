@@ -16,6 +16,14 @@ lavie_tpu.nn.attention):
     video (interpolation), computed by the sparse-causal flash kernel
     (kernels/flash_attention.py)
 
+Under a frame shard (`frame_shard`, set by UNet3D for a frame-sharded
+forward) the two cross-frame attentions take what they need from the other
+ranks (core/collectives.py): the temporal attention trades this rank's
+frames of every position for every frame of S/sp positions, and back, so
+its RoPE tables and bias buckets are those of the whole video; the
+sparse-causal attention borrows the video's frame 0 and the frame before
+its first. Everything else works on this rank's frames.
+
 Projection names follow diffusers (to_q/to_k/to_v/to_out.0).
 """
 
@@ -27,6 +35,12 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from lavie_tpu_torch.core.collectives import (
+    FrameShard,
+    frames_to_positions,
+    positions_to_frames,
+    sparse_causal_halo,
+)
 from lavie_tpu_torch.kernels.attention import dot_product_attention
 from lavie_tpu_torch.kernels.flash_attention import flash_attention, flash_sparse_causal
 from lavie_tpu_torch.kernels.temporal_fused import temporal_attention, temporal_attention_folded
@@ -101,12 +115,18 @@ class SparseCausalAttention(nn.Module):
         self.to_k = nn.Linear(query_dim, inner, bias=False)
         self.to_v = nn.Linear(query_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.frame_shard: Optional[FrameShard] = None
 
     def forward(self, hidden_states: torch.Tensor, video_length: int) -> torch.Tensor:
-        out = flash_sparse_causal(
-            self.to_q(hidden_states), self.to_k(hidden_states), self.to_v(hidden_states),
-            frames=video_length, heads=self.heads, scale=self.head_dim ** -0.5,
-        )
+        """hidden_states (B·F, S, C), F = video_length frames a video (this
+        rank's, under a frame shard)."""
+        q, k, v = self.to_q(hidden_states), self.to_k(hidden_states), self.to_v(hidden_states)
+        anchor = halo = None
+        if self.frame_shard is not None:
+            ak, av, hk, hv = sparse_causal_halo(k, v, self.frame_shard)
+            anchor, halo = (ak, av), (hk, hv)
+        out = flash_sparse_causal(q, k, v, frames=video_length, heads=self.heads,
+                                  scale=self.head_dim ** -0.5, anchor=anchor, halo=halo)
         return self.to_out[0](out)
 
 
@@ -140,6 +160,7 @@ class TemporalAttention(nn.Module):
         # per (frames, device): RoPE tables and bias buckets, made once so the
         # forward issues no host→device copies
         self._tables: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, ...]] = {}
+        self.frame_shard: Optional[FrameShard] = None
 
     def _frame_tables(self, f: int, device: torch.device):
         key = (f, device)
@@ -161,7 +182,17 @@ class TemporalAttention(nn.Module):
     def core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """The attention between the projections, on q, k, v (B, F, S, C). A
         rope_relbias call with F ≤ 16 takes the folded route when
-        LAVIE_TEMPORAL_KERNEL=1 is in the environment, read at each call."""
+        LAVIE_TEMPORAL_KERNEL=1 is in the environment, read at each call.
+        Under a frame shard q, k, v hold this rank's frames: one all-to-all
+        gives every frame at S/sp positions, the attention runs there (F the
+        whole video's), and the output goes back to this rank's frames."""
+        shard = self.frame_shard
+        if shard is None:
+            return self._core(q, k, v)
+        q, k, v = frames_to_positions(torch.cat([q, k, v]), shard).chunk(3)
+        return positions_to_frames(self._core(q, k, v), shard)
+
+    def _core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         if (self.variant == "rope_relbias" and q.shape[1] <= FOLDED_MAX_FRAMES
                 and os.environ.get("LAVIE_TEMPORAL_KERNEL") == "1"):
             return self.folded(q, k, v)

@@ -8,10 +8,13 @@ in `torch.channels_last` format, which cuDNN convolves without a copy.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lavie_tpu_torch.core.collectives import FrameShard, all_reduce_sum
 from lavie_tpu_torch.nn import quant
 from lavie_tpu_torch.nn.embeddings import sinusoidal_timestep_embedding
 
@@ -20,7 +23,14 @@ class GroupNorm(nn.Module):
     """GroupNorm over a channels-last tensor (N, ..., C): statistics are taken
     over every axis but N and C, in fp32; the normalisation is then applied
     as one per-(N, C) multiply-add in the input dtype (lavie_tpu's
-    groupnorm_affine). Consecutive channels form a group, as in torch."""
+    groupnorm_affine). Consecutive channels form a group, as in torch.
+
+    With `frame_shard` set (UNet3D sets it for a frame-sharded forward) x is
+    this rank's frames (B, F_local, H, W, C) of videos sharded over a group,
+    and the statistics over all frames are the group's sums: the mean, then
+    the squared deviations from it, each accumulated in float64 and summed
+    over the ranks (in float32 the sums' new order alone moved a tiny UNet's
+    output by 1.3e-6 of its largest value)."""
 
     def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-5):
         super().__init__()
@@ -30,6 +40,7 @@ class GroupNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_channels))
         self.bias = nn.Parameter(torch.zeros(num_channels))
+        self.frame_shard: Optional[FrameShard] = None
 
     def affine(self, x: torch.Tensor):
         """The fp32 per-(N, C) (w, u) with GroupNorm(x) = x·w + u, for
@@ -37,7 +48,14 @@ class GroupNorm(nn.Module):
         n, c = x.shape[0], x.shape[-1]
         g = self.num_groups
         xf = x.reshape(n, -1, g, c // g).float()
-        var, mean = torch.var_mean(xf, dim=(1, 3), unbiased=False)  # (N, g)
+        shard = self.frame_shard
+        if shard is None:
+            var, mean = torch.var_mean(xf, dim=(1, 3), unbiased=False)  # (N, g)
+        else:
+            count = xf.shape[1] // shard.local * shard.frames * xf.shape[3]
+            mean = all_reduce_sum(xf.sum(dim=(1, 3), dtype=torch.float64), shard.group) / count
+            dev = (xf - mean[:, None, :, None]).square().sum(dim=(1, 3), dtype=torch.float64)
+            mean, var = mean.float(), (all_reduce_sum(dev, shard.group) / count).float()
         inv = torch.rsqrt(var + self.eps)
         inv_c = inv.repeat_interleave(c // g, dim=1)  # (N, C)
         mean_c = mean.repeat_interleave(c // g, dim=1)

@@ -6,11 +6,20 @@ and `forward_prefix`: the text-independent leading blocks, run once per
 step and shared by the two CFG halves. `conv_quant` "int8" turns on the
 int8 turbo convs (nn/quant.py) in forward and forward_prefix alike.
 
+Frame sharding: after `set_mesh(mesh)`, forward(..., frames=F) takes this
+rank's frames of F-frame videos sharded over the mesh's sp axis
+(core/mesh.py). Per-frame work runs on this rank's frames; the modules that
+read across frames (the temporal and sparse-causal attentions, the
+GroupNorms whose statistics span the video) get the shard for the call.
+The VSR UNet is not frame-sharded: its temporal convolutions would need
+neighbouring frames at every tap (its pipeline spreads windows instead).
+
 Layout: (B, F, H, W, C) channels-last video tensors throughout.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional, Tuple
 
 import torch
@@ -18,7 +27,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from lavie_tpu_torch.core.config import UNetConfig
+from lavie_tpu_torch.core.mesh import Mesh
 from lavie_tpu_torch.nn import quant
+from lavie_tpu_torch.nn.attention import SparseCausalAttention, TemporalAttention
 from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv, TimestepEmbedding
 from lavie_tpu_torch.nn.resnet import Downsample3D, ResnetBlock3D, Upsample3D
 from lavie_tpu_torch.nn.temporal_module import TemporalModule3D
@@ -202,6 +213,48 @@ class UNet3D(nn.Module):
         self.conv_norm_out = GroupNorm(cfg.norm_num_groups, boc[0], cfg.norm_eps)
         self.conv_out = InflatedConv(boc[0], cfg.out_channels, 3, padding=1)
         quant.configure(self, cfg.conv_quant, cfg.conv_quant_exclude)
+        self.mesh: Optional[Mesh] = None
+
+    def set_mesh(self, mesh: Optional[Mesh]) -> None:
+        """The mesh whose sp axis forward(..., frames=) shards frames over
+        (None: no mesh)."""
+        self.mesh = mesh
+
+    def _cross_frame_modules(self) -> List[nn.Module]:
+        """The modules that read across a video's frames: the temporal and
+        sparse-causal attentions, and the GroupNorms over (F, H, W) of
+        every resnet and of the output."""
+        mods = [m for m in self.modules() if isinstance(m, (TemporalAttention, SparseCausalAttention))]
+        mods += [n for m in self.modules() if isinstance(m, ResnetBlock3D) for n in (m.norm1, m.norm2)]
+        return mods + [self.conv_norm_out]
+
+    @contextlib.contextmanager
+    def _frame_sharded(self, sample: torch.Tensor, frames: Optional[int]):
+        """Within the block the cross-frame modules hold this rank's share of
+        `frames`-frame videos (nothing when frames is None)."""
+        if frames is None:
+            yield
+            return
+        if self.mesh is None:
+            raise ValueError("forward(..., frames=) shards frames over a mesh: call set_mesh first")
+        if self.config.use_temporal_modules or self.config.transformer_temporal_resblock:
+            raise ValueError("the VSR UNet is not frame-sharded: its temporal convolutions "
+                             "need neighbouring frames (VSR windows go over the mesh instead)")
+        shard = self.mesh.frame_shard(frames)
+        if sample.shape[1] != shard.local:
+            raise ValueError(f"sample holds {sample.shape[1]} frames; this rank's share of "
+                             f"{frames} over sp={len(shard.counts)} is {shard.local}")
+        if len(shard.counts) == 1:  # one rank's share is the whole video
+            yield
+            return
+        mods = self._cross_frame_modules()
+        for m in mods:
+            m.frame_shard = shard
+        try:
+            yield
+        finally:
+            for m in mods:
+                m.frame_shard = None
 
     @property
     def num_prefix_blocks(self) -> int:
@@ -254,7 +307,15 @@ class UNet3D(nn.Module):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
                 class_labels: Optional[torch.Tensor] = None,
-                prefix: Optional[Prefix] = None) -> torch.Tensor:
+                prefix: Optional[Prefix] = None, frames: Optional[int] = None) -> torch.Tensor:
+        """`frames`: the videos' frame count when `sample` holds this rank's
+        share of them over the mesh's sp axis (set_mesh); None: every frame."""
+        with self._frame_sharded(sample, frames):
+            return self._forward(sample, timesteps, encoder_hidden_states, class_labels, prefix)
+
+    def _forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                 encoder_hidden_states: Optional[torch.Tensor], class_labels: Optional[torch.Tensor],
+                 prefix: Optional[Prefix]) -> torch.Tensor:
         dtype = self.conv_in.weight.dtype
         timesteps = self._batch_timesteps(sample, timesteps)
         emb = self._embed(sample, timesteps, class_labels)

@@ -10,17 +10,22 @@ keeps its own models on the device. Options follow the reference README:
   option 2 = base + interpolation (61 frames at 320×512)
   option 3 = base + VSR           (16 frames at 1280×2048)
   option 4 = all three            (61 frames at 1280×2048)
+
+With a mesh (set_mesh, core/mesh.py) every stage runs on it: the base
+video's frames over sp, TSR's 61 frames over sp, VSR's windows over the
+ranks; every rank holds each stage's whole video, which feeds the next.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from lavie_tpu_torch.core.config import CLIPTextConfig, UNetConfig, VAEConfig, with_conv_quant
+from lavie_tpu_torch.core.mesh import Mesh
 from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
 from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
 from lavie_tpu_torch.pipelines.vsr import VideoSuperResolutionPipeline
@@ -34,14 +39,15 @@ class CascadeOutput:
 
 
 class VideoCascadePipeline:
-    """The three stage pipelines, run one after the other on one device."""
+    """The three stage pipelines, run one after the other on one device, or
+    on every rank of a mesh."""
 
     def __init__(
         self,
         base: TextToVideoPipeline,
         interpolation: Optional[VideoInterpolationPipeline] = None,
         vsr: Optional[VideoSuperResolutionPipeline] = None,
-        mesh: Optional[Any] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.base = base
         self.interpolation = interpolation
@@ -49,9 +55,16 @@ class VideoCascadePipeline:
         if mesh is not None:
             self.set_mesh(mesh)
 
-    def set_mesh(self, mesh) -> None:
-        """Sharding the stages over several cards is not ported yet."""
-        raise NotImplementedError("VideoCascadePipeline: a mesh (multi-GPU) is not ported yet")
+    def set_mesh(self, mesh: Optional[Mesh]) -> None:
+        """Shard every stage over the mesh (None: one device again)."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"set_mesh: a lavie_tpu_torch.core.mesh.Mesh or None, not "
+                            f"{type(mesh).__name__}")
+        self.base.mesh = mesh
+        if self.interpolation is not None:
+            self.interpolation.mesh = mesh
+        if self.vsr is not None:
+            self.vsr.mesh = mesh
 
     @classmethod
     def init_random(

@@ -12,6 +12,17 @@ a `mask_type` the whole masked video is encoded and the mask rides as a 5th
 extra channel (9-channel UNet). The denoising loop is 50 DDIM steps on
 OpenAI's spaced chain with CFG 4.0 ([uncond; cond] batch), or DDPM
 fixed_large; the VAE decodes the 61 frames in chunks.
+
+On a mesh (`pipe.mesh`, core/mesh.py) the output frames go over sp,
+unevenly where sp does not divide them (61 = 31 + 30 over two ranks). The
+JAX package shards the latent height instead where sp does not divide the
+frames (GSPMD needs an even split); here height sharding would need a halo
+exchange in every 3×3 conv, an all-reduce in every GroupNorm and gathered
+keys in every sparse attention, while frame shards need only the
+temporal attention's all-to-all, the sparse-causal attention's two borrowed
+frames and the resnets' GroupNorm sums. The conditioning is made at the
+whole video's shape and sliced, and every noise is drawn at its whole
+shape, so the sharded run equals the unsharded one of the same seed.
 """
 
 from __future__ import annotations
@@ -156,19 +167,26 @@ class VideoInterpolationPipeline(TextToVideoPipeline):
         else:
             x = torch.as_tensor(np.asarray(latents, np.float32), device=self.device).reshape(shape)
         extra = self._conditioning(frames, out_frames, gen, mask_type, seed, encoder_noise)
+        _, on_sp = self._shard_axes(b, out_frames, shard_frames=True)
+        x, extra = self._local(x, False, on_sp), self._local(extra, False, on_sp)
+        sharded = out_frames if on_sp else None
 
         ts, pts = spaced_timesteps(steps, cfg.num_train_timesteps)
         for t, pt in zip(ts.tolist(), pts.tolist()):
             xin = torch.cat([torch.cat([x, x]).to(self.dtype), extra], dim=-1)
             tt = torch.full((2 * b,), t, device=self.device, dtype=torch.float32)
-            e = classifier_free_guidance(self.unet(xin, tt, states).float(), guidance)
+            e = classifier_free_guidance(self.unet(xin, tt, states, frames=sharded).float(),
+                                         guidance)
             if cfg.sample_method == "ddpm":
                 # OpenAI p_sample on the spaced chain, FIXED_LARGE variance
-                noise = torch.randn(x.shape, generator=gen, device=self.device, dtype=torch.float32)
+                noise = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+                noise = self._local(noise, False, on_sp)
                 x = ddpm_step(self.schedule, x, e, t, pt, noise, clip_sample=cfg.clip_sample,
                               variance_type="fixed_large")
             elif cfg.sample_method == "ddim":
                 x = ddim_step(self.schedule, x, e, t, pt, clip_sample=cfg.clip_sample)
             else:
                 raise NotImplementedError(f"sample_method {cfg.sample_method} for TSR")
-        return PipelineOutput(video=self.decode(x, encode_chunk), latents=x)
+        video = self._whole(self._decode(x, encode_chunk), b, out_frames, False, on_sp)
+        x = self._whole(x, b, out_frames, False, on_sp)
+        return PipelineOutput(video=video.cpu().numpy(), latents=x)

@@ -9,6 +9,15 @@ decodes every frame to uint8. A pipeline built with a vision config (the
 fork's image conditioning, reference: base/pipelines/inference.py:67-629)
 also takes an image: its CLIP vision tokens, mapped by the MappingNetwork,
 are concatenated onto both halves of the text states (2B, 77 + 77, D).
+
+On a mesh (`pipe.mesh = make_mesh(...)`, core/mesh.py; one process a rank,
+each calling the pipeline alike) the prompts go over dp when dp > 1 divides
+them, each rank keeping its prompts' rows of both CFG halves, and the
+frames over sp when sp > 1 divides them (lavie_tpu/pipelines/t2v.py's
+rule); ranks along tp compute the same. Every random tensor is drawn at its
+whole shape from the one seeded generator and sliced, so the sharded run
+equals the unsharded one of the same seed. Each rank decodes its own
+frames, and every rank returns the whole video.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ from lavie_tpu_torch.core.config import (
     UNetConfig,
     VAEConfig,
 )
+from lavie_tpu_torch.core.mesh import Mesh, gather_batch, gather_frames, shard_batch
 from lavie_tpu_torch.diffusion.samplers import (
     classifier_free_guidance,
     ddim_step,
@@ -123,6 +133,47 @@ class TextToVideoPipeline:
             sampling.beta_schedule, sampling.num_train_timesteps, sampling.beta_start,
             sampling.beta_end,
         )
+        self.mesh = None
+
+    @property
+    def mesh(self) -> Optional[Mesh]:
+        """The (dp, sp, tp) mesh the pipeline runs on, or None (one device)."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh: Optional[Mesh]) -> None:
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: a lavie_tpu_torch.core.mesh.Mesh or None, not "
+                            f"{type(mesh).__name__}")
+        self._mesh = mesh
+        self.unet.set_mesh(mesh)
+
+    def _shard_axes(self, batch: int, frames: int, shard_frames: bool = False):
+        """(dp shards the batch, sp shards the frames) on this pipeline's
+        mesh: each when its size is above 1 and divides the count, or, with
+        `shard_frames`, for any count of frames (uneven shards)."""
+        if self.mesh is None:
+            return False, False
+        dp, sp = self.mesh.shape["dp"], self.mesh.shape["sp"]
+        return dp > 1 and batch % dp == 0, sp > 1 and (shard_frames or frames % sp == 0)
+
+    def _local(self, x: torch.Tensor, on_dp: bool, on_sp: bool) -> torch.Tensor:
+        """This rank's slice of a whole (B, F, ...) tensor (x itself when
+        neither axis shards it)."""
+        if on_dp:
+            x = shard_batch(self.mesh, x).contiguous()
+        if on_sp:
+            x = self.mesh.shard(x, 1, "sp").contiguous()
+        return x
+
+    def _whole(self, x: torch.Tensor, batch: int, frames: int, on_dp: bool,
+               on_sp: bool) -> torch.Tensor:
+        """The whole (B, F, ...) tensor from every rank's slice."""
+        if on_sp:
+            x = gather_frames(self.mesh, x, frames)
+        if on_dp:
+            x = gather_batch(self.mesh, x, batch)
+        return x
 
     @classmethod
     def init_random(
@@ -204,6 +255,10 @@ class TextToVideoPipeline:
     def decode(self, latents: torch.Tensor, decode_chunk: int = 0) -> np.ndarray:
         """(B, F, h, w, 4) latents → (B, F, H, W, 3) uint8, frames folded
         into the VAE batch, `decode_chunk` frames at a time (0 = all)."""
+        return self._decode(latents, decode_chunk).cpu().numpy()
+
+    def _decode(self, latents: torch.Tensor, decode_chunk: int) -> torch.Tensor:
+        """decode, the uint8 video left on the device."""
         b, f, h, w, c = latents.shape
         z = (latents / self.vae_config.scaling_factor).to(self.dtype).reshape(b * f, h, w, c)
         n = b * f
@@ -211,7 +266,7 @@ class TextToVideoPipeline:
         rgb = torch.cat([self.vae.decode(z[i : i + step]) for i in range(0, n, step)], dim=0)
         video = rgb.float().reshape(b, f, rgb.shape[1], rgb.shape[2], 3)
         video = torch.clamp(video / 2.0 + 0.5, 0.0, 1.0)
-        return torch.round(video * 255.0).to(torch.uint8).cpu().numpy()
+        return torch.round(video * 255.0).to(torch.uint8)
 
     @torch.no_grad()
     def __call__(
@@ -262,13 +317,18 @@ class TextToVideoPipeline:
             x = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
         else:
             x = torch.as_tensor(np.asarray(latents, np.float32), device=self.device).reshape(shape)
+        on_dp, on_sp = self._shard_axes(batch, video_length)
+        x = self._local(x, on_dp, on_sp)
+        if on_dp:  # this rank's prompts, in both CFG halves
+            states = torch.cat([shard_batch(self.mesh, h) for h in states.chunk(2)])
+        frames = video_length if on_sp else None
 
         def eps(x: torch.Tensor, t: float, scale_in: float = 1.0) -> torch.Tensor:
             xin = torch.cat([x, x]).to(self.dtype)
             if scale_in != 1.0:
                 xin = xin * scale_in
-            tt = torch.full((2 * batch,), t, device=self.device, dtype=torch.float32)
-            pred = self.unet(xin, tt, states).float()
+            tt = torch.full((2 * x.shape[0],), t, device=self.device, dtype=torch.float32)
+            pred = self.unet(xin, tt, states, frames=frames).float()
             return classifier_free_guidance(pred, guidance)
 
         if method in ("ddpm", "ddim"):
@@ -281,7 +341,8 @@ class TextToVideoPipeline:
             for t, pt in zip(ts.tolist(), pts.tolist()):
                 e = eps(x, t)
                 if method == "ddpm":
-                    noise = torch.randn(x.shape, generator=gen, device=self.device, dtype=torch.float32)
+                    noise = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+                    noise = self._local(noise, on_dp, on_sp)
                     x = ddpm_step(self.schedule, x, e, t, pt, noise,
                                   prediction_type=cfg.prediction_type, clip_sample=cfg.clip_sample)
                 else:
@@ -298,4 +359,6 @@ class TextToVideoPipeline:
         else:
             raise NotImplementedError(f"sample_method {method}")
 
-        return PipelineOutput(video=self.decode(x, decode_chunk), latents=x)
+        video = self._whole(self._decode(x, decode_chunk), batch, video_length, on_dp, on_sp)
+        x = self._whole(x, batch, video_length, on_dp, on_sp)
+        return PipelineOutput(video=video.cpu().numpy(), latents=x)

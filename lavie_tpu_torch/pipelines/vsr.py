@@ -14,6 +14,19 @@ batch). The f4 VAE then decodes in two phases: every frame of the window
 through the latent-resolution mid block at once, then `decode_chunk` frames
 at a time through the ×4 upsampling half (reference:
 vsr/sample.py:100-119, vsr/models/pipeline_stable_diffusion_upscale_video_3d.py:491-780).
+
+Windows are independent: they go in groups of max(ranks, window_batch),
+ranks = dp·sp of the mesh (`pipe.mesh`, core/mesh.py; none: 1), and in a
+group larger than one the short tail window is padded by repeating its
+last frame and trimmed after (lavie_tpu/pipelines/vsr.py's grouping). The
+group's noise is drawn window by window in group order from the one
+generator, on every rank; rank j of the dp·sp ranks (tp ranks compute the
+same) runs the group's windows j, j + ranks, ... one at a time, each on
+one rank (the UNet's k-tap temporal convs would need neighbouring frames
+across ranks), and the outputs are gathered so that every rank returns the
+whole video. So a mesh run equals the one-process run at
+window_batch = ranks, and window_batch = 1 without a mesh is the serial
+loop of one window at a time.
 """
 
 from __future__ import annotations
@@ -25,6 +38,7 @@ import numpy as np
 import torch
 
 from lavie_tpu_torch.core.config import CLIPTextConfig, SamplingConfig, UNetConfig, VAEConfig
+from lavie_tpu_torch.core.mesh import Mesh
 from lavie_tpu_torch.diffusion.noise_aug import low_scale_schedule
 from lavie_tpu_torch.diffusion.samplers import add_noise, ddim_step, ddim_timesteps, prev_timesteps
 from lavie_tpu_torch.io.tokenizer import CLIPTokenizer
@@ -52,11 +66,15 @@ class VideoSuperResolutionPipeline(TextToVideoPipeline):
         noise_level: int = 50,
         window: int = 8,
         decode_chunk: int = 1,
+        window_batch: int = 1,
+        mesh: Optional[Mesh] = None,
     ):
         if unet_config.in_channels != 7:
             raise ValueError("the VSR UNet takes 4 latent + 3 RGB channels")
         super().__init__(unet_config, vae_config, text_config, sampling, tokenizer, dtype, device)
         self.noise_level, self.window, self.decode_chunk = noise_level, window, decode_chunk
+        self.window_batch = window_batch
+        self.mesh = mesh
         self.low_res_schedule = low_scale_schedule(sampling.num_train_timesteps)
 
     @classmethod
@@ -79,24 +97,35 @@ class VideoSuperResolutionPipeline(TextToVideoPipeline):
             random_init_(m, seed * 3 + i)
         return pipe
 
-    @torch.no_grad()
-    def _window(self, frames: np.ndarray, states: torch.Tensor, steps: int, guidance: float,
-                noise_level: int, gen: torch.Generator, lr_noise: Optional[np.ndarray],
-                latents: Optional[np.ndarray]) -> np.ndarray:
-        """One window (f, H, W, 3) in [-1, 1] → (f, 4H, 4W, 3) uint8."""
+    def _draws(self, frames: np.ndarray, gen: torch.Generator, lr_noise: Optional[np.ndarray],
+               latents: Optional[np.ndarray]):
+        """A window's draws, in the generator's order: the noise of its
+        low-res frames (f, H, W, 3), then its initial latents."""
         f, height, width, _ = frames.shape
-        dev, cfg = self.device, self.sampling
-        x_lr = torch.as_tensor(np.ascontiguousarray(frames, np.float32), device=dev)[None]
+        dev = self.device
         if lr_noise is None:
-            noise = torch.randn(x_lr.shape, generator=gen, device=dev, dtype=torch.float32)
+            noise = torch.randn((1, f, height, width, 3), generator=gen, device=dev,
+                                dtype=torch.float32)
         else:
-            noise = torch.as_tensor(np.asarray(lr_noise, np.float32), device=dev).reshape(x_lr.shape)
-        image_c = add_noise(self.low_res_schedule, x_lr, noise, noise_level).to(self.dtype)
+            noise = torch.as_tensor(np.asarray(lr_noise, np.float32), device=dev).reshape(
+                1, f, height, width, 3)
         shape = (1, f, height, width, 4)
         if latents is None:
             x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         else:
             x = torch.as_tensor(np.asarray(latents, np.float32), device=dev).reshape(shape)
+        return noise, x
+
+    @torch.no_grad()
+    def _window(self, frames: np.ndarray, noise: torch.Tensor, x: torch.Tensor,
+                states: torch.Tensor, steps: int, guidance: float,
+                noise_level: int) -> torch.Tensor:
+        """One window (f, H, W, 3) in [-1, 1] with its draws (_draws) →
+        (f, 4H, 4W, 3) uint8 on the device."""
+        f, height, width, _ = frames.shape
+        dev, cfg = self.device, self.sampling
+        x_lr = torch.as_tensor(np.ascontiguousarray(frames, np.float32), device=dev)[None]
+        image_c = add_noise(self.low_res_schedule, x_lr, noise, noise_level).to(self.dtype)
 
         labels = torch.full((1,), noise_level, device=dev, dtype=torch.long)
         ts = ddim_timesteps(steps, cfg.num_train_timesteps)
@@ -118,8 +147,8 @@ class VideoSuperResolutionPipeline(TextToVideoPipeline):
         for i in range(0, f, self.decode_chunk):
             rgb = self.vae.decode_up(h_mid[i:i + self.decode_chunk]).float()
             rgb = torch.clamp(torch.clamp(rgb, -1.0, 1.0) / 2 + 0.5, 0.0, 1.0)
-            out.append(torch.round(rgb * 255.0).to(torch.uint8).cpu().numpy())
-        return np.concatenate(out)
+            out.append(torch.round(rgb * 255.0).to(torch.uint8))
+        return torch.cat(out)
 
     @torch.no_grad()
     def __call__(
@@ -159,6 +188,35 @@ class VideoSuperResolutionPipeline(TextToVideoPipeline):
 
         gen = torch.Generator(device=self.device).manual_seed(seed)
         win = min(self.window, total)
-        out = [self._window(frames[i:i + win], states, steps, guidance, level, gen, lr_noise, latents)
-               for i in range(0, total, win)]
+        ranks, rank = 1, 0
+        if self.mesh is not None:
+            shape, coords = self.mesh.shape, self.mesh.coords
+            ranks, rank = shape["dp"] * shape["sp"], coords["dp"] * shape["sp"] + coords["sp"]
+        group = max(ranks, self.window_batch, 1)
+        spans = [(i, min(total, i + win)) for i in range(0, total, win)]
+        out = []
+        for g0 in range(0, len(spans), group):
+            chunks = [frames[a:b] for a, b in spans[g0:g0 + group]]
+            if group > 1:  # every window of a batched group at the full length
+                chunks = [np.concatenate([c, np.repeat(c[-1:], win - len(c), 0)]) for c in chunks]
+            draws = [self._draws(c, gen, lr_noise, latents) for c in chunks]
+            mine = [self._window(c, *d, states, steps, guidance, level)
+                    for j, (c, d) in enumerate(zip(chunks, draws)) if j % ranks == rank]
+            if ranks > 1:
+                mine = self._gather_windows(mine, len(chunks), ranks, rank, chunks[0].shape)
+            out += [v[:b - a].cpu().numpy() for v, (a, b) in zip(mine, spans[g0:g0 + group])]
         return VSROutput(video=np.concatenate(out))
+
+    def _gather_windows(self, mine: list, n: int, ranks: int, rank: int, low_res: tuple) -> list:
+        """The group's n windows in order on every rank, from rank j's
+        windows j, j + ranks, ... (over sp, then dp). A rank short of a
+        window, in a group of fewer windows than ranks, sends zeros that no
+        rank keeps. low_res: a window's (f, H, W, 3)."""
+        per_rank = -(-n // ranks)
+        f, height, width, _ = low_res
+        up = self.vae_config.downscale_factor
+        blank = torch.zeros((f, height * up, width * up, 3), dtype=torch.uint8, device=self.device)
+        mine = torch.stack(mine + [blank] * (per_rank - len(mine)))[None, None]
+        both = self.mesh.gather(mine, 1, "sp", self.mesh.shape["sp"])
+        both = self.mesh.gather(both, 0, "dp", self.mesh.shape["dp"]).flatten(0, 1)  # (ranks, per_rank, ...)
+        return [both[j % ranks, j // ranks] for j in range(n)]

@@ -16,6 +16,16 @@ The frozen modules compute in their own dtype (bf16 on the card, as the
 inference path does); the adapters, the mapper and the optimizer state are
 fp32. Random draws come from an explicit torch.Generator; the loss also
 takes them explicitly (`posterior_noise`, `t`, `noise`, `offset_noise`).
+
+On a mesh (`finetuner.mesh`, core/mesh.py) every rank passes the whole
+batch and the same generator, and keeps its share as train/step.py's
+StepShard says: samples over dp, frames over sp, every draw made at its
+whole shape and sliced. The diffusion loss is weighted by the rank's share
+of the elements; the alignment loss's in-batch negatives span the whole
+batch (the pooled states gathered over dp), and each rank weights it by
+1/(dp·sp); the LoRA and mapper gradients are summed over sp and dp before
+the optimizer. configs/finetune.yaml's train_batch_size of 8 is then dp
+ranks times the per-rank batch.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from lavie_tpu_torch.core.collectives import all_gather_uneven
+from lavie_tpu_torch.core.mesh import Mesh
 from lavie_tpu_torch.diffusion.samplers import add_noise, get_velocity
 from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
 from lavie_tpu_torch.io.checkpoints import load_native, save_native
@@ -39,7 +51,14 @@ from lavie_tpu_torch.train.optim import (
     linear_schedule,
     warmup_cosine_decay_schedule,
 )
-from lavie_tpu_torch.train.step import draw_normal, draw_timesteps, min_snr_weight
+from lavie_tpu_torch.train.step import (
+    StepShard,
+    draw_normal,
+    draw_timesteps,
+    min_snr_weight,
+    reduce_gradients,
+    sum_over_ranks,
+)
 
 
 @dataclasses.dataclass
@@ -96,8 +115,11 @@ def alignment_loss(mapped: torch.Tensor, text_states: torch.Tensor) -> torch.Ten
     """±cosine embedding loss with in-batch negatives over mean-pooled
     states: pull mapped(image_i) toward text_i, push it away from text_j
     (reference: fine_tuning.py:536-554)."""
-    m = mapped.mean(dim=1)
-    t = text_states.mean(dim=1)
+    return pooled_alignment_loss(mapped.mean(dim=1), text_states.mean(dim=1))
+
+
+def pooled_alignment_loss(m: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """alignment_loss on the mean-pooled states, (B, D) each."""
     m = m / (torch.linalg.norm(m, dim=-1, keepdim=True) + 1e-8)
     t = t / (torch.linalg.norm(t, dim=-1, keepdim=True) + 1e-8)
     sim = m @ t.t()  # (B, B)
@@ -117,7 +139,7 @@ class LoRAFinetuner:
     def __init__(self, unet: nn.Module, vae: AutoencoderKL, text_encoder: nn.Module,
                  vision_encoder: nn.Module, mapping: nn.Module,
                  config: FinetuneConfig = FinetuneConfig(),
-                 schedule: Optional[NoiseSchedule] = None):
+                 schedule: Optional[NoiseSchedule] = None, mesh: Optional[Mesh] = None):
         self.unet, self.vae = unet, vae
         self.text_encoder, self.vision_encoder, self.mapping = text_encoder, vision_encoder, mapping
         for m in (unet, vae, text_encoder, vision_encoder, mapping):
@@ -132,6 +154,17 @@ class LoRAFinetuner:
                                eps=config.adam_epsilon, weight_decay=config.adam_weight_decay,
                                max_grad_norm=config.max_grad_norm,
                                accumulation_steps=config.gradient_accumulation_steps)
+        self.mesh = mesh
+
+    @property
+    def mesh(self) -> Optional[Mesh]:
+        """The mesh the steps run on, or None (one device)."""
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh: Optional[Mesh]) -> None:
+        self._mesh = mesh
+        self.unet.set_mesh(mesh)
 
     def init_state(self, generator: Optional[torch.Generator] = None,
                    mapper_params: Optional[Mapping[str, torch.Tensor]] = None,
@@ -178,6 +211,26 @@ class LoRAFinetuner:
         "cond_image" (B, 224, 224, 3) CLIP-normalised}; draws not given come
         from `generator` in the order posterior, t, noise, offset."""
         cfg, schedule = self.cfg, self.schedule
+        sh = None
+        if self.mesh is not None:
+            video = batch["video"]
+            b, f, h, w, _ = video.shape
+            sh = StepShard(self.mesh, b, f)
+            # every draw at its whole shape, in the generator's order, then this rank's share
+            lat = (b, f, h // 8, w // 8, self.vae.config.latent_channels)
+            if posterior_noise is None:
+                posterior_noise = draw_normal((b * f,) + lat[2:], generator, video.device)
+            if t is None:
+                t = draw_timesteps(schedule, b, generator, video.device)
+            if noise is None:
+                noise = draw_normal(lat, generator, video.device)
+            if cfg.noise_offset and offset_noise is None:
+                offset_noise = draw_normal(lat[:2] + (1, 1) + lat[-1:], generator, video.device)
+            posterior_noise = sh.video(posterior_noise.view(lat)).flatten(0, 1)
+            t, noise = sh.rows(t), sh.video(noise)
+            offset_noise = None if offset_noise is None else sh.video(offset_noise)
+            batch = {"video": sh.video(video), "token_ids": sh.rows(batch["token_ids"]),
+                     "cond_image": sh.rows(batch["cond_image"])}
         latents, text_states, image_states = self.encode(batch, generator, posterior_noise)
         text_states = text_states.float()
         # the trainable mapper: image tokens → the text space, concatenated
@@ -200,22 +253,38 @@ class LoRAFinetuner:
         noisy = add_noise(schedule, latents, noise, t)
         target = noise if cfg.prediction_type == "epsilon" else get_velocity(schedule, latents, noise, t)
         pred = apply_lora(self.unet, trainables["lora"], cfg.lora_alpha, cfg.lora_rank,
-                          noisy, t, cond).float()
+                          noisy, t, cond, **({} if sh is None else sh.model_kwargs)).float()
         per_sample = ((pred - target) ** 2).mean(dim=(1, 2, 3, 4))
         if cfg.min_snr_gamma is not None:
             per_sample = per_sample * min_snr_weight(schedule, t, cfg.min_snr_gamma,
                                                      cfg.prediction_type)
         mse = per_sample.mean()
-        align = alignment_loss(mapped, text_states)
-        return mse + cfg.alignment_loss_weight * align, (mse, align)
+        if sh is None:
+            align = alignment_loss(mapped, text_states)
+            return mse + cfg.alignment_loss_weight * align, (mse, align)
+        # this rank's share of one global loss: the in-batch negatives over
+        # the whole batch, computed alike on every rank
+        pooled = [x.mean(dim=1) for x in (mapped, text_states)]
+        if sh.on_dp:
+            sizes, group = self.mesh.split(sh.batch, "dp"), self.mesh.groups["dp"]
+            pooled = [all_gather_uneven(x, 0, sizes, group) for x in pooled]
+        align = pooled_alignment_loss(*pooled)
+        ranks = self.mesh.shape["dp"] * self.mesh.shape["sp"]
+        mse = mse * sh.share
+        return mse + cfg.alignment_loss_weight * align / ranks, (mse, align)
 
     def grads(self, state: FinetuneState, batch: Mapping[str, torch.Tensor],
               generator: Optional[torch.Generator] = None, **draws):
-        """(loss, (mse, align), gradients keyed as state.trainables())."""
+        """(loss, (mse, align), gradients keyed as state.trainables()); on a
+        mesh the whole batch's, on every rank."""
         loss, aux = self._loss({"lora": state.lora, "mapper": state.mapper}, batch, generator,
                                **draws)
         params = state.trainables()
         grads = torch.autograd.grad(loss, list(params.values()))
+        if self.mesh is not None:
+            grads = reduce_gradients(self.mesh, grads)
+            mse, align = sum_over_ranks(self.mesh, aux[0]), aux[1].detach()
+            loss, aux = mse + self.cfg.alignment_loss_weight * align, (mse, align)
         return loss, aux, dict(zip(params, grads))
 
     def train_step(self, state: FinetuneState, batch: Mapping[str, torch.Tensor],

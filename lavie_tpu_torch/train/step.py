@@ -8,16 +8,26 @@ Every random draw comes from an explicit torch.Generator, or is passed in
 (`t`, `noise`, ...) so that tests can inject the JAX package's draws.
 A module is applied with `params` through torch.func.functional_call
 (None: its own parameters).
+
+On a mesh (core/mesh.py) a step takes the whole batch on every rank and
+keeps its share: samples over dp (which must divide them), frames over sp.
+The draws are made at their whole shapes and sliced, each rank's loss is
+weighted by its share of the elements, and the gradients of that one
+global mean loss are summed over sp and dp (`reduce_gradients`) before the
+optimizer, so a sharded step equals the one-process step on the same
+batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from lavie_tpu_torch.core.collectives import all_reduce_sum
+from lavie_tpu_torch.core.mesh import Mesh
 from lavie_tpu_torch.diffusion.noise_aug import augment_conditioning
 from lavie_tpu_torch.diffusion.samplers import add_noise, get_velocity
 from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
@@ -51,6 +61,64 @@ def draw_normal(shape, generator: Optional[torch.Generator], device) -> torch.Te
     return torch.randn(shape, generator=generator, device=gen_device).to(device)
 
 
+@dataclasses.dataclass(frozen=True)
+class StepShard:
+    """How a training batch of `batch` samples of `frames` frames lies on
+    this rank of `mesh`: samples over dp (on_dp), frames over sp (on_sp)."""
+
+    mesh: Mesh
+    batch: int
+    frames: int
+
+    def __post_init__(self):
+        if self.batch % self.mesh.shape["dp"]:
+            raise ValueError(f"a training batch of {self.batch} does not divide over "
+                             f"dp={self.mesh.shape['dp']}")
+
+    @property
+    def on_dp(self) -> bool:
+        return self.mesh.shape["dp"] > 1
+
+    @property
+    def on_sp(self) -> bool:
+        return self.mesh.shape["sp"] > 1
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's samples of a per-sample tensor (B, ...)."""
+        return self.mesh.shard(x, 0, "dp") if self.on_dp else x
+
+    def video(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's samples and frames of a video tensor (B, F, ...)."""
+        x = self.rows(x)
+        return (self.mesh.shard(x, 1, "sp") if self.on_sp else x).contiguous()
+
+    @property
+    def share(self) -> float:
+        """This rank's share of the batch's elements."""
+        b_local = self.mesh.split(self.batch, "dp")[self.mesh.coords["dp"]]
+        f_local = self.mesh.split(self.frames, "sp")[self.mesh.coords["sp"]]
+        return b_local * f_local / (self.batch * self.frames)
+
+    @property
+    def model_kwargs(self) -> Dict[str, Any]:
+        """What the UNet takes for this rank's frames."""
+        return {"frames": self.frames} if self.on_sp else {}
+
+
+
+def sum_over_ranks(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """The sum of a per-rank value over the mesh's sp and dp ranks."""
+    return all_reduce_sum(all_reduce_sum(x.detach(), mesh.groups["sp"]), mesh.groups["dp"])
+
+
+def reduce_gradients(mesh: Mesh, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Each gradient summed over the mesh's sp and dp ranks (one flat
+    all-reduce over each axis); ranks along tp hold the same."""
+    flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh.groups["sp"])
+    flat = all_reduce_sum(flat, mesh.groups["dp"])
+    return [p.view_as(g) for p, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def _apply(model: nn.Module, params: Optional[Mapping[str, torch.Tensor]], *args, **kwargs):
     if params is None:
         return model(*args, **kwargs)
@@ -67,10 +135,11 @@ def diffusion_loss(model: nn.Module, params: Optional[Mapping[str, torch.Tensor]
                    prediction_type: str = "epsilon", min_snr_gamma: Optional[float] = None,
                    noise_offset: float = 0.0, t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None,
-                   offset_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   offset_noise: Optional[torch.Tensor] = None,
+                   model_kwargs: Optional[Dict[str, Any]] = None) -> torch.Tensor:
     """latents (B, F, h, w, C) clean, text_states (B, L, D) → scalar loss.
     t, noise and the DC offset's draw (B, F, 1, 1, C) come from `generator`
-    unless given."""
+    unless given; model_kwargs go to the model."""
     b = latents.shape[0]
     if t is None:
         t = draw_timesteps(schedule, b, generator, latents.device)
@@ -85,7 +154,8 @@ def diffusion_loss(model: nn.Module, params: Optional[Mapping[str, torch.Tensor]
         noise = noise + noise_offset * offset_noise
     noisy = add_noise(schedule, latents, noise, t)
     target = noise if prediction_type == "epsilon" else get_velocity(schedule, latents, noise, t)
-    per_sample = _per_sample_mse(_apply(model, params, noisy, t, text_states), target)
+    per_sample = _per_sample_mse(_apply(model, params, noisy, t, text_states,
+                                        **(model_kwargs or {})), target)
     if min_snr_gamma is not None:
         per_sample = per_sample * min_snr_weight(schedule, t, min_snr_gamma, prediction_type)
     return per_sample.mean()
@@ -147,19 +217,38 @@ class TrainState:
 
 
 def make_train_step(model: nn.Module, schedule: NoiseSchedule, optimizer: AdamW, *,
-                    prediction_type: str = "epsilon",
-                    min_snr_gamma: Optional[float] = None) -> Callable:
+                    prediction_type: str = "epsilon", min_snr_gamma: Optional[float] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """step(state, batch {"latents", "text_states"}, generator, **draws) →
     (state, loss): every parameter in state.params trained, the model
-    applied with them."""
+    applied with them. On a mesh every rank passes the whole batch and the
+    same generator (or draws at their whole shapes); the model's mesh is
+    set to it."""
+    if mesh is not None:
+        model.set_mesh(mesh)
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, **draws) -> Tuple[TrainState, torch.Tensor]:
         names = list(state.params)
-        loss = diffusion_loss(model, state.params, schedule, batch["latents"],
-                              batch["text_states"], generator, prediction_type=prediction_type,
-                              min_snr_gamma=min_snr_gamma, **draws)
-        grads = torch.autograd.grad(loss, [state.params[k] for k in names])
+        params = [state.params[k] for k in names]
+        latents, text_states = batch["latents"], batch["text_states"]
+        if mesh is None:
+            loss = diffusion_loss(model, state.params, schedule, latents, text_states, generator,
+                                  prediction_type=prediction_type, min_snr_gamma=min_snr_gamma,
+                                  **draws)
+            grads = torch.autograd.grad(loss, params)
+        else:
+            sh = StepShard(mesh, latents.shape[0], latents.shape[1])
+            t = draws.get("t")
+            t = draw_timesteps(schedule, sh.batch, generator, latents.device) if t is None else t
+            noise = draws.get("noise")
+            noise = draw_normal(latents.shape, generator, latents.device) if noise is None else noise
+            part = diffusion_loss(
+                model, state.params, schedule, sh.video(latents), sh.rows(text_states),
+                prediction_type=prediction_type, min_snr_gamma=min_snr_gamma, t=sh.rows(t),
+                noise=sh.video(noise), model_kwargs=sh.model_kwargs) * sh.share
+            grads = reduce_gradients(mesh, torch.autograd.grad(part, params))
+            loss = sum_over_ranks(mesh, part)
         optimizer.step(state.params, dict(zip(names, grads)), state.opt_state)
         state.step += 1
         return state, loss.detach()

@@ -92,20 +92,25 @@ class LossSecondMomentResampler(ScheduleSampler):
         return bool((self._loss_counts == self.history_per_term).all())
 
 
-def gather_across_hosts(x):
-    """All-gather a rank-local array across the torch.distributed group
-    (the reference's dist.all_gather in update_with_local_losses,
-    timestep_sampler.py:74-106), concatenated along the first axis.
+def gather_across_hosts(x, mesh=None):
+    """All-gather a rank-local array across the torch.distributed ranks (the
+    reference's dist.all_gather in update_with_local_losses,
+    timestep_sampler.py:74-106), concatenated along the first axis. On a
+    mesh (core/mesh.py) over its dp group: ranks along sp and tp hold the
+    same samples, which a gather over the world would count more than once.
     Identity without an initialised group of more than one rank."""
     import torch
     import torch.distributed as dist
 
     x = np.asarray(x)
-    if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+    if not (dist.is_available() and dist.is_initialized()):
+        return x
+    group = mesh.groups["dp"] if mesh is not None else None
+    if dist.get_world_size(group) == 1:
         return x
     local = torch.from_numpy(np.ascontiguousarray(x))
-    if dist.get_backend() == "nccl":
+    if dist.get_backend(group) == "nccl":
         local = local.cuda()
-    parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, local)
+    parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, local, group=group)
     return torch.cat(parts).cpu().numpy().reshape(-1, *x.shape[1:])

@@ -3,7 +3,8 @@ cascade's output shapes for options 1-4 (those of tests/test_cascade.py for
 the JAX package), each bit-identical to chaining the port's three stage
 pipelines by hand with the same seeds and prompts; the Predictor writes a
 video that reads back at its shape and frame rate; the cascade CLI writes
-one video per prompt and refuses a mesh; the int8 turbo mode
+one video per prompt and refuses a mesh (the CLIs run one process); the
+cascade takes only a core.mesh.Mesh; the int8 turbo mode
 through the Predictor, the cascade and the four CLIs' YAML keys. Each stage's parity
 with the JAX package is held by test_torch_port_{pipeline,tsr,vsr}.py.
 """
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from lavie_tpu_torch.core.mesh import Mesh
 from lavie_tpu_torch.nn import quant
 from lavie_tpu_torch.nn.layers import InflatedConv
 from lavie_tpu_torch.pipelines import VideoCascadePipeline
@@ -70,10 +72,23 @@ def test_cascade_options_match_the_stages_chained_by_hand(cascade, by_hand, opti
 
 
 def test_cascade_drops_intermediates_and_refuses_what_is_not_ported(cascade):
+    """Also: a mesh must be a core.mesh.Mesh (TypeError otherwise); set_mesh
+    hands one to every stage, and a one-rank mesh leaves option 1's video as
+    it is (tests/test_torch_port_mesh.py runs the stages over ranks)."""
     out = cascade("a cat", interpolation=False, super_resolution=False, **RUN)
     assert out.base_video is None and out.interpolated_video is None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         VideoCascadePipeline(cascade.base, mesh=object())
+    one = Mesh({"dp": 1, "sp": 1, "tp": 1}, {"dp": 0, "sp": 0, "tp": 0}, {}, "gloo")
+    try:
+        cascade.set_mesh(one)
+        assert all(stage.mesh is one and stage.unet.mesh is one
+                   for stage in (cascade.base, cascade.interpolation, cascade.vsr))
+        on_mesh = cascade("a cat", interpolation=False, super_resolution=False, **RUN).video
+    finally:
+        cascade.set_mesh(None)
+    assert cascade.base.mesh is None and cascade.vsr.unet.mesh is None
+    np.testing.assert_array_equal(on_mesh, out.video)
     with pytest.raises(ValueError, match="conv_quant"):
         VideoCascadePipeline.init_random(0, tiny=True, conv_quant="fp4", device="cpu")
 
