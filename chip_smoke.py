@@ -22,7 +22,12 @@ its result line:
                 F.scaled_dot_product_attention (a yardstick only: the port
                 never calls it); the explicit-kv flash entry runs here only.
                 Rows of the redesigned bodies also print the time of the
-                bodies they replaced (prev_ms)
+                bodies they replaced (prev_ms). Then what a frame shard
+                calls anew (phase_mesh_kernels): flash_sparse_causal with
+                its anchor and halo operands on frames [31, 61) of two
+                61-frame videos (against its plain version, and its rows
+                bit for bit the whole video call's), and the temporal
+                attention at half the positions (sp = 2), base and TSR
   4. model      one full-width base UNet3D forward (2x16x40x64 latents, every
                 parameter random, temporal out-projections included) with the
                 kernels and with the plain versions; relative error
@@ -96,6 +101,19 @@ its result line:
  13d. tiled_decode  the f4 VAE's tiled codec on one frame: a 320x512
                 latent to 1280x2048 (60 tiles' mid attention on the flash
                 kernel) against the plain route, and tiled_encode back
+ 13e. mesh      two ranks sharing the card over gloo (NCCL takes one rank a
+                card), every stage at full width: the CFG-doubled base UNet
+                forward frames over sp = 2 (collective calls and bytes), a
+                base video (MESH_STEPS), TSR 16 -> 61 over sp = 2 (31/30
+                frames), VSR's two windows of that video over dp = 2, one
+                LoRA + mapper gradient at dp = 2 (per-rank batch 1); each
+                against rank 0's one-process run of the same seed (VSR at
+                window_batch 2, the gradient at batch 2), within MESH_TOL;
+                seconds, peak memory and launches per rank
+ 13f. nccl      NCCL at world size 1: make_mesh(backend="nccl"), the base
+                UNet forward over the one-rank sp axis bit for bit the
+                meshless one, each collective exact over NCCL; then what
+                NCCL says to two ranks on the one card
  14. optin      the JAX package's opt-in float routes: temporal_attention_folded
                 (the temporal kernel on q/k rotated beforehand, with a bias)
                 at the base and VSR shapes; gn_silu_tconv with emit_stats at
@@ -156,8 +174,8 @@ its result line:
                 shapes, peak memory and exact launch counts per stage
  23. result     a `kernels` JSON line, then the `ok` JSON line last
 Launch counts are zeroed just before each path (main, eval, image, train,
-tsr, vsr, vsr_branches, tiled_decode, ckpt, cascade) and
-read just after it; the paths before the cascade run the default routes and
+tsr, vsr, vsr_branches, tiled_decode, each sharded run of mesh, ckpt,
+cascade) and read just after it; the paths before the cascade run the default routes and
 launch no opt-in entry. Imports nothing of JAX or of the JAX package.
 """
 
@@ -197,8 +215,9 @@ CROSS_TOL, TCONV_TOL = 2e-2, 1e-2  # of max|plain|
 ATTN_TOL, PROJ_TOL = 1e-2, 2e-2  # cross_attention; ln_qkv and out_proj_residual
 STATS_TOL = 1e-2  # gn_silu_tconv's Σ, Σ², of max|plain|
 # the cascade phase's option 4: the one cut (50 VSR steps in a user's run),
-# to keep the script within half its time limit on a slow host
-CASCADE_VSR_STEPS = 5
+# to keep the script within half its time limit on a slow host; 2 since the
+# mesh phase came (5 before: 111 s of VSR in turbo, 8 windows)
+CASCADE_VSR_STEPS = 2
 # the image path: 77 text keys and the MappingNetwork's 77 for every attn2
 IMAGE_KEYS = 154
 # the ckpt phase's exporter seed (the loading predictor takes CKPT_SEED + 1)
@@ -2268,7 +2287,9 @@ def phase_vsr_branches() -> dict:
     peak memory and the launches of the kernel run (geglu > 0: the
     versatile feed-forward); then WarpModule, both paths, at a square
     64x64-token grid of width 128 and 256 on the card against the CPU (the
-    VSR latents are not square, so the UNet cannot run the warp, as in JAX)."""
+    VSR latents are not square, so the UNet cannot run the warp, as in JAX).
+    The forward is timed cold (no warm-up: cut for the mesh phase's time),
+    so `ms` holds the attention's first calls at each shape."""
     import dataclasses
 
     from lavie_tpu_torch.core.config import UNetConfig
@@ -2282,7 +2303,6 @@ def phase_vsr_branches() -> dict:
     x, ts, ctx, labels = unet_inputs(cfg, 1, VSR_FRAMES, 320, 512, 1024, seed=3, t=981.0)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
-        unet(x, ts, ctx, labels)  # warm-up: the attention's first calls at each shape
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
@@ -2399,6 +2419,377 @@ def phase_tiled_decode() -> dict:
     return {k: decode_launches[k] + encode_launches[k] for k in decode_launches}
 
 
+# the mesh phase: two ranks on the one card over gloo (NCCL takes one rank a
+# card), every stage at full width and these steps, each against the same
+# run in one process
+MESH_STEPS = {"base": 3, "tsr": 2, "vsr": 2}
+MESH_TIMEOUT = 600  # seconds the two ranks may take, and a collective may wait
+MESH_FRAMES = 16  # a training clip's frames in the mesh phase (the train phase's)
+# a sharded run against the one-process run of the same seed (SDPA held to
+# backends that answer alike in every process, chip_repro.py): bf16 at other
+# shapes (cuDNN's convs and cuBLAS at half the frames or samples, GroupNorm
+# sums in another order) moves the UNet as the kernels move it against their
+# plain versions (the first mesh run read 0.0142 of max, the kernels 0.014),
+# and a random-weight UNet amplifies that over the steps (base video 5.49
+# uint8 levels apart on average at 5 steps, TSR 1.39 at 3): the bounds hold
+# the UNet at 5e-2 of max, the videos' mean |Δ| well below what a misplaced
+# frame or noise slice gives (tens of levels), VSR (each window whole on one
+# rank) equal, the loss at 1e-3 and the gradients at 1e-1 relative norm
+# (LoRA 0.011, the mapper 0.048) with cosine 0.99
+MESH_TOL = {"unet": 5e-2, "mean_abs_diff": {"base": 16.0, "tsr": 8.0, "vsr": 0.0}, "loss": 1e-3,
+            "grads": 1e-1, "cosine": 0.99}
+
+
+def phase_mesh_kernels(sparse_rows: list) -> dict:
+    """The two kernels a frame shard calls anew: flash_sparse_causal with
+    its anchor and halo operands at the four TSR levels, on the second of
+    two ranks' frames [31, 61) of two 61-frame videos (frame 0 and frame 30
+    of each handed in as (B, S, C) tensors), against its plain version and
+    against the whole video's kernel call (its rows bit for bit), timed per
+    row beside the whole call's (sparse_rows, the kernels phase); and the
+    temporal attention at half the positions of every frame (sp = 2) at the
+    base (F=16, RoPE and bias) and TSR (F=61) levels."""
+    from lavie_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    h, b, start = 8, 2, 31
+    local = TSR_FRAMES - start
+    rows = []
+    for (s, d), whole_row in zip(ATTENTION_LEVELS, sparse_rows):
+        c = h * d
+        q, k, v = (torch.randn(b, TSR_FRAMES, s, c, generator=g, device="cuda").bfloat16()
+                   for _ in range(3))
+        whole = fa.flash_sparse_causal(*(x.view(b * TSR_FRAMES, s, c) for x in (q, k, v)),
+                                       TSR_FRAMES, h, d**-0.5).view(b, TSR_FRAMES, s, c)
+        mine = [x[:, start:].reshape(b * local, s, c) for x in (q, k, v)]
+        kw = {"anchor": (k[:, 0].contiguous(), v[:, 0].contiguous()),
+              "halo": (k[:, start - 1].contiguous(), v[:, start - 1].contiguous())}
+        args = (*mine, local, h, d**-0.5)
+        out = fa.flash_sparse_causal(*args, **kw)
+        kf = fa.sparse_causal_kv(mine[1], local, anchor=kw["anchor"][0], halo=kw["halo"][0])
+        vf = fa.sparse_causal_kv(mine[2], local, anchor=kw["anchor"][1], halo=kw["halo"][1])
+        heads_first = lambda x: x.view(b * local, -1, h, d).transpose(1, 2).contiguous()  # noqa: E731
+        ql, kl, vl = heads_first(mine[0]), heads_first(kf), heads_first(vf)
+        row = check_row(
+            "flash_sparse_causal (anchor, halo)", {"BF": b * local, "F": local, "S": s, "H": h, "d": d},
+            out, fa.flash_sparse_causal_reference(*args, **kw), FLASH_TOL,
+            lambda: fa.flash_sparse_causal(*args, **kw),
+            lambda: fa.flash_sparse_causal_reference(*args, **kw),
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=d**-0.5),
+            (4 * b * local * s * c + 4 * b * s * c) * 2,
+            ((4 * b * local * h * s * (2 * s) * d, BF16_FLOPS),),
+            equal_to_whole_rows=torch.equal(out.view(b, local, s, c), whole[:, start:]))
+        row["ms_per_row"] = row["ms"] / (b * local)
+        row["whole_ms_per_row"] = whole_row["ms"] / TSR_ROWS
+        log(json.dumps({"kernel": row["kernel"], "shape": row["shape"],
+                        "ms_per_row": row["ms_per_row"], "whole_ms_per_row": row["whole_ms_per_row"]}))
+        if not row["equal_to_whole_rows"]:
+            raise AssertionError(f"flash_sparse_causal (anchor, halo) {row['shape']}: rows differ "
+                                 "from the whole video's call")
+        rows.append(row)
+        del q, k, v, whole, mine, out, kf, vf, ql, kl, vl
+    half = [(s // 2, d) for s, d in ATTENTION_LEVELS]
+    return {"flash_sparse_causal": rows, "temporal_base": phase_temporal(16, rope=32, levels=half),
+            "temporal_tsr": phase_temporal(TSR_FRAMES, rope=0, levels=half)}
+
+
+def _video_diff(got, want) -> dict:
+    import numpy as np
+
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    return {"shape": list(got.shape), "max_abs_diff": int(diff.max()),
+            "differing_share": float((diff > 0).mean()), "mean_abs_diff": float(diff.mean())}
+
+
+def _mesh_work(rank: int) -> dict:
+    """The mesh phase's work on one rank: the full-width base UNet forward
+    frame-sharded over sp = 2 (collectives counted); a base video, 16 frames
+    over sp = 2; TSR 16 → 61 over sp = 2 (31/30 frames); VSR's two windows
+    of that video over dp = 2; one LoRA + mapper gradient at dp = 2 and
+    per-rank batch 1. Rank 0 then runs each in its own process without a
+    mesh (the VSR at window_batch 2, the gradient at batch 2) and compares.
+    Launches are counted over the sharded runs only."""
+    import numpy as np
+
+    from lavie_tpu_torch.core import collectives
+    from lavie_tpu_torch.core.config import UNetConfig
+    from lavie_tpu_torch.core.mesh import make_mesh
+    from lavie_tpu_torch.pipelines.interpolate import VideoInterpolationPipeline
+    from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
+    from lavie_tpu_torch.pipelines.vsr import VideoSuperResolutionPipeline
+    from lavie_tpu_torch.train.finetune import FinetuneConfig, LoRAFinetuner
+
+    t_start = time.time()
+    sp, dp = make_mesh(sp=2, backend="gloo"), make_mesh(dp=2, backend="gloo")
+    launches, seconds, row = {}, {}, {"rank": rank}
+
+    def sharded(name, fn):
+        torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.time() - t0
+        for k, n in read_launches().items():
+            launches[k] = launches.get(k, 0) + n
+        return out
+
+    pipe = TextToVideoPipeline.init_random(seed=0, with_image_conditioning=True)
+    row["init_s"] = time.time() - t_start
+
+    # the base UNet forward, CFG-doubled 2x16x40x64, frames over sp
+    x, ts, ctx, _ = unet_inputs(UNetConfig.base_t2v(), 2, 16, 40, 64, 768, seed=3, t=981.0)
+    pipe.unet.set_mesh(sp)
+    for fn in collectives.COLLECTIVES:
+        fn.calls = fn.bytes = 0
+    with torch.no_grad():
+        mine = sharded("unet_forward", lambda: pipe.unet(sp.shard(x, 1, "sp").contiguous(), ts,
+                                                         ctx, frames=16))
+        row["collectives_per_forward"] = {fn.__name__: {"calls": fn.calls, "bytes": fn.bytes}
+                                          for fn in collectives.COLLECTIVES}
+        got = sp.gather(mine, 1, "sp", 16).float()
+        if rank == 0:
+            want = pipe.unet(x, ts, ctx).float()
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            row["unet"] = {"max_abs_err": err, "max_abs_ref": scale, "rel_err": err / scale,
+                           "mean_rel_err": ((got - want).abs().mean() / want.abs().mean()).item(),
+                           "finite": bool(torch.isfinite(got).all())}
+    del x, ctx, mine, got
+
+    prompt = MAIN_PROMPTS[0]
+    base_call = dict(num_inference_steps=MESH_STEPS["base"], guidance_scale=7.5,
+                     sample_method="ddpm", seed=400)
+    pipe.mesh = sp
+    video = sharded("base", lambda: pipe(prompt, **base_call).video[0])
+    if rank == 0:
+        pipe.mesh = None
+        row["base"] = _video_diff(video, pipe(prompt, **base_call).video[0])
+
+    tsr = VideoInterpolationPipeline.init_random(seed=0)
+    tsr_call = dict(prompt=prompt + ", 4k.", num_inference_steps=MESH_STEPS["tsr"],
+                    guidance_scale=4.0, seed=0)
+    tsr.mesh = sp
+    out = sharded("tsr", lambda: tsr(video, **tsr_call).video[0])
+    if rank == 0:
+        tsr.mesh = None
+        row["tsr"] = _video_diff(out, tsr(video, **tsr_call).video[0])
+    del tsr, out
+    torch.cuda.empty_cache()
+
+    vsr = VideoSuperResolutionPipeline.init_random(seed=0)
+    vsr_call = dict(prompt=prompt, num_inference_steps=MESH_STEPS["vsr"], guidance_scale=5.0,
+                    noise_level=50, seed=10)
+    vsr.mesh = dp
+    out = sharded("vsr", lambda: vsr(video, **vsr_call).video)  # 16 frames: two windows
+    if rank == 0:
+        vsr.mesh, vsr.window_batch = None, 2
+        row["vsr"] = _video_diff(out, vsr(video, **vsr_call).video)
+    del vsr, out
+    torch.cuda.empty_cache()
+
+    # one LoRA + mapper gradient of the whole batch of two clips, per-rank batch 1
+    tuner = LoRAFinetuner(pipe.unet, pipe.vae, pipe.text_encoder, pipe.vision_encoder, pipe.mapping,
+                          FinetuneConfig(), mesh=dp)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    state = tuner.init_state(g)
+    with torch.no_grad():
+        for k, v in state.lora.items():
+            if k.endswith("lora_b"):
+                v.normal_(0.0, 0.01, generator=g)
+    n = len(MAIN_PROMPTS)
+    batch = {"video": torch.rand(n, MESH_FRAMES, 320, 512, 3, generator=g, device="cuda") * 2 - 1,
+             "token_ids": torch.from_numpy(pipe.tokenizer(MAIN_PROMPTS).astype(np.int64)).cuda(),
+             "cond_image": torch.randn(n, 224, 224, 3, generator=g, device="cuda")}
+    draws = {"posterior_noise": torch.randn(n * MESH_FRAMES, 40, 64, 4, generator=g, device="cuda"),
+             "t": torch.tensor([500, 300], device="cuda"),
+             "noise": torch.randn(n, MESH_FRAMES, 40, 64, 4, generator=g, device="cuda")}
+    loss, aux, grads = sharded("train", lambda: tuner.grads(state, batch, **draws))
+    if rank == 0:
+        tuner.mesh = None
+        loss_p, aux_p, grads_p = tuner.grads(state, batch, **draws)
+        row["train"] = {"loss": [loss.item(), loss_p.item()], "mse": [aux[0].item(), aux_p[0].item()],
+                        "align": [aux[1].item(), aux_p[1].item()],
+                        "lora": _grad_stats(grads, grads_p, "lora/"),
+                        "mapper": _grad_stats(grads, grads_p, "mapper/")}
+    row.update({"seconds": seconds, "launches": launches,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "total_s": time.time() - t_start})
+    return row
+
+
+def _mesh_rank(rank: int, world: int, folder: str) -> None:
+    """One rank of the mesh phase, a process of its own on the one card:
+    joins the gloo group through a file in `folder` and writes its row there.
+    PyTorch's attention operator is held to its FlashAttention and
+    memory-efficient backends here: its default on the card, cuDNN's,
+    answers the same inputs differently from one process to the next
+    (chip_repro.py), which would hide what sharding changes."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{folder}/rendezvous", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            row = _mesh_work(rank)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(folder, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+
+
+def _spawn(target, world: int, folder: str, timeout: float = MESH_TIMEOUT) -> list:
+    """Run target(rank, world, folder) in `world` spawned processes; their
+    exit codes (None: killed after `timeout` seconds)."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, world, folder)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.time() + timeout
+    for p in procs:
+        p.join(max(1.0, deadline - time.time()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return [p.exitcode for p in procs]
+
+
+def phase_mesh() -> dict:
+    """Two ranks on the one card over gloo (_mesh_work), each checked
+    against one process: the base UNet forward's relative error, the
+    videos' uint8 differences, the gradients' relative norm error; seconds,
+    peak memory and launches per rank. Returns the launches of both ranks'
+    sharded runs."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as folder:
+        codes = _spawn(_mesh_rank, 2, folder)
+        if codes != [0, 0]:
+            raise AssertionError(f"mesh: rank exit codes {codes}")
+        rows = []
+        for r in range(2):
+            with open(os.path.join(folder, f"rank{r}.json")) as f:
+                rows.append(json.load(f))
+    for row in rows:
+        log(json.dumps({"phase": "mesh", **row}))
+    ref = rows[0]
+    log(json.dumps({"phase": "mesh", "seconds": time.time() - t0}))
+    if not (ref["unet"]["finite"] and ref["unet"]["rel_err"] <= MESH_TOL["unet"]):
+        raise AssertionError(f"mesh: the frame-sharded UNet against one process: {ref['unet']}")
+    for stage, bound in MESH_TOL["mean_abs_diff"].items():
+        if ref[stage]["mean_abs_diff"] > bound:
+            raise AssertionError(f"mesh: {stage} video against one process: {ref[stage]}")
+    tr = ref["train"]
+    if abs(tr["loss"][0] - tr["loss"][1]) > MESH_TOL["loss"] * abs(tr["loss"][1]):
+        raise AssertionError(f"mesh: train loss {tr['loss']}")
+    for group in ("lora", "mapper"):
+        if not (tr[group]["finite"] and tr[group]["rel_norm_err"] <= MESH_TOL["grads"]
+                and tr[group]["cosine"] >= MESH_TOL["cosine"]):
+            raise AssertionError(f"mesh: {group} gradients at dp = 2 against one process: {tr[group]}")
+    launches = {k: sum(r["launches"][k] for r in rows) for k in rows[0]["launches"]}
+    for name in ("temporal_attention", "geglu", "flash_sparse_causal", "gn_silu_tconv",
+                 "cross_attention_head", "transformer_tail", "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"mesh: {name} was not launched on the mesh path")
+    assert_default_routes("mesh", launches)
+    return launches
+
+
+def _nccl_two_ranks(rank: int, world: int, folder: str) -> None:
+    """An all_reduce over NCCL with both ranks on card 0; writes what NCCL
+    said (an error message, or the sum)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    try:
+        dist.init_process_group("nccl", init_method=f"file://{folder}/rendezvous", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=60))
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        said = f"all_reduce gave {x.item()}"
+        dist.destroy_process_group()
+    except Exception as e:  # the refusal is the measurement: its message is kept
+        said = f"{type(e).__name__}: {e}"
+    with open(os.path.join(folder, f"rank{rank}.txt"), "w") as f:
+        f.write(said)
+
+
+def phase_nccl() -> dict:
+    """NCCL at world size 1, in this process: make_mesh(backend="nccl"), the
+    base UNet forward with frames over the one-rank sp axis equal bit for
+    bit to the meshless forward, and each collective over NCCL against its
+    result computed here (frames_to_positions and back, the sparse-causal
+    halo, all_reduce_sum in float64, all_gather_uneven); then what NCCL says
+    to two ranks on the one card."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lavie_tpu_torch.core import collectives as coll
+    from lavie_tpu_torch.core.config import UNetConfig
+    from lavie_tpu_torch.core.mesh import make_mesh
+    from lavie_tpu_torch.nn.unet import UNet3D
+    from lavie_tpu_torch.pipelines.t2v import random_init_
+
+    with tempfile.TemporaryDirectory() as folder:
+        dist.init_process_group("nccl", init_method=f"file://{folder}/rendezvous", rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh(backend="nccl")
+            with torch.device("cuda"):
+                unet = UNet3D(UNetConfig.base_t2v()).to(torch.bfloat16).eval()
+            random_init_(unet, seed=7)
+            x, ts, ctx, _ = unet_inputs(UNetConfig.base_t2v(), 2, 16, 40, 64, 768, seed=3, t=981.0)
+            with torch.no_grad():
+                want = unet(x, ts, ctx)
+                unet.set_mesh(mesh)
+                got = unet(x, ts, ctx, frames=16)
+            shard = coll.FrameShard(mesh.groups["sp"], (16,), 0)
+            g = torch.Generator(device="cuda").manual_seed(5)
+            y = torch.randn(2, 16, 2560, 320, generator=g, device="cuda").bfloat16()
+            k, v = (torch.randn(32, 640, 640, generator=g, device="cuda").bfloat16() for _ in range(2))
+            halo = torch.stack(coll.sparse_causal_halo(k, v, shard))
+            first_k, first_v = k.view(2, 16, 640, 640)[:, 0], v.view(2, 16, 640, 640)[:, 0]
+            s64 = torch.randn(2, 32, generator=g, device="cuda", dtype=torch.float64)
+            checks = {
+                "unet_forward_bit_equal": torch.equal(got, want),
+                "frames_to_positions_round_trip": torch.equal(
+                    coll.positions_to_frames(coll.frames_to_positions(y, shard), shard), y),
+                "sparse_causal_halo": torch.equal(halo, torch.stack([first_k, first_v, first_k,
+                                                                      first_v])),
+                "all_reduce_sum": torch.equal(coll.all_reduce_sum(s64, mesh.groups["sp"]), s64),
+                "all_gather_uneven": torch.equal(mesh.gather(y, 1, "sp", 16), y)}
+            backend = dist.get_backend(mesh.groups["sp"])
+        finally:
+            dist.destroy_process_group()
+        del unet, x, ctx, want, got, y, k, v
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as folder:
+        codes = _spawn(_nccl_two_ranks, 2, folder, timeout=120)
+        said = []
+        for r in range(2):
+            path = os.path.join(folder, f"rank{r}.txt")
+            said.append(open(path).read() if os.path.exists(path) else f"no answer (exit {codes[r]})")
+    row = {"phase": "nccl", "backend": backend, "world_size": 1, **checks,
+           "two_ranks_one_card": said}
+    log(json.dumps(row))
+    if backend != "nccl" or not all(checks.values()):
+        raise AssertionError(f"nccl: {row}")
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2413,6 +2804,7 @@ def main() -> int:
     geglu_rows = phase_geglu(16)
     phase_geglu(TSR_FRAMES)
     sparse_rows, kv_row = phase_flash()
+    mesh_rows = phase_mesh_kernels(sparse_rows)
     from lavie_tpu_torch.core.config import UNetConfig
 
     phase_model("model", UNetConfig.base_t2v(), 16)
@@ -2435,6 +2827,9 @@ def main() -> int:
     branch_rows = phase_branch_kernels()
     branch_launches = phase_vsr_branches()
     tiled_launches = phase_tiled_decode()
+    # multi-GPU: two ranks on the one card over gloo, then NCCL at world size 1
+    mesh_launches = phase_mesh()
+    phase_nccl()
     # the opt-in routes: kernels, then each route in the model against the default
     folded_rows = phase_temporal(16, rope=32, folded=True)
     phase_temporal(VSR_FRAMES, rope=32, b=1, folded=True,
@@ -2469,7 +2864,7 @@ def main() -> int:
                    "image": image_launches[counter],
                    "train": train_launches[counter], "tsr": tsr_launches[counter],
                    "vsr": vsr_launches[counter], "vsr_branches": branch_launches[counter],
-                   "tiled_decode": tiled_launches[counter],
+                   "tiled_decode": tiled_launches[counter], "mesh": mesh_launches[counter],
                    "ckpt": ckpt_launches[counter], "cascade": cascade_launches[counter]}
         if ab is not None:  # the launches of one A/B forward with the route set
             by_path["ab"] = ab[counter]
@@ -2506,12 +2901,17 @@ def main() -> int:
     # per-kernel numbers are those of each kernel's L0 shape on its first path
     log(json.dumps({"kernels": [
         entry("temporal_attention", "lavie_tpu_torch/csrc/temporal_fused.cu",
-              "lavie_tpu/kernels/temporal_fused.py:446", temporal_rows[0]),
+              "lavie_tpu/kernels/temporal_fused.py:446", temporal_rows[0],
+              extra={"half_positions": [{k: r[k] for k in BRANCH_ROW_KEYS}
+                                        for r in mesh_rows["temporal_base"] + mesh_rows["temporal_tsr"]]}),
         entry("geglu", "lavie_tpu_torch/csrc/geglu.cu", "lavie_tpu/kernels/geglu.py:85", geglu_rows[0],
               extra={"versatile_ff": [{k: r[k] for k in BRANCH_ROW_KEYS}
                                       for r in branch_rows["geglu"]]}),
         entry("flash_sparse_causal", "lavie_tpu_torch/csrc/flash_attention.cu",
-              "lavie_tpu/kernels/flash_attention.py:407", sparse_rows[0]),
+              "lavie_tpu/kernels/flash_attention.py:407", sparse_rows[0],
+              extra={"anchor_halo": [{k: r[k] for k in BRANCH_ROW_KEYS + ("ms_per_row",
+                                                                         "whole_ms_per_row")}
+                                     for r in mesh_rows["flash_sparse_causal"]]}),
         entry("flash_attention_kv", "lavie_tpu_torch/csrc/flash_attention.cu",
               "lavie_tpu/kernels/flash_attention.py:302", kv_row,
               note="kernels phase only: no path of the port materialises the sparse kv"),
