@@ -105,7 +105,6 @@ class StepShard:
         return {"frames": self.frames} if self.on_sp else {}
 
 
-
 def sum_over_ranks(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """The sum of a per-rank value over the mesh's sp and dp ranks."""
     return all_reduce_sum(all_reduce_sum(x.detach(), mesh.groups["sp"]), mesh.groups["dp"])
