@@ -27,7 +27,10 @@ its result line:
                 its anchor and halo operands on frames [31, 61) of two
                 61-frame videos (against its plain version, and its rows
                 bit for bit the whole video call's), and the temporal
-                attention at half the positions (sp = 2), base and TSR
+                attention at half the positions (sp = 2), base and TSR;
+                and what a tp = 2 rank of the training step calls: the
+                temporal attention at H = 4 and GEGLU at I = 2C with its
+                fp32 partial (no b2), at the base levels for batch 1
   4. model      one full-width base UNet3D forward (2x16x40x64 latents, every
                 parameter random, temporal out-projections included) with the
                 kernels and with the plain versions; relative error
@@ -83,7 +86,7 @@ its result line:
  11. model_vsr  one full-width VSR UNet half-forward (1x8x320x512x7, text and
                 noise level) with the kernels and with the plain versions
  12. vsr        VideoSuperResolutionPipeline at full width upscales the first
-                8 frames of the first main-phase video to 8x1280x2048: 10
+                8 frames of the first main-phase video to 8x1280x2048: 5
                 v-prediction DDIM steps (the one cut; 50 in a user's run),
                 CFG 5.0, noise level 50
  13. profile_vsr  the profile of one VSR UNet half-forward
@@ -114,6 +117,21 @@ its result line:
                 UNet forward over the one-rank sp axis bit for bit the
                 meshless one, each collective exact over NCCL; then what
                 NCCL says to two ranks on the one card
+ 13g. tp        tensor-parallel training: two ranks share the card over
+                gloo on a (1, 1, 2) mesh, each running one full-parameter
+                make_train_step of the full-width base UNet (909M, bf16
+                parameters, fp32 moments, AdamW with clipping, min-SNR 5;
+                batch 1, 16x40x64 latents, fixed draws) with the attention
+                and feed-forward projections split over tp (heads 8 -> 4,
+                GEGLU's I = 4C -> 2C), and a second step, timed; rank 0 then
+                runs the same two steps in one process: loss within
+                MESH_TOL, gradients (gathered whole) within MESH_TOL's
+                relative norm and cosine, every parameter after the step
+                within both updates' reach of the other's; seconds per step
+                and peak memory per rank against one process's (a rank's
+                below); the tp collectives' calls and bytes a step equal to
+                the computed figure; geglu and temporal_attention launched
+                once a block
  14. optin      the JAX package's opt-in float routes: temporal_attention_folded
                 (the temporal kernel on q/k rotated beforehand, with a bias)
                 at the base and VSR shapes; gn_silu_tconv with emit_stats at
@@ -174,8 +192,8 @@ its result line:
                 shapes, peak memory and exact launch counts per stage
  23. result     a `kernels` JSON line, then the `ok` JSON line last
 Launch counts are zeroed just before each path (main, eval, image, train,
-tsr, vsr, vsr_branches, tiled_decode, each sharded run of mesh, ckpt,
-cascade) and read just after it; the paths before the cascade run the default routes and
+tsr, vsr, vsr_branches, tiled_decode, each sharded run of mesh, the first
+tp step, ckpt, cascade) and read just after it; the paths before the cascade run the default routes and
 launch no opt-in entry. Imports nothing of JAX or of the JAX package.
 """
 
@@ -205,9 +223,10 @@ TEMPORAL_TOL, GEGLU_TOL, FLASH_TOL = 1e-2, 2e-2, 1e-2  # of max|plain|
 # VSR at 0.0246 (H100 80GB HBM3, 700 W)
 MODEL_TOL = {"model": 1e-1, "model_tsr": 4e-2, "model_vsr": 5e-2}
 TSR_STEPS = 50
-# the vsr phase's one cut: 10 steps (50 in a user's run), as the cascade's
-# option 4, to keep the script under half its time limit
-VSR_STEPS, VSR_FRAMES = 10, 8
+# the vsr phase's one cut: 5 steps (50 in a user's run; 10 until the tp
+# phase came), as the cascade's option 4, to keep the script near half its
+# time limit
+VSR_STEPS, VSR_FRAMES = 5, 8
 # VSR levels at one CFG half and one 8-frame window of 320x512 latents:
 # (positions per frame, channels)
 VSR_LEVELS = [(163840, 256), (40960, 512), (10240, 512), (2560, 1024)]
@@ -471,10 +490,11 @@ def phase_build() -> None:
 
 
 def phase_temporal(f: int, rope: int, levels=ATTENTION_LEVELS, b: int = 2,
-                   folded: bool = False) -> list:
+                   folded: bool = False, h: int = 8) -> list:
     """Temporal attention at H=8: the base path's F=16 with RoPE and a bias
     (B=2), the TSR path's F=61 with neither (B=2), the VSR path's F=8 with
-    both (B=1, one CFG half). `folded`: the opt-in route's entry,
+    both (B=1, one CFG half); at H=4 a tp = 2 rank's heads of the base
+    training step (B=1). `folded`: the opt-in route's entry,
     temporal_attention_folded, on q and k rotated beforehand, with the bias."""
     from lavie_tpu_torch.kernels.temporal_fused import (
         temporal_attention,
@@ -485,7 +505,6 @@ def phase_temporal(f: int, rope: int, levels=ATTENTION_LEVELS, b: int = 2,
     from lavie_tpu_torch.nn.embeddings import apply_rope_half, rope_half_frequencies
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    h = 8
     rows = []
     for s, d in levels:
         c = h * d
@@ -524,27 +543,33 @@ def phase_temporal(f: int, rope: int, levels=ATTENTION_LEVELS, b: int = 2,
     return rows
 
 
-def phase_geglu(f: int, shapes=None) -> list:
-    """GEGLU at N = 2·F·S tokens of width C, the shapes of a path with F
-    frames, or at the given (N, C) shapes."""
+def phase_geglu(f: int, shapes=None, b: int = 2, tp: int = 1) -> list:
+    """GEGLU at N = B·F·S tokens of width C, the shapes of a path with F
+    frames, or at the given (N, C) shapes; at tp > 1 a tensor-parallel
+    shard's call, I = 4C/tp with no b2, whose output is the fp32 partial."""
     from lavie_tpu_torch.kernels import geglu as gg
 
     g = torch.Generator(device="cuda").manual_seed(2)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
-    shapes = shapes or [(2 * f * s, c) for (s, _), c in zip(ATTENTION_LEVELS, GEGLU_WIDTHS)]
+    shapes = shapes or [(b * f * s, c) for (s, _), c in zip(ATTENTION_LEVELS, GEGLU_WIDTHS)]
     for n, c in shapes:
-        inner = 4 * c
+        inner = 4 * c // tp
         r = lambda *shape, sd=1.0: (  # noqa: E731
             torch.randn(*shape, generator=g, device="cuda") * sd).bfloat16()
         x, w0, b0 = r(n, c), r(2 * inner, c, sd=c**-0.5), r(2 * inner, sd=0.1)
         w2, b2 = r(c, inner, sd=inner**-0.5), r(c, sd=0.1)
+        if tp > 1:
+            b2 = None
         args = (x, w0, b0, w2, b2)
+        out_bytes = n * c * (4 if b2 is None else 2)
         rows.append(check_row(
             "geglu", {"N": n, "C": c, "I": inner}, gg.geglu(*args), gg.geglu_reference(*args),
             GEGLU_TOL, lambda: gg.geglu(*args), lambda: gg.geglu_reference(*args), None,
-            (2 * n * c + 3 * inner * c + 2 * inner + c) * 2, ((6 * n * c * inner, BF16_FLOPS),),
-            plain_iters=20, out_width=gg.launch_plan(n, c, sms).out.width))
+            n * c * 2 + out_bytes + (3 * inner * c + 2 * inner + (0 if b2 is None else c)) * 2,
+            ((6 * n * c * inner, BF16_FLOPS),),
+            plain_iters=20, out_width=gg.launch_plan(n, c, inner, sms).out.width,
+            fp32_partial=b2 is None))
     return rows
 
 
@@ -2790,6 +2815,240 @@ def phase_nccl() -> dict:
     return row
 
 
+TP_FRAMES = 16  # the tp step's clip: batch 1, 16x40x64 latents (the train phase's)
+TP_LR, TP_MAX_NORM = 1e-4, 1.0
+# the tp step against one process: the loss and gradients within MESH_TOL
+# (bf16 at other GEMM shapes, the row-parallel partials summed in fp32 before
+# one rounding); after one AdamW step each parameter within the two updates'
+# reach of the other's: at step 1 Adam's term m/(sqrt(v) + eps) is at most 1
+# in magnitude and the decay term is the same in both, so two runs differ by
+# at most 2·lr before rounding, and each bf16 rounding by half an ulp (at
+# most 2^-8 of the value)
+TP_REACH_LR, TP_HALF_ULP = 2.002, 2.0 ** -8
+
+
+def _stream_stats(got: dict, want: dict, keys) -> dict:
+    """Relative norm error and cosine of got against want over `keys`,
+    summed tensor by tensor (got on the host, want on the card)."""
+    d2 = p2 = g2 = gp = 0.0
+    finite = True
+    for k in keys:
+        g, w = got[k].to("cuda", torch.float32), want[k].float()
+        finite &= bool(torch.isfinite(g).all())
+        d2 += float(((g - w) ** 2).sum())
+        p2 += float((w * w).sum())
+        g2 += float((g * g).sum())
+        gp += float((g * w).sum())
+    return {"tensors": len(keys), "rel_norm_err": (d2 / p2) ** 0.5, "cosine": gp / (g2 * p2) ** 0.5,
+            "norm": p2 ** 0.5, "finite": finite}
+
+
+def _tp_unet():
+    from lavie_tpu_torch.core.config import UNetConfig
+    from lavie_tpu_torch.nn.unet import UNet3D
+    from lavie_tpu_torch.pipelines.t2v import random_init_
+
+    with torch.device("cuda"):
+        unet = UNet3D(UNetConfig.base_t2v()).to(torch.bfloat16)
+    random_init_(unet, seed=7)
+    return unet
+
+
+def _tp_steps(unet, mesh) -> tuple:
+    """Two full-parameter steps (bf16 parameters, fp32 moments) of `unet`
+    on `mesh` (None: one process) over one fixed batch and fixed draws;
+    returns (the first step's loss, the gradients its optimizer got, the
+    clipping norm, the parameters after it (this rank's, on the host),
+    seconds of each step, peak GB over the first, launches of the first,
+    the tp collectives of the first, N·C of each feed-forward input)."""
+    from lavie_tpu_torch.core import tensor_parallel as tpm
+    from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
+    from lavie_tpu_torch.nn.transformer import FeedForward
+    from lavie_tpu_torch.train.optim import AdamW
+    from lavie_tpu_torch.train.step import TrainState, make_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(61)
+    batch = {"latents": torch.randn(1, TP_FRAMES, 40, 64, 4, generator=g, device="cuda"),
+             "text_states": torch.randn(1, 77, 768, generator=g, device="cuda")}
+    draws = {"t": torch.tensor([500], device="cuda"),
+             "noise": torch.randn(1, TP_FRAMES, 40, 64, 4, generator=g, device="cuda")}
+    opt = AdamW(TP_LR, max_grad_norm=TP_MAX_NORM)
+    seen = {}
+    update = opt.step
+
+    def spy(params, grads, state, square_sum=None):
+        if "grads" not in seen:
+            sq = sum((x.float() ** 2).sum() for x in grads.values()) if square_sum is None \
+                else square_sum(grads)
+            seen.update(grads={k: v.detach().cpu() for k, v in grads.items()}, norm=float(sq) ** 0.5)
+        return update(params, grads, state, square_sum=square_sum)
+
+    opt.step = spy
+    step = make_train_step(unet, NoiseSchedule.create(), opt, min_snr_gamma=5.0, mesh=mesh)
+    state = TrainState.create(dict(unet.named_parameters()), opt)
+    tokens = []
+    hooks = [m.register_forward_hook(lambda mod, a, out: tokens.append(a[0].numel()))
+             for m in unet.modules() if isinstance(m, FeedForward)]
+    for fn in tpm.TP_COLLECTIVES:
+        fn.calls = fn.bytes = 0
+    seconds = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        if i == 0:
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+        t0 = time.time()
+        state, loss = step(state, batch, **draws)
+        torch.cuda.synchronize()
+        seconds.append(time.time() - t0)
+        if i == 0:
+            first = (float(loss), torch.cuda.max_memory_allocated() / 1e9, read_launches(),
+                     {fn.__name__: {"calls": fn.calls, "bytes": fn.bytes} for fn in tpm.TP_COLLECTIVES},
+                     list(tokens), {k: v.detach().cpu().clone() for k, v in state.params.items()})
+            for h in hooks:
+                h.remove()
+    loss, peak, launches, coll, tokens, params = first
+    return loss, seen["grads"], seen["norm"], params, seconds, peak, launches, coll, tokens
+
+
+def _tp_work(rank: int) -> dict:
+    """The tp phase on one rank of a (1, 1, 2) mesh: the full-width base
+    UNet split over tp (heads 8 → 4, GEGLU's I = 4C → 2C), two steps; the
+    gradients and parameters of the first gathered whole. Rank 0 then frees
+    its share and runs the same two steps in its own process without a
+    mesh, and compares."""
+    from lavie_tpu_torch.core import tensor_parallel as tpm
+    from lavie_tpu_torch.core.mesh import make_mesh
+    from lavie_tpu_torch.nn.attention import TemporalAttention
+    from lavie_tpu_torch.nn.transformer import FeedForward
+
+    t_start = time.time()
+    mesh = make_mesh(tp=2, backend="gloo")
+    unet = _tp_unet()
+    loss, grads, norm, params, seconds, peak, launches, coll, tokens = _tp_steps(unet, mesh)
+    ff = [m for m in unet.modules() if isinstance(m, FeedForward)]
+    temporal = [m for m in unet.modules() if isinstance(m, TemporalAttention)]
+    row = {"rank": rank, "loss": loss, "clip_norm": norm, "s_per_step": seconds,
+           "peak_mem_gb": peak, "launches": launches, "collectives": coll,
+           "geglu_inner_over_c": sorted({m.net[2].weight.shape[1] / m.net[2].weight.shape[0]
+                                         for m in ff}),
+           "temporal_heads": sorted({m.heads for m in temporal}), "blocks": len(ff),
+           "local_params": sum(p.numel() for p in params.values())}
+    # the computed figure: 4 fp32 reduces of N·C a block each way, and
+    # backward the bias table and GEGLU's b0, whose rows the ranks share
+    table = sum(m.time_rel_pos_bias.relative_attention_bias.weight.numel() for m in temporal) * 4
+    b0 = sum(m.net[0].proj.bias.numel() for m in ff) * 4
+    row["computed_collectives"] = {
+        "reduce_from_tp": {"calls": 4 * len(ff), "bytes": sum(4 * 4 * nc for nc in tokens)},
+        "copy_to_tp": {"calls": 6 * len(ff), "bytes": sum(4 * 4 * nc for nc in tokens) + table + b0}}
+    del unet
+    grads = tpm.gather_parameters(grads, mesh)
+    params = tpm.gather_parameters(params, mesh)
+    torch.cuda.empty_cache()
+    if rank == 0:
+        unet = _tp_unet()
+        before = {k: v.detach().cpu().clone() for k, v in unet.named_parameters()}
+        loss_p, grads_p, norm_p, params_p, seconds_p, peak_p, launches_p, _, _ = _tp_steps(unet, None)
+        del unet
+        torch.cuda.empty_cache()
+        keys = sorted(grads_p)
+        grads_p = {k: v.cuda() for k, v in grads_p.items()}
+        row["one_process"] = {"loss": loss_p, "clip_norm": norm_p, "s_per_step": seconds_p,
+                              "peak_mem_gb": peak_p, "launches": launches_p}
+        row["grads"] = {"split": _stream_stats(grads, grads_p, [k for k in keys if tpm.tp_param_spec(
+            k, grads_p[k].shape)]), "all": _stream_stats(grads, grads_p, keys)}
+        del grads_p
+        # each parameter after the step within both steps' reach of the other's
+        worst, moved = 0.0, 0
+        for k in keys:
+            p0, got, want = before[k].float(), params[k].float(), params_p[k].float()
+            reach = TP_REACH_LR * TP_LR + TP_HALF_ULP * (got.abs() + want.abs())
+            worst = max(worst, float(((got - want).abs() / reach).max()))
+            moved += int((want != p0).sum())
+        row["params"] = {"worst_diff_over_reach": worst, "moved_share": moved / sum(
+            v.numel() for v in params_p.values()), "rel_norm_err": _stream_stats(
+                params, {k: v.cuda() for k, v in params_p.items()}, keys)["rel_norm_err"]}
+    row["total_s"] = time.time() - t_start
+    return row
+
+
+def _tp_rank(rank: int, world: int, folder: str) -> None:
+    """One rank of the tp phase, a process of its own on the one card (gloo
+    through a rendezvous file in `folder`; SDPA held to the backends that
+    answer alike in every process, as in _mesh_rank); writes its row."""
+    import datetime
+
+    import torch.distributed as dist
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{folder}/rendezvous", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]):
+            row = _tp_work(rank)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(folder, f"rank{rank}.json"), "w") as f:
+        json.dump(row, f)
+
+
+def phase_tp() -> dict:
+    """Tensor-parallel training: two ranks share the card over gloo on a
+    (1, 1, 2) mesh, each running the full-parameter make_train_step of the
+    full-width base UNet (909M parameters, bf16, fp32 moments; batch 1,
+    16x40x64 latents, fixed draws) with its attention and feed-forward
+    projections split over tp; against rank 0's one-process steps: loss,
+    gradients (relative norm, cosine), parameters after the step; seconds
+    per step and peak memory per rank against one process's; the tp
+    collectives' calls and bytes against the computed figure; geglu
+    launched at I = 2C and the temporal attention at H = 4. Returns the
+    launches of both ranks' first steps."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as folder:
+        codes = _spawn(_tp_rank, 2, folder)
+        if codes != [0, 0]:
+            raise AssertionError(f"tp: rank exit codes {codes}")
+        rows = []
+        for r in range(2):
+            with open(os.path.join(folder, f"rank{r}.json")) as f:
+                rows.append(json.load(f))
+    for row in rows:
+        log(json.dumps({"phase": "tp", **row}))
+    ref = rows[0]
+    log(json.dumps({"phase": "tp", "seconds": time.time() - t0}))
+    one = ref["one_process"]
+    for row in rows:
+        if abs(row["loss"] - one["loss"]) > MESH_TOL["loss"] * abs(one["loss"]):
+            raise AssertionError(f"tp: loss {row['loss']} against one process's {one['loss']}")
+        if row["collectives"] != row["computed_collectives"]:
+            raise AssertionError(f"tp: collectives {row['collectives']} against the computed "
+                                 f"{row['computed_collectives']}")
+        if not row["peak_mem_gb"] < one["peak_mem_gb"]:
+            raise AssertionError(f"tp: rank {row['rank']} peak {row['peak_mem_gb']} GB, one "
+                                 f"process {one['peak_mem_gb']} GB")
+        if row["geglu_inner_over_c"] != [2.0] or row["temporal_heads"] != [4]:
+            raise AssertionError(f"tp: geglu I/C {row['geglu_inner_over_c']}, temporal heads "
+                                 f"{row['temporal_heads']}")
+        for name in ("geglu", "temporal_attention"):
+            if row["launches"][name] != row["blocks"]:
+                raise AssertionError(f"tp: {name} launched {row['launches'][name]} times in a "
+                                     f"step, {row['blocks']} blocks")
+        assert_default_routes("tp", row["launches"])
+    for group in ("split", "all"):
+        st = ref["grads"][group]
+        if not (st["finite"] and st["rel_norm_err"] <= MESH_TOL["grads"]
+                and st["cosine"] >= MESH_TOL["cosine"]):
+            raise AssertionError(f"tp: {group} gradients against one process: {st}")
+    if not ref["params"]["worst_diff_over_reach"] <= 1.0:
+        raise AssertionError(f"tp: parameters after the step: {ref['params']}")
+    return {k: sum(r["launches"][k] for r in rows) for k in rows[0]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2805,6 +3064,9 @@ def main() -> int:
     phase_geglu(TSR_FRAMES)
     sparse_rows, kv_row = phase_flash()
     mesh_rows = phase_mesh_kernels(sparse_rows)
+    # what a tp = 2 rank of the training step calls: 4 of the 8 heads, I = 2C
+    tp_rows = {"temporal": phase_temporal(16, rope=32, b=1, h=4),
+               "geglu": phase_geglu(16, b=1, tp=2)}
     from lavie_tpu_torch.core.config import UNetConfig
 
     phase_model("model", UNetConfig.base_t2v(), 16)
@@ -2830,6 +3092,8 @@ def main() -> int:
     # multi-GPU: two ranks on the one card over gloo, then NCCL at world size 1
     mesh_launches = phase_mesh()
     phase_nccl()
+    # tensor-parallel training: two ranks over gloo, the full-parameter step
+    tp_launches = phase_tp()
     # the opt-in routes: kernels, then each route in the model against the default
     folded_rows = phase_temporal(16, rope=32, folded=True)
     phase_temporal(VSR_FRAMES, rope=32, b=1, folded=True,
@@ -2865,6 +3129,7 @@ def main() -> int:
                    "train": train_launches[counter], "tsr": tsr_launches[counter],
                    "vsr": vsr_launches[counter], "vsr_branches": branch_launches[counter],
                    "tiled_decode": tiled_launches[counter], "mesh": mesh_launches[counter],
+                   "tp": tp_launches[counter],
                    "ckpt": ckpt_launches[counter], "cascade": cascade_launches[counter]}
         if ab is not None:  # the launches of one A/B forward with the route set
             by_path["ab"] = ab[counter]
@@ -2903,10 +3168,12 @@ def main() -> int:
         entry("temporal_attention", "lavie_tpu_torch/csrc/temporal_fused.cu",
               "lavie_tpu/kernels/temporal_fused.py:446", temporal_rows[0],
               extra={"half_positions": [{k: r[k] for k in BRANCH_ROW_KEYS}
-                                        for r in mesh_rows["temporal_base"] + mesh_rows["temporal_tsr"]]}),
+                                        for r in mesh_rows["temporal_base"] + mesh_rows["temporal_tsr"]],
+                     "tp_heads": [{k: r[k] for k in BRANCH_ROW_KEYS} for r in tp_rows["temporal"]]}),
         entry("geglu", "lavie_tpu_torch/csrc/geglu.cu", "lavie_tpu/kernels/geglu.py:85", geglu_rows[0],
               extra={"versatile_ff": [{k: r[k] for k in BRANCH_ROW_KEYS}
-                                      for r in branch_rows["geglu"]]}),
+                                      for r in branch_rows["geglu"]],
+                     "tp_shard": [{k: r[k] for k in BRANCH_ROW_KEYS} for r in tp_rows["geglu"]]}),
         entry("flash_sparse_causal", "lavie_tpu_torch/csrc/flash_attention.cu",
               "lavie_tpu/kernels/flash_attention.py:407", sparse_rows[0],
               extra={"anchor_halo": [{k: r[k] for k in BRANCH_ROW_KEYS + ("ms_per_row",

@@ -10,8 +10,12 @@ program itself cuts tensors into shards and calls the collectives
       frames into positions by an all-to-all, the sparse-causal attention
       takes its anchor and previous frame from their ranks, and the
       GroupNorms that take statistics over a video's frames all-reduce them
-  tp  tensor parallel: the pipelines shard no tensor over it, so ranks
-      along tp compute the same replicated work, as the JAX pipelines do
+  tp  tensor parallel: the full-parameter training step splits the base
+      UNet's attention and feed-forward projections over it
+      (core/tensor_parallel.py, the JAX dry run's rule; train/step.py); the
+      pipelines and the LoRA fine-tuner shard no tensor over it, so there
+      ranks along tp compute the same replicated work, as the JAX
+      pipelines do
 
     dist.init_process_group(...)      # by the caller: rank, world size, address
     mesh = make_mesh(sp=2)            # every rank, in the same order

@@ -1,9 +1,14 @@
 // GEGLU feed-forward of the transformer blocks:
 //   act = bf16((x W0h^T + b0h) * gelu_erf(x W0g^T + b0g))
 //   y   = bf16(act W2^T + b2)
-// with x (N, C), W0 = [W0h; W0g] (2I, C), W2 (C, I), I = 4C (nn.Linear
-// weight layouts, bf16), fp32 accumulation on both products; act is rounded
-// to bf16 before the second product, as the TPU body rounds it.
+// with x (N, C), W0 = [W0h; W0g] (2I, C), W2 (C, I) (nn.Linear weight
+// layouts, bf16), fp32 accumulation on both products; act is rounded to
+// bf16 before the second product, as the TPU body rounds it. I is 4C in a
+// whole feed-forward and 4C/tp in a tensor-parallel shard (W0 then holds
+// the shard's hidden rows and the same gate rows, W2 its columns), any
+// multiple of 64; a shard passes no b2 and gets y = act W2^T in fp32, its
+// partial product, which the caller sums over the ranks before adding b2
+// and rounding once.
 //
 // Replaces: lavie_tpu/kernels/geglu.py, geglu (_geglu_2d, body
 // _geglu_kernel).
@@ -46,27 +51,29 @@ namespace {
 
 using namespace wgemm;
 
-template <int BN, bool GATE>
+// F32: the out GEMM stores fp32 products without b2 (a tensor-parallel shard)
+template <int BN, bool GATE, bool F32>
 __global__ void __launch_bounds__(THREADS, 1) geglu_pingpong_kernel(
     const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_b,
     const __grid_constant__ CUtensorMap tm_act, const GemmArgs a) {
-  pingpong_gemm<BN, GATE, bf16, false>(&tm_a, &tm_b, &tm_act, a);
+  pingpong_gemm<BN, GATE, bf16, false, F32>(&tm_a, &tm_b, &tm_act, a);
 }
 
-template <int BN>
+template <int BN, bool F32>
 __global__ void __launch_bounds__(THREADS, 1) geglu_coop_kernel(
     const __grid_constant__ CUtensorMap tm_act, const __grid_constant__ CUtensorMap tm_w2,
     const GemmArgs a) {
-  coop_gemm<BN, bf16, false>(&tm_act, &tm_w2, a);
+  coop_gemm<BN, bf16, false, F32>(&tm_act, &tm_w2, a);
 }
 
+template <bool F32>
 cudaError_t launch_out(const CUtensorMap& ma, const CUtensorMap& mb, const GemmArgs& a, int bn,
                        int grid, cudaStream_t st) {
   const int smem = ring_smem(a.stages, (BM + bn) * ROW_BYTES, 0);
   switch (bn) {
-    case 128: return launch_gemm(geglu_pingpong_kernel<128, false>, smem, a, grid, st, ma, mb, ma);
-    case 160: return launch_gemm(geglu_pingpong_kernel<160, false>, smem, a, grid, st, ma, mb, ma);
-    case 256: return launch_gemm(geglu_coop_kernel<256>, smem, a, grid, st, ma, mb);
+    case 128: return launch_gemm(geglu_pingpong_kernel<128, false, F32>, smem, a, grid, st, ma, mb, ma);
+    case 160: return launch_gemm(geglu_pingpong_kernel<160, false, F32>, smem, a, grid, st, ma, mb, ma);
+    case 256: return launch_gemm(geglu_coop_kernel<256, F32>, smem, a, grid, st, ma, mb);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -74,8 +81,9 @@ cudaError_t launch_out(const CUtensorMap& ma, const CUtensorMap& mb, const GemmA
 }  // namespace
 
 // x (N, C), w0 (2I, C), b0 (2I), w2 (C, I), b2 (C), y (N, C): bf16,
-// contiguous, 32-byte aligned, I = 4C, C a multiple of 64. act: bf16 scratch
-// of N x I. The launch plan (kernels/geglu.py::launch_plan):
+// contiguous, 32-byte aligned, C and I multiples of 64; b2 null: y is fp32
+// (N, C), the products without a bias. act: bf16 scratch of N x I. The
+// launch plan (kernels/geglu.py::launch_plan):
 // gate_stages and out_stages ring stages; the out GEMM's tile width out_bn
 // (128, 160 or 256, dividing C); at most `grid` persistent blocks a GEMM.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a shape or plan
@@ -84,7 +92,7 @@ extern "C" int geglu_bf16(const void* x, const void* w0, const void* b0, const v
                           const void* b2, void* y, void* act, int N, int C, int I,
                           int gate_stages, int out_bn, int out_stages, int grid, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (I != 4 * C || N < 1 || C < 64 || C % 64 || grid < 1 || out_bn < 8 || C % out_bn ||
+  if (I < 64 || I % 64 || N < 1 || C < 64 || C % 64 || grid < 1 || out_bn < 8 || C % out_bn ||
       gate_stages < 2 || gate_stages > MAX_STAGES || out_stages < 2 || out_stages > MAX_STAGES)
     return (int)cudaErrorInvalidValue;
   bf16* actb = static_cast<bf16*>(act);
@@ -95,13 +103,19 @@ extern "C" int geglu_bf16(const void* x, const void* w0, const void* b0, const v
   const GemmArgs gate{static_cast<const bf16*>(b0), actb, N, I, C / SLAB, I / GATE_COLS,
                       gate_stages, I};
   cudaError_t err =
-      launch_gemm(geglu_pingpong_kernel<2 * GATE_COLS, true>,
+      launch_gemm(geglu_pingpong_kernel<2 * GATE_COLS, true, false>,
                   ring_smem(gate_stages, stage_bytes<2 * GATE_COLS>(), 2 * A_BYTES), gate, grid, st,
                   m_x, m_w0, m_act);
   if (err != cudaSuccess) return (int)err;
-  const GemmArgs out{static_cast<const bf16*>(b2), static_cast<bf16*>(y), N, C, I / SLAB,
-                     C / out_bn, out_stages, I};
-  err = launch_out(m_act, m_w2, out, out_bn, grid, st);
+  const bool partial = b2 == nullptr;
+  GemmArgs out{static_cast<const bf16*>(b2), static_cast<bf16*>(y), N, C, I / SLAB,
+               C / out_bn, out_stages, I};
+  if (partial) {
+    out.out = nullptr;
+    out.out_f32 = static_cast<float*>(y);
+  }
+  err = partial ? launch_out<true>(m_act, m_w2, out, out_bn, grid, st)
+                : launch_out<false>(m_act, m_w2, out, out_bn, grid, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaSuccess;
 }

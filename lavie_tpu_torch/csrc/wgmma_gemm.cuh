@@ -13,7 +13,7 @@
 //   - the gate epilogue (x W0h^T + b0h) * gelu_erf(x W0g^T + b0g) leaves by
 //     TMA from a swizzled staging box; the out epilogue adds a bias, and
 //     optionally a bf16 residual after the first rounding, and stores from
-//     registers;
+//     registers, or (F32) stores its fp32 products with no bias;
 //   - the staged cooperative GEMM (the VSR only-cross head's five GEMMs,
 //     ln_qkv's q/k/v projections) adds an fp32 bias (and a residual loaded
 //     by TMA), scales by an fp32 factor or only rounds, and leaves by TMA
@@ -52,6 +52,7 @@ struct GemmArgs {
   int inner;         // I: the gate rows' offset in W0 and b0
   const bf16* res;   // the out epilogue's residual (rows, ldo), or null
   float scale;       // the staged GEMM's EPI_SCALE factor
+  float* out_f32;    // the F32 out epilogue's output (rows, ldo) in place of out
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -155,12 +156,26 @@ __device__ __forceinline__ void init_ring(uint32_t bars, int stages, int consume
 
 // The out epilogue of one thread's 16-row band: y = bf16(acc + bias), or
 // with RES y = bf16(bf16(acc + bias) + res) (the bf16 residual added after
-// the first rounding, as the TPU body adds it); rows past a.rows are not
-// stored. acc[4j + e] is row r0 + 8 * (e / 2), column 8j + 2 * tig + e % 2
-// of the tile, whose first column is c0.
-template <int BN, typename BiasT, bool RES>
+// the first rounding, as the TPU body adds it), or with F32 y = acc in fp32
+// into a.out_f32, no bias (a tensor-parallel shard's partial product, summed
+// over the ranks before its bias and one rounding); rows past a.rows are
+// not stored. acc[4j + e] is row r0 + 8 * (e / 2), column 8j + 2 * tig +
+// e % 2 of the tile, whose first column is c0.
+template <int BN, typename BiasT, bool RES, bool F32 = false>
 __device__ __forceinline__ void store_rows(const GemmArgs& a, const float (&acc)[BN / 2], int r0,
                                            int c0, int tig) {
+  if constexpr (F32) {
+    float* f0 = a.out_f32 + (size_t)r0 * a.ldo + c0;
+    float* f1 = f0 + (size_t)8 * a.ldo;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * tig;
+      if (r0 < a.rows) *reinterpret_cast<float2*>(f0 + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (r0 + 8 < a.rows)
+        *reinterpret_cast<float2*>(f1 + col) = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    return;
+  }
   const BiasT* bb = static_cast<const BiasT*>(a.bias) + c0;
   bf16* o0 = a.out + (size_t)r0 * a.ldo + c0;
   bf16* o1 = o0 + (size_t)8 * a.ldo;
@@ -196,7 +211,7 @@ __device__ __forceinline__ void store_rows(const GemmArgs& a, const float (&acc)
 //   where its epilogue (a bias add, one rounding, stores from registers)
 //   would leave the tensor cores idle.
 // The body of a __global__ of THREADS threads, one block an SM.
-template <int BN, bool GATE, typename BiasT, bool RES>
+template <int BN, bool GATE, typename BiasT, bool RES, bool F32 = false>
 __device__ __forceinline__ void pingpong_gemm(const CUtensorMap* tm_a, const CUtensorMap* tm_b,
                                               const CUtensorMap* tm_act, const GemmArgs& a) {
   constexpr int STAGE = stage_bytes<BN>();
@@ -304,8 +319,8 @@ __device__ __forceinline__ void pingpong_gemm(const CUtensorMap* tm_a, const CUt
         tma_store_commit();
       }
     } else {
-      store_rows<BN, BiasT, RES>(a, acc0, row0 + warp * 16 + g8, ct * BN, tig);
-      store_rows<BN, BiasT, RES>(a, acc1, row0 + 64 + warp * 16 + g8, ct * BN, tig);
+      store_rows<BN, BiasT, RES, F32>(a, acc0, row0 + warp * 16 + g8, ct * BN, tig);
+      store_rows<BN, BiasT, RES, F32>(a, acc1, row0 + 64 + warp * 16 + g8, ct * BN, tig);
     }
   }
   if (GATE && tw == 0) tma_store_wait<0>();
@@ -375,7 +390,7 @@ __device__ __forceinline__ void coop_products(Acc (&acc)[BN / 2], uint32_t ring,
 // consumer warpgroups on each tile (64 rows each, one m64n256 accumulator),
 // so each 32 KB B slab serves 128 rows; its epilogue is a bias add, one
 // rounding (and the residual). The body of a __global__ of THREADS threads.
-template <int BN, typename BiasT, bool RES>
+template <int BN, typename BiasT, bool RES, bool F32 = false>
 __device__ __forceinline__ void coop_gemm(const CUtensorMap* tm_act, const CUtensorMap* tm_w2,
                                           const GemmArgs& a) {
   constexpr int STAGE = stage_bytes<BN>();
@@ -399,7 +414,7 @@ __device__ __forceinline__ void coop_gemm(const CUtensorMap* tm_act, const CUten
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int row0 = (t / a.col_tiles) * BM, ct = t % a.col_tiles;
     coop_products<BN>(acc, ring, bars, a.stages, c * 64 * ROW_BYTES, a.k_blocks, g);
-    store_rows<BN, BiasT, RES>(a, acc, row0 + c * 64 + warp * 16 + g8, ct * BN, tig);
+    store_rows<BN, BiasT, RES, F32>(a, acc, row0 + c * 64 + warp * 16 + g8, ct * BN, tig);
   }
 }
 

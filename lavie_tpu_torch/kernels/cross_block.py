@@ -259,7 +259,7 @@ def tail_launch_plan(n: int, c: int, sm_count: int) -> TailPlan:
     ring over K = C. Raises for what the kernels cannot take."""
     if c not in KERNEL_WIDTHS:
         raise ValueError(f"transformer_tail kernel: width {c}")
-    p = _geglu.launch_plan(n, c, sm_count)
+    p = _geglu.launch_plan(n, c, 4 * c, sm_count)
     proj = _geglu._gemm(p.out.width, c, c // p.out.width, p.out.stages)
     return TailPlan(gate=p.gate, out=p.out, proj=proj, grid=p.grid)
 

@@ -2,7 +2,10 @@
 
 Port of lavie_tpu.kernels.geglu.geglu. Weights are in nn.Linear layout:
 w0 (2I, C) with the hidden rows first and the gate rows second (diffusers
-GEGLU's `proj`), w2 (C, I).
+GEGLU's `proj`), w2 (C, I). I is 4C in a whole feed-forward and 4C/tp in a
+tensor-parallel shard (core/tensor_parallel.py), any multiple of 64. A
+shard passes b2 None and gets its partial product (N, C) in fp32, without
+the bias, to be summed over tp and rounded once.
 
   geglu            the wrapper: the CUDA kernels (csrc/geglu.cu, two wgmma
                    GEMMs through a bf16 act scratch) for a CUDA tensor, the
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -70,17 +74,18 @@ def _gemm(width: int, k: int, col_tiles: int, max_stages: int, extra: int = 0) -
 
 
 @functools.lru_cache(maxsize=256)
-def launch_plan(n: int, c: int, sm_count: int) -> LaunchPlan:
-    """The launch plan of one call over x (N, C), I = 4C, on a card of
-    `sm_count` SMs. The gate GEMM: 64 hidden and 64 gate columns a tile, six
-    stages of 32 KB beside its two act staging boxes. The out GEMM: the
-    widest of 256, 160 and 128 that divides C and still gives every SM a
-    tile, else the narrowest (256 runs both consumer warpgroups on a tile,
-    the narrower ones take turns); up to five stages. The act scratch (bf16,
-    N x I) holds all rows. Raises for what the kernels cannot take."""
-    if c not in KERNEL_WIDTHS or n < 1 or sm_count < 1:
-        raise ValueError(f"geglu kernel: width {c}, {n} rows")
-    inner = 4 * c
+def launch_plan(n: int, c: int, inner: int, sm_count: int) -> LaunchPlan:
+    """The launch plan of one call over x (N, C) with I = `inner` hidden
+    columns (4C, or 4C/tp in a tensor-parallel shard: a multiple of 64) on
+    a card of `sm_count` SMs. The gate GEMM: 64 hidden and 64 gate columns
+    a tile, six stages of 32 KB beside its two act staging boxes. The out
+    GEMM: the widest of 256, 160 and 128 that divides C and still gives
+    every SM a tile, else the narrowest (256 runs both consumer warpgroups
+    on a tile, the narrower ones take turns); up to five stages, over K = I.
+    The act scratch (bf16, N x I) holds all rows. Raises for what the
+    kernels cannot take."""
+    if c not in KERNEL_WIDTHS or n < 1 or sm_count < 1 or inner < SLAB or inner % SLAB:
+        raise ValueError(f"geglu kernel: width {c}, inner {inner}, {n} rows")
     row_tiles = -(-n // TILE_ROWS)
     widths = [w for w in OUT_WIDTHS if c % w == 0]
     width = next((w for w in widths if row_tiles * (c // w) >= sm_count), widths[-1])
@@ -90,21 +95,29 @@ def launch_plan(n: int, c: int, sm_count: int) -> LaunchPlan:
 
 
 def geglu_reference(
-    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor,
+    b2: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """Two matmuls around an exact-erf gelu gate."""
+    """Two matmuls around an exact-erf gelu gate; with b2 None the second
+    product of the act (rounded to x's dtype) in fp32, with no bias."""
     hidden, gate = F.linear(x, w0, b0).chunk(2, dim=-1)
-    return F.linear(hidden * F.gelu(gate), w2, b2)
+    act = hidden * F.gelu(gate)
+    if b2 is None:
+        return F.linear(act.float(), w2.float())
+    return F.linear(act, w2, b2)
 
 
 def geglu(
-    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor
+    x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w2: torch.Tensor,
+    b2: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """GEGLU over x (..., C). On a CUDA tensor this launches the kernel, or
-    raises for what the kernel does not take (dtype other than bf16, a width
-    outside KERNEL_WIDTHS, I != 4C, non-contiguous or misaligned tensors).
-    When grad mode is on and an input requires grad, the backward
-    recomputes geglu_reference from the saved inputs."""
+    """GEGLU over x (..., C); b2 None: the fp32 partial product of a
+    tensor-parallel shard, without a bias. On a CUDA tensor this launches
+    the kernel, or raises for what the kernel does not take (dtype other
+    than bf16, a width outside KERNEL_WIDTHS, I not a multiple of 64,
+    non-contiguous or misaligned tensors). When grad mode is on and an
+    input requires grad, the backward recomputes geglu_reference from the
+    saved inputs."""
     if x.device.type == "cpu":
         return geglu_reference(x, w0, b0, w2, b2)
     if x.device.type != "cuda":
@@ -112,18 +125,19 @@ def geglu(
     c = x.shape[-1]
     inner = w2.shape[1]
     tensors = (x, w0, b0, w2, b2)
-    if any(t.dtype != torch.bfloat16 for t in tensors):
+    if any(t is not None and t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError("geglu kernel takes bf16 x and weights")
-    if c not in KERNEL_WIDTHS or inner != 4 * c:
+    if c not in KERNEL_WIDTHS or inner < SLAB or inner % SLAB:
         raise ValueError(f"geglu kernel: width {c}, inner {inner} not supported")
-    if w0.shape != (2 * inner, c) or b0.shape != (2 * inner,) or w2.shape != (c, inner) or b2.shape != (c,):
+    if (w0.shape != (2 * inner, c) or b0.shape != (2 * inner,) or w2.shape != (c, inner)
+            or (b2 is not None and b2.shape != (c,))):
         raise ValueError("geglu kernel: weight shapes do not match x")
-    if any(not t.is_contiguous() or t.data_ptr() % 32 for t in tensors):
+    if any(t is not None and (not t.is_contiguous() or t.data_ptr() % 32) for t in tensors):
         raise ValueError("geglu kernel takes contiguous, 32-byte aligned tensors")
 
     n = x.numel() // c
     sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
-    plan = launch_plan(n, c, sms)
+    plan = launch_plan(n, c, inner, sms)
 
     def launch(*t):
         return _launch(*t, plan)
@@ -137,16 +151,17 @@ def geglu(
 
 
 def _launch(x, w0, b0, w2, b2, plan: LaunchPlan) -> torch.Tensor:
-    """Both GEMMs of one call on the current stream, under `plan`."""
+    """Both GEMMs of one call on the current stream, under `plan`; b2 None:
+    the out GEMM stores its fp32 products (the entry's null bias)."""
     c = x.shape[-1]
-    inner = 4 * c
+    inner = w2.shape[1]
     fn = _build.function("geglu", "geglu_bf16", 7, 7, 0)
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=torch.float32 if b2 is None else x.dtype, device=x.device)
     n = x.numel() // c
     act = torch.empty(n, inner, dtype=x.dtype, device=x.device)
     err = fn(
-        x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        out.data_ptr(), act.data_ptr(), n, c, inner,
+        x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w2.data_ptr(),
+        0 if b2 is None else b2.data_ptr(), out.data_ptr(), act.data_ptr(), n, c, inner,
         plan.gate.stages, plan.out.width, plan.out.stages, plan.grid,
         torch.cuda.current_stream(x.device).cuda_stream,
     )

@@ -24,6 +24,14 @@ its RoPE tables and bias buckets are those of the whole video; the
 sparse-causal attention borrows the video's frame 0 and the frame before
 its first. Everything else works on this rank's frames.
 
+Tensor parallel (`tp`, set by UNet3D.shard_tensor_parallel for a training
+step on a mesh with tp > 1; core/tensor_parallel.py): Attention and
+TemporalAttention hold this rank's rows of to_q/to_k/to_v and columns of
+to_out.0 and run heads/tp heads (`heads` is then the local count); the
+input goes through copy_to_tp, the out-projection's partial product is
+summed over tp in fp32 and its bias added once. The temporal bias table
+stays whole on every rank, which reads its heads' columns.
+
 Projection names follow diffusers (to_q/to_k/to_v/to_out.0).
 """
 
@@ -33,6 +41,7 @@ import os
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from lavie_tpu_torch.core.collectives import (
@@ -41,6 +50,7 @@ from lavie_tpu_torch.core.collectives import (
     positions_to_frames,
     sparse_causal_halo,
 )
+from lavie_tpu_torch.core.tensor_parallel import TPShard, copy_to_tp, row_parallel_linear
 from lavie_tpu_torch.kernels.attention import dot_product_attention
 from lavie_tpu_torch.kernels.flash_attention import flash_attention, flash_sparse_causal
 from lavie_tpu_torch.kernels.temporal_fused import temporal_attention, temporal_attention_folded
@@ -53,6 +63,14 @@ from lavie_tpu_torch.nn.embeddings import (
 
 FLASH_MIN_SEQ = 1024  # the JAX package's flash gate: S ≥ 1024, d % 128 == 0
 FOLDED_MAX_FRAMES = 16  # the JAX package's folded-route gate (temporal_supported_shape)
+
+
+def out_projection(linear: nn.Linear, o: torch.Tensor, tp: Optional[TPShard]) -> torch.Tensor:
+    """to_out.0 over the attention's output o: whole, or row-parallel over
+    this rank's heads' columns."""
+    if tp is None:
+        return linear(o)
+    return row_parallel_linear(o, linear.weight, linear.bias, tp)
 
 
 class Attention(nn.Module):
@@ -68,6 +86,7 @@ class Attention(nn.Module):
         self.to_k = nn.Linear(kv_dim, inner, bias=False)
         self.to_v = nn.Linear(kv_dim, inner, bias=False)
         self.to_out = nn.ModuleList([nn.Linear(inner, query_dim)])
+        self.tp: Optional[TPShard] = None
 
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,
@@ -75,6 +94,10 @@ class Attention(nn.Module):
         """hidden_states (B, S, C); encoder_hidden_states (B, L, D) or None.
         `implementation` goes to dot_product_attention ("cross": the
         short-kv kernel, for a text cross-attention)."""
+        if self.tp is not None:
+            hidden_states = copy_to_tp(hidden_states, self.tp)
+            if encoder_hidden_states is not None:
+                encoder_hidden_states = copy_to_tp(encoder_hidden_states, self.tp)
         context = hidden_states if encoder_hidden_states is None else encoder_hidden_states
         b, s, _ = hidden_states.shape
         sk = context.shape[1]
@@ -85,7 +108,7 @@ class Attention(nn.Module):
             out = flash_attention(q, k, v, scale=self.head_dim ** -0.5)
         else:
             out = dot_product_attention(q, k, v, implementation=implementation)
-        return self.to_out[0](out.reshape(b, s, self.heads * self.head_dim))
+        return out_projection(self.to_out[0], out.reshape(b, s, self.heads * self.head_dim), self.tp)
 
 
 class RelativePositionBias(nn.Module):
@@ -161,6 +184,7 @@ class TemporalAttention(nn.Module):
         # forward issues no host→device copies
         self._tables: Dict[Tuple[int, torch.device], Tuple[torch.Tensor, ...]] = {}
         self.frame_shard: Optional[FrameShard] = None
+        self.tp: Optional[TPShard] = None
 
     def _frame_tables(self, f: int, device: torch.device):
         key = (f, device)
@@ -176,8 +200,18 @@ class TemporalAttention(nn.Module):
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
         """hidden_states (B, F, S, C) → (B, F, S, C)."""
-        h = hidden_states
-        return self.to_out[0](self.core(self.to_q(h), self.to_k(h), self.to_v(h)))
+        h = hidden_states if self.tp is None else copy_to_tp(hidden_states, self.tp)
+        return out_projection(self.to_out[0], self.core(self.to_q(h), self.to_k(h), self.to_v(h)),
+                              self.tp)
+
+    def position_bias(self, buckets: torch.Tensor) -> torch.Tensor:
+        """The relative-position bias (H, F, F) fp32 of this module's heads
+        (under tp this rank's columns of the whole table) from (F, F) buckets."""
+        if self.tp is None:
+            return self.time_rel_pos_bias(buckets).float().contiguous()
+        table = self.tp.part(copy_to_tp(self.time_rel_pos_bias.relative_attention_bias.weight,
+                                        self.tp), 1)
+        return F.embedding(buckets, table).permute(2, 0, 1).float().contiguous()
 
     def core(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         """The attention between the projections, on q, k, v (B, F, S, C). A
@@ -199,7 +233,7 @@ class TemporalAttention(nn.Module):
         cos = sin = bias = None
         if self.variant == "rope_relbias":
             cos, sin, buckets = self._frame_tables(q.shape[1], q.device)
-            bias = self.time_rel_pos_bias(buckets).float().contiguous()  # (H, F, F)
+            bias = self.position_bias(buckets)
         return temporal_attention(q, k, v, bias, cos, sin, scale=self.head_dim ** -0.5,
                                   rope_dim=self.rope_dim, heads=self.heads)
 
@@ -213,7 +247,7 @@ class TemporalAttention(nn.Module):
         switch this route takes every rope_relbias call with F ≤ 16."""
         b, f, s, c = q.shape
         cos, sin, buckets = self._frame_tables(f, q.device)
-        bias = self.time_rel_pos_bias(buckets).float().contiguous()  # (H, F, F)
+        bias = self.position_bias(buckets)
         shape5 = (b, f, s, self.heads, self.head_dim)
         cs = cos.to(q.dtype)[:, None, None, :]  # (F, 1, 1, rot/2) onto (b, f, s, h, d)
         sn = sin.to(q.dtype)[:, None, None, :]

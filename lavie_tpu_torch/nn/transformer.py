@@ -26,6 +26,13 @@ default, replace module boundaries with kernels (they change no parameter):
                            of kernels/temporal_proj.py around the attention
                            core (TemporalAttention.core)
 The only-cross VSR blocks keep their head kernel for attn2.
+
+Under tensor parallelism (the modules' `tp`, set by
+UNet3D.shard_tensor_parallel; core/tensor_parallel.py) the feed-forward
+runs the GEGLU kernel on this rank's I/tp hidden columns and sums its fp32
+partial over tp before b2. The two switches that fold an out-projection
+with the residual (LAVIE_ATTN2=fused, LAVIE_TEMPORAL_PROJ=1) raise
+ValueError there: the residual would be added once on every rank.
 """
 
 from __future__ import annotations
@@ -36,6 +43,12 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lavie_tpu_torch.core.tensor_parallel import (
+    TPShard,
+    copy_to_tp,
+    packed_rows,
+    row_parallel_sum,
+)
 from lavie_tpu_torch.kernels.cross_block import (
     MAX_KV,
     cross_attention_head,
@@ -70,16 +83,24 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """GEGLU feed-forward, dim → 4·dim → dim, computed by the fused GEGLU
-    kernel (kernels/geglu.py): the 4·dim hidden never reaches device memory."""
+    kernel (kernels/geglu.py): the 4·dim hidden never reaches device memory.
+    Under tp the kernel takes this rank's packed hidden‖gate rows of net.0
+    (and of its replicated bias) and columns of net.2, and returns an fp32
+    partial, summed over tp before b2 is added once."""
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         # diffusers layout: net.0 = GEGLU, net.1 = dropout, net.2 = out Linear
         self.net = nn.ModuleList([GEGLU(dim, dim * mult), nn.Identity(), nn.Linear(dim * mult, dim)])
+        self.tp: Optional[TPShard] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
-        return geglu(x, proj.weight, proj.bias, out.weight, out.bias)
+        if self.tp is None:
+            return geglu(x, proj.weight, proj.bias, out.weight, out.bias)
+        b0 = packed_rows(copy_to_tp(proj.bias, self.tp), self.tp)
+        part = geglu(copy_to_tp(x, self.tp), proj.weight, b0, out.weight, None)
+        return row_parallel_sum(part, out.bias, self.tp, x.dtype)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -156,6 +177,9 @@ class BasicTransformerBlock(nn.Module):
         and values are projected once per video (B, L, C). More than MAX_KV
         (80) text keys raise ValueError before any work, on the CPU as on
         the card, whose kernel takes no more."""
+        if self.attn2.tp is not None:
+            raise ValueError("LAVIE_ATTN2=fused adds the residual inside the out-projection: "
+                             "not under tensor parallelism (unset it, or 'cross')")
         if encoder_hidden_states.shape[1] > MAX_KV:
             raise ValueError(f"LAVIE_ATTN2=fused takes at most {MAX_KV} text keys, got "
                              f"{encoder_hidden_states.shape[1]} (LAVIE_ATTN2=cross takes 256)")
@@ -173,6 +197,9 @@ class BasicTransformerBlock(nn.Module):
         x4 = x.view(bf // video_length, video_length, s, c)
         if os.environ.get("LAVIE_TEMPORAL_PROJ") != "1":
             return (self.attn_temp(self.norm_temp(x4)) + x4).view(bf, s, c)
+        if self.attn_temp.tp is not None:
+            raise ValueError("LAVIE_TEMPORAL_PROJ=1 adds the residual inside the out-projection: "
+                             "not under tensor parallelism")
         at, norm = self.attn_temp, self.norm_temp
         q, k, v = ln_qkv(x4, norm.weight.float(), norm.bias.float(), at.to_q.weight,
                          at.to_k.weight, at.to_v.weight, eps=norm.eps)

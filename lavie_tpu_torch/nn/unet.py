@@ -14,6 +14,13 @@ GroupNorms whose statistics span the video) get the shard for the call.
 The VSR UNet is not frame-sharded: its temporal convolutions would need
 neighbouring frames at every tap (its pipeline spreads windows instead).
 
+Tensor parallelism: `shard_tensor_parallel(mesh)` keeps this rank's shard
+of every attention and feed-forward projection the JAX dry run's rule
+splits over the mesh's tp axis (core/tensor_parallel.py), for a training
+step (train/step.py::make_train_step). Only the base UNet takes it: the
+sparse-causal attention (TSR) and the VSR UNet's only-cross blocks and
+temporal modules raise ValueError.
+
 Layout: (B, F, H, W, C) channels-last video tensors throughout.
 """
 
@@ -28,12 +35,13 @@ from torch import nn
 
 from lavie_tpu_torch.core.config import UNetConfig
 from lavie_tpu_torch.core.mesh import Mesh
+from lavie_tpu_torch.core.tensor_parallel import mesh_shard, shard_parameters
 from lavie_tpu_torch.nn import quant
-from lavie_tpu_torch.nn.attention import SparseCausalAttention, TemporalAttention
+from lavie_tpu_torch.nn.attention import Attention, SparseCausalAttention, TemporalAttention
 from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv, TimestepEmbedding
 from lavie_tpu_torch.nn.resnet import Downsample3D, ResnetBlock3D, Upsample3D
 from lavie_tpu_torch.nn.temporal_module import TemporalModule3D
-from lavie_tpu_torch.nn.transformer import Transformer3D
+from lavie_tpu_torch.nn.transformer import FeedForward, Transformer3D
 
 Prefix = Tuple[torch.Tensor, List[torch.Tensor]]
 
@@ -219,6 +227,43 @@ class UNet3D(nn.Module):
         """The mesh whose sp axis forward(..., frames=) shards frames over
         (None: no mesh)."""
         self.mesh = mesh
+
+    def shard_tensor_parallel(self, mesh: Mesh) -> None:
+        """Keep this rank's shard of the parameters the tp rule splits over
+        the mesh's tp axis in place of the whole ones, and run the attentions
+        at heads/tp heads and the feed-forwards at I/tp hidden columns, their
+        out-projections summed over tp. Every rank of the tp group calls it
+        and then runs the same forwards. Nothing happens at tp = 1. Raises
+        ValueError for a UNet other than the base one, a model already
+        sharded, or a tp that divides no heads or hidden width."""
+        tp = mesh.shape["tp"]
+        if tp == 1:
+            return
+        cfg = self.config
+        if (cfg.spatial_attention != "self" or cfg.use_temporal_modules
+                or cfg.transformer_temporal_resblock or any(cfg.only_cross_attention_per_block)):
+            raise ValueError("tensor parallelism takes the base UNet only: the sparse-causal "
+                             "attention (TSR) and the VSR UNet's only-cross blocks and temporal "
+                             "modules run whole")
+        mods = [m for m in self.modules() if isinstance(m, (Attention, TemporalAttention, FeedForward))]
+        if any(m.tp is not None for m in mods):
+            raise ValueError("shard_tensor_parallel: this UNet is sharded already")
+        for m in mods:
+            n = m.net[2].weight.shape[1] if isinstance(m, FeedForward) else m.heads
+            if n % tp:
+                raise ValueError(f"tp={tp} does not divide {n} "
+                                 f"{'hidden columns' if isinstance(m, FeedForward) else 'heads'}")
+        whole = dict(self.named_parameters())
+        for name, p in shard_parameters(whole, mesh).items():
+            if p is not whole[name]:
+                owner, attr = name.rsplit(".", 1)
+                setattr(self.get_submodule(owner), attr,
+                        nn.Parameter(p, requires_grad=whole[name].requires_grad))
+        shard = mesh_shard(mesh)
+        for m in mods:
+            m.tp = shard
+            if not isinstance(m, FeedForward):
+                m.heads //= tp
 
     def _cross_frame_modules(self) -> List[nn.Module]:
         """The modules that read across a video's frames: the temporal and

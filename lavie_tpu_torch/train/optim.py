@@ -83,9 +83,13 @@ class AdamW:
 
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.Tensor],
-             state: Dict) -> bool:
+             state: Dict, square_sum: Optional[Callable[[Mapping[str, torch.Tensor]],
+                                                        torch.Tensor]] = None) -> bool:
         """One optimizer call on `grads`; returns whether the parameters
-        moved (False on an accumulating mini-step)."""
+        moved (False on an accumulating mini-step). `square_sum` gives the
+        clipping's sum of squares over the whole model from these gradients
+        when they are shards of it (tensor parallel:
+        core/tensor_parallel.py::grad_square_sum); None: their own sum."""
         grads = {k: g.float() for k, g in grads.items()}
         if self.accumulation_steps > 1:
             n = state["mini_step"]
@@ -100,7 +104,9 @@ class AdamW:
                 a.zero_()
             state["mini_step"] = 0
         if self.max_grad_norm is not None:
-            norm = torch.sqrt(sum((g * g).sum() for g in grads.values()))
+            squares = (sum((g * g).sum() for g in grads.values()) if square_sum is None
+                       else square_sum(grads))
+            norm = torch.sqrt(squares)
             if not bool(norm < self.max_grad_norm):
                 grads = {k: (g / norm) * self.max_grad_norm for k, g in grads.items()}
         lr = self.lr(state["count"])

@@ -16,6 +16,17 @@ weighted by its share of the elements, and the gradients of that one
 global mean loss are summed over sp and dp (`reduce_gradients`) before the
 optimizer, so a sharded step equals the one-process step on the same
 batch.
+
+With tp > 1 the full-parameter step is tensor parallel, as the JAX dry run
+shards its step (__graft_entry__.py::dryrun_multichip): make_train_step
+splits the model's attention and feed-forward projections over tp
+(UNet3D.shard_tensor_parallel), the TrainState holds this rank's shards and
+the optimizer's moments follow them (`shard_train_state`;
+`gather_train_state` gives the whole state back, for a checkpoint). The
+loss and the gradients are summed over sp and dp only: every tp rank
+computes the same loss, and the modules' copy_to_tp sums over tp what the
+ranks share. The clipping norm adds the split gradients' squares over tp
+and counts the replicated ones once.
 """
 
 from __future__ import annotations
@@ -28,6 +39,11 @@ from torch import nn
 
 from lavie_tpu_torch.core.collectives import all_reduce_sum
 from lavie_tpu_torch.core.mesh import Mesh
+from lavie_tpu_torch.core.tensor_parallel import (
+    gather_parameters,
+    grad_square_sum,
+    shard_parameters,
+)
 from lavie_tpu_torch.diffusion.noise_aug import augment_conditioning
 from lavie_tpu_torch.diffusion.samplers import add_noise, get_velocity
 from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
@@ -112,7 +128,8 @@ def sum_over_ranks(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 
 def reduce_gradients(mesh: Mesh, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """Each gradient summed over the mesh's sp and dp ranks (one flat
-    all-reduce over each axis); ranks along tp hold the same."""
+    all-reduce over each axis); ranks along tp hold their own shards, or the
+    same replicated gradients."""
     flat = all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]), mesh.groups["sp"])
     flat = all_reduce_sum(flat, mesh.groups["dp"])
     return [p.view_as(g) for p, g in zip(flat.split([g.numel() for g in grads]), grads)]
@@ -215,6 +232,29 @@ class TrainState:
         return cls(step=0, params=params, opt_state=optimizer.init(params))
 
 
+def _map_state(state: TrainState, fn) -> TrainState:
+    """`fn` over the parameters and each per-parameter dict of the optimizer
+    state (the moments, the accumulator); counters kept."""
+    opt = {k: fn(v) if isinstance(v, dict) else v for k, v in state.opt_state.items()}
+    return TrainState(step=state.step, params=fn(state.params), opt_state=opt)
+
+
+def shard_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """This rank's tp shards of a whole TrainState: its parameters and
+    their moments (core/tensor_parallel.py::shard_parameters)."""
+    def fn(d):
+        local = shard_parameters(d, mesh)
+        return {k: v.requires_grad_() if d is state.params else v for k, v in local.items()}
+    return _map_state(state, fn)
+
+
+def gather_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """The whole TrainState from every tp rank's shards, on every rank (a
+    collective): the state one process would hold, for save_native."""
+    return _map_state(state, lambda d: {k: v.detach() for k, v in
+                                        gather_parameters(d, mesh).items()})
+
+
 def make_train_step(model: nn.Module, schedule: NoiseSchedule, optimizer: AdamW, *,
                     prediction_type: str = "epsilon", min_snr_gamma: Optional[float] = None,
                     mesh: Optional[Mesh] = None) -> Callable:
@@ -222,14 +262,30 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, optimizer: AdamW,
     (state, loss): every parameter in state.params trained, the model
     applied with them. On a mesh every rank passes the whole batch and the
     same generator (or draws at their whole shapes); the model's mesh is
-    set to it."""
+    set to it. With tp > 1 the model (a base UNet3D) is split over tp here,
+    and state.params must hold this rank's shards: the sharded model's own
+    parameters, or shard_train_state of a whole state (ValueError for a
+    whole parameter)."""
+    tensor_parallel = mesh is not None and mesh.shape["tp"] > 1
     if mesh is not None:
         model.set_mesh(mesh)
+    if tensor_parallel:
+        model.shard_tensor_parallel(mesh)
+
+    def check_local(params: Mapping[str, torch.Tensor]) -> None:
+        for k, p in params.items():
+            local = model.get_parameter(k).shape
+            if p.shape != local:
+                raise ValueError(f"state.params[{k!r}] is {tuple(p.shape)}, this rank's tp shard "
+                                 f"{tuple(local)}: build the TrainState from the sharded model's "
+                                 "parameters, or with shard_train_state")
 
     def step(state: TrainState, batch: Mapping[str, torch.Tensor],
              generator: Optional[torch.Generator] = None, **draws) -> Tuple[TrainState, torch.Tensor]:
         names = list(state.params)
         params = [state.params[k] for k in names]
+        if tensor_parallel:
+            check_local(state.params)
         latents, text_states = batch["latents"], batch["text_states"]
         if mesh is None:
             loss = diffusion_loss(model, state.params, schedule, latents, text_states, generator,
@@ -248,7 +304,11 @@ def make_train_step(model: nn.Module, schedule: NoiseSchedule, optimizer: AdamW,
                 noise=sh.video(noise), model_kwargs=sh.model_kwargs) * sh.share
             grads = reduce_gradients(mesh, torch.autograd.grad(part, params))
             loss = sum_over_ranks(mesh, part)
-        optimizer.step(state.params, dict(zip(names, grads)), state.opt_state)
+        if tensor_parallel:
+            optimizer.step(state.params, dict(zip(names, grads)), state.opt_state,
+                           square_sum=lambda g: grad_square_sum(g, mesh))
+        else:
+            optimizer.step(state.params, dict(zip(names, grads)), state.opt_state)
         state.step += 1
         return state, loss.detach()
 

@@ -28,7 +28,7 @@ def _legal_wgmma_width(n):
 @pytest.mark.parametrize("n", GEGLU_ROWS)
 @pytest.mark.parametrize("c", gg.KERNEL_WIDTHS)
 def test_geglu_plan_fits_the_card(c, n):
-    p = gg.launch_plan(n, c, H100_SMS)
+    p = gg.launch_plan(n, c, 4 * c, H100_SMS)
     inner = 4 * c
     # the gate GEMM: 64 hidden and the same 64 gate columns, m64n128 products
     assert p.gate.width == 2 * gg.GATE_COLS and _legal_wgmma_width(p.gate.width)
@@ -68,7 +68,7 @@ def test_geglu_plan_tiles_cover_every_output_once(c):
     out GEMM's cover y (N, C), every element once, N ragged against the
     128-row tile and against the grid."""
     for n in (1, 77, 1000, 5120):
-        p = gg.launch_plan(n, c, H100_SMS)
+        p = gg.launch_plan(n, c, 4 * c, H100_SMS)
         assert (_geglu_walk(p.gate, p.grid, n, 4 * c, gg.GATE_COLS) == 1).all()
         assert (_geglu_walk(p.out, p.grid, n, c, p.out.width) == 1).all()
 
@@ -76,15 +76,15 @@ def test_geglu_plan_tiles_cover_every_output_once(c):
 def test_geglu_plan_gives_every_sm_an_out_tile_where_it_can():
     """Base L3 (1280 rows, C = 1280): 10 row tiles, so the out GEMM takes
     tiles 128 wide (100 of them), not 256 (50); base L0 keeps 160 at C = 320."""
-    assert gg.launch_plan(1280, 1280, H100_SMS).out.width == 128
-    assert gg.launch_plan(5120, 1280, H100_SMS).out.width == 256
-    assert gg.launch_plan(81920, 320, H100_SMS).out.width == 160
+    assert gg.launch_plan(1280, 1280, 4 * 1280, H100_SMS).out.width == 128
+    assert gg.launch_plan(5120, 1280, 4 * 1280, H100_SMS).out.width == 256
+    assert gg.launch_plan(81920, 320, 4 * 320, H100_SMS).out.width == 160
 
 
 @pytest.mark.parametrize("n,c", [(100, 384), (100, 96), (100, 1536), (0, 320), (-1, 320)])
 def test_geglu_plan_refuses_what_the_kernels_cannot_take(n, c):
     with pytest.raises(ValueError):
-        gg.launch_plan(n, c, H100_SMS)
+        gg.launch_plan(n, c, 4 * c, H100_SMS)
 
 
 CROSS_DIMS = [8, 40, 64, 80, 128, 136, 160]

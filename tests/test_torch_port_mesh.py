@@ -16,25 +16,31 @@ pixels; loss and gradients within 1e-5 (relative norm).
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 import torch_port_mesh_workers as workers
-from test_torch_port_util import randomize_params
+from test_torch_port_util import graft_tp_param_spec, randomize_params
 
 from lavie_tpu.core.config import UNetConfig as JUNetConfig
 from lavie_tpu.core.mesh import make_mesh as jmake_mesh
+from lavie_tpu.diffusion import NoiseSchedule as JNoiseSchedule
 from lavie_tpu.kernels.flash_attention import flash_cmajor_sparse
 from lavie_tpu.nn.unet import UNet3D as JUNet3D
+from lavie_tpu.train import TrainState as JTrainState
+from lavie_tpu.train import make_train_step as jmake_train_step
 
 from lavie_tpu_torch.core import make_mesh, shard_batch_frames
 from lavie_tpu_torch.core.collectives import FrameShard, frames_to_positions
 from lavie_tpu_torch.core.config import CLIPTextConfig, UNetConfig, VAEConfig
 from lavie_tpu_torch.core.mesh import Mesh, split_sizes
-from lavie_tpu_torch.io.from_jax import load_jax_params
+from lavie_tpu_torch.io.checkpoints import load_native
+from lavie_tpu_torch.io.from_jax import load_jax_params, state_dict_from_jax
 from lavie_tpu_torch.kernels.flash_attention import flash_sparse_causal
 from lavie_tpu_torch.kernels.temporal_fused import SMEM_MAX, launch_plan
+from lavie_tpu_torch.nn.transformer import BasicTransformerBlock
 from lavie_tpu_torch.nn.unet import UNet3D
 from lavie_tpu_torch.pipelines.cascade import VideoCascadePipeline
 from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline, random_init_
@@ -45,6 +51,9 @@ LAYOUTS = [None, (1, 4, 1), (2, 2, 1), (2, 1, 2)]
 REFUSED = [(3, 1, 1), (2, 2, 2)]
 A2A_FRAMES = [5, 61]
 H100_SMS = 132
+# the tensor-parallel full-parameter steps: AdamW at TP_LR with clipping at
+# TP_MAX_NORM, below the tiny UNet's gradient norm so that it clips
+TP_LR, TP_MAX_NORM, TP_RNG = 1e-3, 0.05, 42
 
 
 def _uint8_close(got, want):
@@ -67,10 +76,36 @@ def _norm_rel(got: dict, want: dict) -> float:
 
 
 @pytest.fixture(scope="module")
-def layouts(tmp_path_factory):
+def jax_base():
+    """The JAX tiny base UNet and its parameters, every one seeded (only
+    their shapes come from the module)."""
+    jm = JUNet3D(config=JUNetConfig.base_t2v().tiny())
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((2, 4, 16, 16, 4)),
+                            jnp.zeros((2,), jnp.int32), jnp.zeros((2, 5, 32)))
+    return jm, randomize_params(shapes["params"], 14)
+
+
+def _tp_batch():
+    """The tensor-parallel steps' batch (2 clips of 4 frames at 16×16) and
+    draws: JAX's own for rng TP_RNG (diffusion_loss splits it in three)."""
+    rng = np.random.RandomState(21)
+    latents = rng.randn(2, 4, 16, 16, 4).astype(np.float32)
+    text = rng.randn(2, 7, 32).astype(np.float32)
+    t_key, n_key, _ = jax.random.split(jax.random.PRNGKey(TP_RNG), 3)
+    draws = {"t": np.asarray(jax.random.randint(t_key, (2,), 0, 1000)).astype(np.int64),
+             "noise": np.asarray(jax.random.normal(n_key, latents.shape))}
+    return latents, text, draws
+
+
+@pytest.fixture(scope="module")
+def layouts(tmp_path_factory, jax_base):
     rows = np.arange(12).reshape(4, 3)
+    latents, text, draws = _tp_batch()
+    sd = {k: v.numpy() for k, v in state_dict_from_jax(jax_base[1]).items()}
+    tp_step = dict(shape=(1, 2, 2), state_dict=sd, latents=latents, text=text, draws=draws,
+                   lr=TP_LR, max_grad_norm=TP_MAX_NORM)
     return workers.run("layouts", 4, tmp_path_factory.mktemp("layouts"), shapes=LAYOUTS,
-                       refused=REFUSED, rows=rows)
+                       refused=REFUSED, rows=rows, tp_step=tp_step)
 
 
 @pytest.mark.parametrize("index", range(len(LAYOUTS)), ids=[str(s) for s in LAYOUTS])
@@ -237,7 +272,7 @@ def _port_case(cfg, seed: int, frames: int):
 
 
 @pytest.fixture(scope="module")
-def unet_runs(tmp_path_factory):
+def unet_runs(tmp_path_factory, jax_base):
     """The JAX tiny base UNet's forward over a (1, 2, 1) mesh, frames
     sharded (test_sharding.py's layout), its params carried to the port;
     the port's base and TSR UNets at 5 frames (31/30-style uneven shards)."""
@@ -245,9 +280,7 @@ def unet_runs(tmp_path_factory):
     x = rng.randn(2, 4, 16, 16, 4).astype(np.float32)
     ts = np.array([999, 3], np.int32)
     ctx = rng.randn(2, 5, 32).astype(np.float32)
-    jm = JUNet3D(config=JUNetConfig.base_t2v().tiny())
-    params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(ts), jnp.asarray(ctx))
-    params = randomize_params(jax.device_get(params["params"]), 14)
+    jm, params = jax_base
     mesh = jmake_mesh(jax.devices()[:2], dp=1, sp=2, tp=1)
     xs = jax.device_put(jnp.asarray(x), NamedSharding(mesh, P(None, "sp")))
     want = np.asarray(jax.jit(lambda p, x, t, c: jm.apply({"params": p}, x, t, c))(
@@ -392,7 +425,7 @@ def test_shard_batch_frames_is_this_ranks_block():
 # ---------------------------------------------------------------------------
 
 
-TRAIN_MESHES = [(2, 1, 1), (1, 2, 1)]
+TRAIN_MESHES = [(2, 1, 1), (1, 2, 1), (1, 1, 2)]
 
 
 @pytest.fixture(scope="module")
@@ -403,15 +436,25 @@ def train_runs(tmp_path_factory):
              "cond_image": rng.randn(2, 28, 28, 3).astype(np.float32)}
     latents = rng.randn(2, 4, 16, 16, 4).astype(np.float32)
     text = rng.randn(2, 7, 32).astype(np.float32)
-    return workers.run("training", 2, tmp_path_factory.mktemp("train"), shapes=TRAIN_MESHES,
-                       batch=batch, latents=latents, text=text, seed=1)
+    unet = UNet3D(UNetConfig.base_t2v().tiny())
+    random_init_(unet, 7)
+    folder = tmp_path_factory.mktemp("train")
+    tp_latents, tp_text, draws = _tp_batch()
+    tp_step = dict(state_dict={k: v.numpy() for k, v in unet.state_dict().items()},
+                   latents=tp_latents, text=tp_text, draws=draws, lr=TP_LR,
+                   max_grad_norm=TP_MAX_NORM, ckpt=str(folder / "tp_ckpt"))
+    runs = workers.run("training", 2, folder, shapes=TRAIN_MESHES, batch=batch, latents=latents,
+                       text=text, seed=1, tp_step=tp_step)
+    return runs, str(folder / "tp_ckpt")
 
 
-@pytest.mark.parametrize("index", [0, 1], ids=["dp2", "sp2"])
+@pytest.mark.parametrize("index", [0, 1, 2], ids=["dp2", "sp2", "tp2"])
 def test_sharded_finetune_step_matches_one_process(train_runs, index):
     """LoRA + mapper loss and gradients (the alignment loss's in-batch
     negatives over the whole batch) at per-rank batch 1 over dp = 2, and
-    frames over sp = 2, against one process at batch 2."""
+    frames over sp = 2, against one process at batch 2; over tp = 2 the
+    fine-tuner replicates (as the JAX one does)."""
+    train_runs, _ = train_runs
     for r in train_runs:
         got, want = r[index], r[-1]
         for key in ("loss", "mse", "align"):
@@ -421,10 +464,166 @@ def test_sharded_finetune_step_matches_one_process(train_runs, index):
 
 @pytest.mark.parametrize("index", [0, 1], ids=["dp2", "sp2"])
 def test_sharded_train_step_matches_one_process(train_runs, index):
+    train_runs, _ = train_runs
     for r in train_runs:
         got, want = r[index], r[-1]
         assert abs(got["step_loss"] - want["step_loss"]) <= GRAD_TOL * abs(want["step_loss"])
         assert _norm_rel(got["step_grads"], want["step_grads"]) <= GRAD_TOL
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism: the full-parameter step over every parameter of the
+# tiny base UNet with its attention and feed-forward projections split over
+# tp (core/tensor_parallel.py)
+# ---------------------------------------------------------------------------
+
+
+def _tiny_blocks() -> int:
+    """The transformer blocks of the tiny base UNet."""
+    return sum(isinstance(m, BasicTransformerBlock) for m in UNet3D(UNetConfig.base_t2v().tiny()).modules())
+
+
+def _tp_runs(train_runs, layouts):
+    """(mesh, each rank's tp step, rank 0's one-process step) for (1, 1, 2)
+    (the training spawn; seeded port weights) and (1, 2, 2) (the layouts
+    spawn; the JAX tiny UNet's weights)."""
+    runs, _ = train_runs
+    return [((1, 1, 2), [r[2]["full_step"] for r in runs], runs[0][-1]["full_step"]),
+            ((1, 2, 2), [r["tp_step"] for r in layouts], layouts[0]["tp_step_one_process"])]
+
+
+@pytest.mark.parametrize("index", [0, 1], ids=["tp2-(1,1,2)", "sp2-tp2-(1,2,2)"])
+def test_tensor_parallel_train_step_matches_one_process(train_runs, layouts, index):
+    """Loss, the gradients the optimizer got (gathered whole), the first
+    moments (the clipped gradients) and the parameters after one AdamW step
+    with clipping, on every rank, against one process: GRAD_TOL (fp32; the
+    row-parallel sums and the clipping norm are taken in another order)."""
+    _, ranks, want = _tp_runs(train_runs, layouts)[index]
+    for got in ranks:
+        assert abs(got["loss"] - want["loss"]) <= GRAD_TOL * abs(want["loss"])
+        assert abs(got["norm"] - want["norm"]) <= GRAD_TOL * want["norm"]
+        for key in ("grads", "mu", "params"):
+            assert got[key].keys() == want[key].keys()
+            assert all(got[key][k].shape == v.shape for k, v in want[key].items())
+            assert _norm_rel(got[key], want[key]) <= GRAD_TOL, key
+
+
+def test_tensor_parallel_step_clips_by_the_whole_models_norm(train_runs, layouts):
+    """The clipping norm adds the split gradients' squares over tp and the
+    replicated ones' once: it is the whole gradients' norm, above
+    TP_MAX_NORM, so the step clipped."""
+    for _, ranks, want in _tp_runs(train_runs, layouts):
+        whole = np.sqrt(sum(float((g.astype(np.float64) ** 2).sum()) for g in want["grads"].values()))
+        assert want["norm"] > TP_MAX_NORM
+        for got in ranks:
+            assert abs(got["norm"] - whole) <= 1e-5 * whole
+
+
+def test_tensor_parallel_step_reduces_four_activations_a_block_each_way(train_runs, layouts):
+    """Forward: one fp32 reduce after each of a block's four row-parallel
+    layers (attn1, attn2, attn_temp out-projections, the feed-forward's
+    net.2), N·C each; backward: one before each column-parallel group
+    (the same four inputs), plus the temporal bias table and GEGLU's b0,
+    whose replicated rows each rank reads by its shard."""
+    cfg = UNetConfig.base_t2v().tiny()
+    blocks = _tiny_blocks()
+    for (_, _, tp), ranks, _ in _tp_runs(train_runs, layouts):
+        for got in ranks:
+            tokens = got["tokens"]  # N·C of each block's feed-forward input, this rank's
+            assert len(tokens) == blocks
+            c = got["collectives"]
+            assert c["reduce_from_tp"]["calls"] == 4 * blocks
+            assert c["reduce_from_tp"]["bytes"] == sum(4 * 4 * nc * (tp - 1) for nc in tokens)
+            table = cfg.relpos_num_buckets * cfg.num_attention_heads * 4
+            b0 = 2 * 4 * 32 * 4
+            assert c["copy_to_tp"]["calls"] == 6 * blocks
+            assert c["copy_to_tp"]["bytes"] == sum((4 * 4 * nc + table + b0) * (tp - 1)
+                                                   for nc in tokens)
+
+
+@pytest.fixture(scope="module")
+def jax_tp_step(jax_base):
+    """The JAX package's make_train_step (min-SNR 5, clip_by_global_norm →
+    adamw) jitted over a (1, 2, 2) mesh of four of the virtual CPU devices,
+    its parameters sharded by __graft_entry__._tp_param_spec, the batch
+    over sp (__graft_entry__.dryrun_multichip's layout)."""
+    jm, params = jax_base
+    latents, text, _ = _tp_batch()
+    mesh = jmake_mesh(jax.devices()[:4], dp=1, sp=2, tp=2)
+    tx = optax.chain(optax.clip_by_global_norm(TP_MAX_NORM), optax.adamw(TP_LR))
+    state = JTrainState.create(params, tx)
+    step = jmake_train_step(jm.apply, JNoiseSchedule.create(), tx, min_snr_gamma=5.0)
+    rule = graft_tp_param_spec()
+    shardings = JTrainState(
+        step=NamedSharding(mesh, P()),
+        params=jax.tree_util.tree_map_with_path(lambda p, l: NamedSharding(mesh, rule(p, l)),
+                                                params),
+        opt_state=jax.tree_util.tree_map(lambda _: NamedSharding(mesh, P()), state.opt_state,
+                                         is_leaf=lambda x: hasattr(x, "shape")))
+    batch_shardings = {"latents": NamedSharding(mesh, P("dp", "sp")),
+                       "text_states": NamedSharding(mesh, P("dp"))}
+    batch = jax.device_put({"latents": jnp.asarray(latents), "text_states": jnp.asarray(text)},
+                           batch_shardings)
+    jitted = jax.jit(step, in_shardings=(shardings, batch_shardings, NamedSharding(mesh, P())),
+                     out_shardings=(shardings, NamedSharding(mesh, P())))
+    new, loss = jitted(jax.device_put(state, shardings), batch, jax.random.PRNGKey(TP_RNG))
+    mu = next(s.mu for s in new.opt_state[1] if hasattr(s, "mu"))
+    to_port = lambda tree: {k: v.numpy() for k, v in state_dict_from_jax(  # noqa: E731
+        jax.device_get(tree)).items()}
+    return {"loss": float(loss), "mu": to_port(mu), "params": to_port(new.params)}
+
+
+def test_tensor_parallel_step_matches_the_jax_step(layouts, jax_tp_step):
+    """The port's (1, 2, 2) step against the JAX step under the dry run's
+    tp shardings, same weights (io/from_jax) and draws: loss within 1e-5,
+    the first moments (the clipped gradients) and the parameters within
+    1e-4 relative norm (test_torch_port_train.py's bound for gradients
+    against jax.value_and_grad is 2e-4 of a tensor's largest magnitude;
+    XLA's fp32 convolutions and sums run in another order)."""
+    want = jax_tp_step
+    for got in (r["tp_step"] for r in layouts):
+        assert abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+        for key in ("mu", "params"):
+            assert got[key].keys() == want[key].keys()
+            assert _norm_rel(got[key], want[key]) <= 1e-4, key
+
+
+def test_tensor_parallel_state_saves_whole_and_loads_in_one_process(train_runs):
+    """gather_train_state + save_native on rank 0 of the (1, 1, 2) step:
+    the file holds the whole state, which a one-process UNet loads
+    strictly, with the parameters and moments of the one-process step."""
+    runs, ckpt = train_runs
+    want = runs[0][-1]["full_step"]
+    tree = load_native(ckpt)
+    assert tree["step"] == 1 and tree["opt_state"]["count"] == 1
+    unet = UNet3D(UNetConfig.base_t2v().tiny())
+    unet.load_state_dict(tree["params"], strict=True)
+    assert _norm_rel({k: v.numpy() for k, v in tree["params"].items()}, want["params"]) <= GRAD_TOL
+    assert _norm_rel({k: v.numpy() for k, v in tree["opt_state"]["mu"].items()}, want["mu"]) <= GRAD_TOL
+
+
+def test_tp_collectives_sum_forward_or_backward_only(collectives):
+    """reduce_from_tp sums over tp and passes its gradient through as it is
+    (not tp times: core/collectives.all_reduce_sum's backward would sum
+    it); copy_to_tp passes x through and sums its gradient."""
+    g = torch.Generator().manual_seed(4)
+    xs, ws = torch.randn(2, 3, 5, generator=g), torch.randn(2, 3, 5, generator=g)
+    for r in (c["tp"] for c in collectives):
+        np.testing.assert_allclose(r["y"], xs.sum(0).numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_array_equal(r["grad_reduce"], ws[0].numpy())
+        np.testing.assert_allclose(r["grad_copy"], ws.sum(0).numpy(), rtol=1e-6, atol=1e-6)
+        assert r["calls"] == {"reduce_from_tp": 1, "copy_to_tp": 1}
+
+
+def test_parameters_gather_back_whole(collectives):
+    """shard_parameters then gather_parameters over tp = 2 gives the tiny
+    base UNet's state dict back bit for bit, GEGLU's packed projection
+    included."""
+    for r in (c["tp"] for c in collectives):
+        assert r["round_trip"]
+        assert any(k.endswith("ff.net.0.proj.weight") for k in r["split"])
+        # q, k, v and out of three attentions, and net.0 and net.2, a block
+        assert len(r["split"]) == 14 * _tiny_blocks()
 
 
 @pytest.mark.parametrize("script", ["chip_repro.py", "chip_ab.py"])

@@ -68,3 +68,20 @@ def randomize_params(tree: Mapping[str, Any], seed: int) -> dict:
 def t(x: np.ndarray) -> torch.Tensor:
     """numpy → fp32 CPU torch tensor."""
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+
+
+def graft_tp_param_spec():
+    """__graft_entry__._tp_param_spec, the JAX dry run's tensor-parallel
+    rule, compiled from its source alone: importing the module would point
+    JAX's compilation cache at the home directory."""
+    import ast
+    import pathlib
+
+    from jax.sharding import PartitionSpec
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "__graft_entry__.py"
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "_tp_param_spec")
+    namespace = {"P": PartitionSpec}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), str(path), "exec"), namespace)
+    return namespace["_tp_param_spec"]

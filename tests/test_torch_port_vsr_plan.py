@@ -84,7 +84,7 @@ def test_tail_plan_tiles_cover_every_output_once(c, n):
 def test_tail_plan_keeps_geglus_gemms():
     """The tail's gate and out GEMMs are GEGLU's at the same (N, C)."""
     for n, c in ((327680, 512), (81920, 512), (77, 128)):
-        p, q = cb.tail_launch_plan(n, c, H100_SMS), gg.launch_plan(n, c, H100_SMS)
+        p, q = cb.tail_launch_plan(n, c, H100_SMS), gg.launch_plan(n, c, 4 * c, H100_SMS)
         assert (p.gate, p.out, p.grid) == (q.gate, q.out, q.grid)
     assert cb.tail_launch_plan(327680, 512, H100_SMS).out.width == 256
 

@@ -87,11 +87,70 @@ def _mesh(shape):
     return make_mesh(dp=dp, sp=sp, tp=tp, backend="gloo")
 
 
-def layouts(shapes, refused, rows: np.ndarray) -> dict:
+def full_step(shape, state_dict: dict, latents: np.ndarray, text: np.ndarray, draws: dict,
+              lr: float, max_grad_norm: float, ckpt=None) -> dict:
+    """One full-parameter step (train/step.py) of the tiny base UNet with
+    `state_dict`, every parameter trained, AdamW with clipping, on the mesh
+    of `shape` (None: this rank alone) over `latents`, `text` with the
+    injected `draws` ({"t", "noise"}): the loss, the global norm the
+    clipping took, and, whole (gather_train_state on a tp mesh): the
+    gradients the optimizer got, the first moments and the parameters
+    after the step; the tp collectives' calls and bytes, and the tokens of
+    each feed-forward call (N·C). `ckpt`: rank 0 writes the whole state
+    there with save_native."""
+    from lavie_tpu_torch.core import tensor_parallel as tpm
+    from lavie_tpu_torch.core.config import UNetConfig
+    from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
+    from lavie_tpu_torch.io.checkpoints import save_native
+    from lavie_tpu_torch.nn.transformer import FeedForward
+    from lavie_tpu_torch.nn.unet import UNet3D
+    from lavie_tpu_torch.train.optim import AdamW
+    from lavie_tpu_torch.train.step import TrainState, gather_train_state, make_train_step
+
+    mesh = _mesh(shape)
+    unet = UNet3D(UNetConfig.base_t2v().tiny())
+    unet.load_state_dict({k: torch.from_numpy(v) for k, v in state_dict.items()})
+    opt = AdamW(lr, max_grad_norm=max_grad_norm)
+    seen = {}
+    update = opt.step
+
+    def spy(params, grads, state, square_sum=None):
+        squares = sum((g * g).sum() for g in grads.values()) if square_sum is None else square_sum(grads)
+        seen.update(grads=dict(grads), norm=float(torch.sqrt(squares)))
+        return update(params, grads, state, square_sum=square_sum)
+
+    opt.step = spy
+    step = make_train_step(unet, NoiseSchedule.create(), opt, min_snr_gamma=5.0, mesh=mesh)
+    state = TrainState.create(dict(unet.named_parameters()), opt)
+    tokens = []
+    for m in unet.modules():
+        if isinstance(m, FeedForward):
+            m.register_forward_hook(lambda mod, args, out: tokens.append(args[0].numel()))
+    for fn in tpm.TP_COLLECTIVES:
+        fn.calls = fn.bytes = 0
+    batch = {"latents": torch.from_numpy(latents), "text_states": torch.from_numpy(text)}
+    state, loss = step(state, batch, **{k: torch.from_numpy(v) for k, v in draws.items()})
+    grads = seen["grads"]
+    if mesh is not None and mesh.shape["tp"] > 1:
+        state, grads = gather_train_state(state, mesh), tpm.gather_parameters(grads, mesh)
+        if ckpt is not None and dist.get_rank() == 0:
+            save_native(ckpt, {"step": state.step, "params": state.params,
+                               "opt_state": state.opt_state})
+    return {"loss": float(loss), "norm": seen["norm"], "tokens": tokens,
+            "grads": {k: _np(v) for k, v in grads.items()},
+            "mu": {k: _np(v) for k, v in state.opt_state["mu"].items()},
+            "params": {k: _np(v) for k, v in state.params.items()},
+            "collectives": {fn.__name__: {"calls": fn.calls, "bytes": fn.bytes}
+                            for fn in tpm.TP_COLLECTIVES}}
+
+
+def layouts(shapes, refused, rows: np.ndarray, tp_step: dict) -> dict:
     """make_mesh's layout for each (dp, sp, tp) of `shapes` (None: the
     defaults), its message for each shape of `refused`; and
     gather_across_hosts of this rank's row of `rows` over a (2, 2, 1)
-    mesh's dp group and over the world."""
+    mesh's dp group and over the world. Then `full_step(**tp_step)` on its
+    mesh (a (1, 2, 2) one: frames over sp, the projections over tp), and on
+    rank 0 alone."""
     from lavie_tpu_torch.core.mesh import make_mesh
     from lavie_tpu_torch.train.timestep_sampler import gather_across_hosts
 
@@ -110,6 +169,9 @@ def layouts(shapes, refused, rows: np.ndarray) -> dict:
     mesh = _mesh((2, 2, 1))
     mine = rows[dist.get_rank()]
     out["gather"] = {"dp": gather_across_hosts(mine, mesh), "world": gather_across_hosts(mine)}
+    out["tp_step"] = full_step(**tp_step)
+    if dist.get_rank() == 0:
+        out["tp_step_one_process"] = full_step(**{**tp_step, "shape": None})
     return out
 
 
@@ -159,7 +221,39 @@ def collectives(frame_counts, halo_shape, seed: int) -> dict:
     out["halo"] = {"out": _np(att.view(b, shard.local, s, h * d)), "start": shard.start,
                    "local": shard.local, "grad_k": _np(gk.view(b, shard.local, s, h * d)),
                    "grad_v": _np(gv.view(b, shard.local, s, h * d))}
+    out["tp"] = _tp_collectives(seed)
     return out
+
+
+def _tp_collectives(seed: int) -> dict:
+    """Over a (1, 1, world) mesh: reduce_from_tp of this rank's row of a
+    seeded (world, 3, 5) tensor, and the gradients of a seeded weighting of
+    its sum (through reduce_from_tp) and of this rank's row weighted by its
+    own weights (through copy_to_tp); then the tiny base UNet's state dict
+    (seeded) through shard_parameters and gather_parameters."""
+    from lavie_tpu_torch.core import tensor_parallel as tpm
+    from lavie_tpu_torch.core.config import UNetConfig
+    from lavie_tpu_torch.nn.unet import UNet3D
+    from lavie_tpu_torch.pipelines.t2v import random_init_
+
+    n, i = dist.get_world_size(), dist.get_rank()
+    mesh = _mesh((1, 1, n))
+    tp = tpm.mesh_shard(mesh)
+    g = torch.Generator().manual_seed(seed)
+    xs, ws = torch.randn(n, 3, 5, generator=g), torch.randn(n, 3, 5, generator=g)
+    x = xs[i].clone().requires_grad_()
+    y = tpm.reduce_from_tp(x, tp)
+    (grad_reduce,) = torch.autograd.grad((y * ws[0]).sum(), x)
+    (grad_copy,) = torch.autograd.grad((tpm.copy_to_tp(x, tp) * ws[i]).sum(), x)
+    unet = UNet3D(UNetConfig.base_t2v().tiny())
+    random_init_(unet, seed)
+    whole = dict(unet.state_dict())
+    local = tpm.shard_parameters(whole, mesh)
+    back = tpm.gather_parameters(local, mesh)
+    return {"y": _np(y), "grad_reduce": _np(grad_reduce), "grad_copy": _np(grad_copy),
+            "calls": {fn.__name__: fn.calls for fn in tpm.TP_COLLECTIVES},
+            "split": sorted(k for k in whole if local[k] is not whole[k]),
+            "round_trip": all(torch.equal(back[k], v) for k, v in whole.items())}
 
 
 def unets(cases) -> list:
@@ -246,12 +340,15 @@ def cascade(shape, **call) -> np.ndarray:
     return pipe("a cat", **call).video
 
 
-def training(shapes, batch: dict, latents: np.ndarray, text: np.ndarray, seed: int) -> dict:
+def training(shapes, batch: dict, latents: np.ndarray, text: np.ndarray, seed: int,
+             tp_step: dict) -> dict:
     """On each mesh of `shapes`, then with none: the LoRA + mapper loss and
     gradients of the tiny image-conditioned base modules on the whole
     `batch` (seeded weights, adapters and draws), and one full-parameter
     step (train/step.py) of the tiny base UNet on four parameters over
-    `latents`, `text`: its loss and the gradients its optimizer got."""
+    `latents`, `text`: its loss and the gradients its optimizer got. On a
+    mesh with tp > 1, and with none, `full_step(**tp_step)` instead: every
+    parameter of the tiny base UNet, tensor parallel on the mesh."""
     from lavie_tpu_torch.core.config import UNetConfig
     from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
     from lavie_tpu_torch.nn.unet import UNet3D
@@ -281,6 +378,13 @@ def training(shapes, batch: dict, latents: np.ndarray, text: np.ndarray, seed: i
     for shape in list(shapes) + [None]:
         tuner.mesh = _mesh(shape)
         loss, (mse, align), grads = tuner.grads(state, tbatch, torch.Generator().manual_seed(seed + 2))
+        row = {"loss": float(loss.detach()), "mse": float(mse.detach()),
+               "align": float(align.detach()), "grads": {k: _np(v) for k, v in grads.items()}}
+        if shape is None or shape[2] > 1:
+            row["full_step"] = full_step(**{**tp_step, "shape": shape})
+            if shape is not None:
+                out.append(row)
+                continue
         opt = AdamW(1e-3)
         got = {}
         update = opt.step
@@ -290,7 +394,6 @@ def training(shapes, batch: dict, latents: np.ndarray, text: np.ndarray, seed: i
                                mesh=_mesh(shape))
         _, step_loss = step(tstate, step_batch, torch.Generator().manual_seed(seed + 3))
         unet.set_mesh(None)
-        out.append({"loss": float(loss.detach()), "mse": float(mse.detach()),
-                    "align": float(align.detach()), "grads": {k: _np(v) for k, v in grads.items()},
-                    "step_loss": float(step_loss), "step_grads": {n: _np(got[n]) for n in names}})
+        row.update(step_loss=float(step_loss), step_grads={n: _np(got[n]) for n in names})
+        out.append(row)
     return out
