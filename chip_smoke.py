@@ -2856,11 +2856,11 @@ def _tp_unet():
 
 def _tp_steps(unet, mesh) -> tuple:
     """Two full-parameter steps (bf16 parameters, fp32 moments) of `unet`
-    on `mesh` (None: one process) over one fixed batch and fixed draws;
-    returns (the first step's loss, the gradients its optimizer got, the
-    clipping norm, the parameters after it (this rank's, on the host),
-    seconds of each step, peak GB over the first, launches of the first,
-    the tp collectives of the first, N·C of each feed-forward input)."""
+    on `mesh` (None: one process) over one fixed batch and fixed draws:
+    of the first step its loss, the gradients its optimizer got and the
+    clipping norm, the parameters after it (this rank's, on the host), its
+    peak GB, launches and tp collectives, and N·C of each feed-forward
+    input; the seconds of both steps."""
     from lavie_tpu_torch.core import tensor_parallel as tpm
     from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
     from lavie_tpu_torch.nn.transformer import FeedForward
@@ -2902,13 +2902,14 @@ def _tp_steps(unet, mesh) -> tuple:
         torch.cuda.synchronize()
         seconds.append(time.time() - t0)
         if i == 0:
-            first = (float(loss), torch.cuda.max_memory_allocated() / 1e9, read_launches(),
-                     {fn.__name__: {"calls": fn.calls, "bytes": fn.bytes} for fn in tpm.TP_COLLECTIVES},
-                     list(tokens), {k: v.detach().cpu().clone() for k, v in state.params.items()})
+            out = {"loss": float(loss), "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "launches": read_launches(), "tokens": list(tokens),
+                   "collectives": {fn.__name__: {"calls": fn.calls, "bytes": fn.bytes}
+                                   for fn in tpm.TP_COLLECTIVES},
+                   "params": {k: v.detach().cpu().clone() for k, v in state.params.items()}}
             for h in hooks:
                 h.remove()
-    loss, peak, launches, coll, tokens, params = first
-    return loss, seen["grads"], seen["norm"], params, seconds, peak, launches, coll, tokens
+    return {**out, "grads": seen["grads"], "clip_norm": seen["norm"], "s_per_step": seconds}
 
 
 def _tp_work(rank: int) -> dict:
@@ -2925,11 +2926,11 @@ def _tp_work(rank: int) -> dict:
     t_start = time.time()
     mesh = make_mesh(tp=2, backend="gloo")
     unet = _tp_unet()
-    loss, grads, norm, params, seconds, peak, launches, coll, tokens = _tp_steps(unet, mesh)
+    run = _tp_steps(unet, mesh)
+    grads, params, tokens = run.pop("grads"), run.pop("params"), run.pop("tokens")
     ff = [m for m in unet.modules() if isinstance(m, FeedForward)]
     temporal = [m for m in unet.modules() if isinstance(m, TemporalAttention)]
-    row = {"rank": rank, "loss": loss, "clip_norm": norm, "s_per_step": seconds,
-           "peak_mem_gb": peak, "launches": launches, "collectives": coll,
+    row = {"rank": rank, **run,
            "geglu_inner_over_c": sorted({m.net[2].weight.shape[1] / m.net[2].weight.shape[0]
                                          for m in ff}),
            "temporal_heads": sorted({m.heads for m in temporal}), "blocks": len(ff),
@@ -2948,13 +2949,14 @@ def _tp_work(rank: int) -> dict:
     if rank == 0:
         unet = _tp_unet()
         before = {k: v.detach().cpu().clone() for k, v in unet.named_parameters()}
-        loss_p, grads_p, norm_p, params_p, seconds_p, peak_p, launches_p, _, _ = _tp_steps(unet, None)
+        one = _tp_steps(unet, None)
         del unet
         torch.cuda.empty_cache()
+        grads_p, params_p = one.pop("grads"), one.pop("params")
         keys = sorted(grads_p)
         grads_p = {k: v.cuda() for k, v in grads_p.items()}
-        row["one_process"] = {"loss": loss_p, "clip_norm": norm_p, "s_per_step": seconds_p,
-                              "peak_mem_gb": peak_p, "launches": launches_p}
+        row["one_process"] = {k: one[k] for k in ("loss", "clip_norm", "s_per_step", "peak_mem_gb",
+                                                  "launches")}
         row["grads"] = {"split": _stream_stats(grads, grads_p, [k for k in keys if tpm.tp_param_spec(
             k, grads_p[k].shape)]), "all": _stream_stats(grads, grads_p, keys)}
         del grads_p

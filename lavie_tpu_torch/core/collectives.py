@@ -82,7 +82,7 @@ def _all_gather(x: torch.Tensor, group: dist.ProcessGroup) -> List[torch.Tensor]
 
 def _all_reduce(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
     host = _through_host(group, x)
-    out = x.detach().cpu().clone() if host else x.detach().clone()
+    out = x.detach().cpu() if host else x.detach().clone()  # .cpu() of a CUDA tensor copies
     dist.all_reduce(out, group=group)
     return out.to(x.device) if host else out
 

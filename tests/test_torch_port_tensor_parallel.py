@@ -10,7 +10,6 @@ round trips, checkpoints) are in tests/test_torch_port_mesh.py.
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
 import torch
 from jax.sharding import PartitionSpec as P
