@@ -10,7 +10,9 @@ collectives and a sparse-causal shard are exact; a frame-sharded UNet is
 within 1e-6 of max|out| of the one-process forward (its GroupNorm sums and
 the temporal attention's positions are taken in another order); videos
 equal, or, as tests/test_sharding.py allows, ±1 on under 1e-3 of the
-pixels; loss and gradients within 1e-5 (relative norm).
+pixels; loss and gradients within 1e-5 (relative norm), the tensor-parallel
+step too (and its moments and parameters after the step), which is within
+1e-4 of the JAX step under the dry run's tp shardings.
 """
 
 import jax
