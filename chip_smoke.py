@@ -53,8 +53,8 @@ its result line:
                 synthetic uint8 320x512 image (50 DDPM steps, CFG 7.5; every
                 attn2 over 77 + 77 keys); the conditioning's ms; then one UNet forward
                 on those 154-key states with LAVIE_ATTN2 unset and "cross"
-                (16 launches of cross_attention, its long-kv body; outputs
-                compared), and "fused" refused before any launch; the
+                (16 launches of cross_attention, its 160-key wgmma body;
+                outputs compared), and "fused" refused before any launch; the
                 profile of one base UNet forward over 154 keys
   7c. train     the fork's training path at full width on the image phase's
                 modules (909M UNet, SD VAE, ViT-L/14 text and vision towers,
@@ -146,7 +146,8 @@ its result line:
  16. cross_kernels  the text cross-attention at the base levels, TSR L0
                 and VSR L3:
                 cross_attention (timed beside SDPA; at the base levels also
-                over the image path's 154 keys) and
+                over the image path's 154 keys, and at 256 keys on both of
+                its kernels) and
                 fused_ln_cross_attention (timed beside the LayerNorm,
                 cuBLAS and SDPA path it replaces, and under a plan computed
                 once; its device ms by kernel; its bound also with the xn,
@@ -188,7 +189,7 @@ its result line:
                 found, else as a GIF); then a second predictor in turbo,
                 Predictor().setup(conv_quant="int8"), runs the cascade for
                 option 4 (61x1280x2048, not written) with the five opt-in
-                switches set and one cut, 5 VSR steps; stage seconds,
+                switches set, cut to 10 base, 10 TSR and 1 VSR step; stage seconds,
                 shapes, peak memory and exact launch counts per stage
  23. result     a `kernels` JSON line, then the `ok` JSON line last
 Launch counts are zeroed just before each path (main, eval, image, train,
@@ -233,10 +234,14 @@ VSR_LEVELS = [(163840, 256), (40960, 512), (10240, 512), (2560, 1024)]
 CROSS_TOL, TCONV_TOL = 2e-2, 1e-2  # of max|plain|
 ATTN_TOL, PROJ_TOL = 1e-2, 2e-2  # cross_attention; ln_qkv and out_proj_residual
 STATS_TOL = 1e-2  # gn_silu_tconv's Σ, Σ², of max|plain|
-# the cascade phase's option 4: the one cut (50 VSR steps in a user's run),
-# to keep the script within half its time limit on a slow host; 2 since the
-# mesh phase came (5 before: 111 s of VSR in turbo, 8 windows)
-CASCADE_VSR_STEPS = 2
+# the cascade phase's option 4: its cuts (50 steps a stage in a user's run),
+# to keep the script within half its time limit on a slow host: VSR 2 steps
+# since the mesh phase came (5 before: 111 s of VSR in turbo, 8 windows),
+# base and TSR 10 and VSR 1 since the run read 638.4 and 649.3 s on a host
+# whose gloo phases ran slow (at base and TSR 50 and VSR 2 the stages took
+# 7.0, 20.4 and 64.3 s); option 2 keeps every step
+CASCADE_VSR_STEPS = 1
+CASCADE_BASE_STEPS = CASCADE_TSR_STEPS = 10
 # the image path: 77 text keys and the MappingNetwork's 77 for every attn2
 IMAGE_KEYS = 154
 # the ckpt phase's exporter seed (the loading predictor takes CKPT_SEED + 1)
@@ -313,6 +318,12 @@ PREV_MS = {
     ("cross_attention", "base", 2, 2560, 160, 77): 0.047,
     ("cross_attention", "base", 2, 640, 160, 77): 0.033,
     ("cross_attention", "VSR L3", 1, 20480, 128, 77): 0.036,
+    # the image path's 154 keys on cross_long_kernel (mma.sync, 256 score
+    # columns a row) before they moved to the 160-key wgmma body
+    ("cross_attention", "base", 2, 40960, 40, 154): 0.713,
+    ("cross_attention", "base", 2, 10240, 80, 154): 0.214,
+    ("cross_attention", "base", 2, 2560, 160, 154): 0.085,
+    ("cross_attention", "base", 2, 640, 160, 154): 0.040,
     # the VSR transformer tail (mma.sync, weights streamed per 32 rows) and
     # the float GN·SiLU·temporal conv (mma.sync, the activation recomputed
     # per tap and output tile) before their redesign to wgmma GEMMs fed by TMA
@@ -421,7 +432,7 @@ def phase_device() -> str:
 SASS_REQUIRED = (("flash_attention", "flash_kernel", ("HGMMA.64", "UTMALDG.4D")),
                  ("flash_attention", "flash_d512_kernel", ("HGMMA.64", "UTMALDG.4D.MULTICAST")),
                  ("geglu", "geglu_", ("HGMMA", "UTMALDG")),
-                 ("cross_attention", "cross_kernel", ("HGMMA", "UTMALDG.4D")),
+                 ("cross_attention", "cross_kernel", ("HGMMA", "UTMALDG.4D", "UTMASTG.4D")),
                  ("cross_attention", "cross_long_kernel", ("HMMA", "UTMALDG.4D")),
                  ("cross_head", "head_gemm_kernel", ("HGMMA", "UTMALDG.2D", "UTMASTG.2D")),
                  ("cross_head", "head_attn_kernel", ("HGMMA", "UTMALDG.4D")),
@@ -486,6 +497,16 @@ def phase_build() -> None:
         log(json.dumps({"sass": name, "instances": len(summary), "counts": summary}))
         if not summary or any(not all(ops.values()) for ops in summary.values()):
             raise AssertionError(f"{name}: an instance of {kernel} lacks one of {prefixes}")
+    # the cross attention's wgmma body at each score width (mangled
+    # cross_kernel<DP, NK>: ten head dims at 80 and 160 keys, eight at 256)
+    # and cross_long_kernel, kept for d > 128 past 160 keys only
+    names = list(_build.sass_op_counts(_build.library_path("cross_attention")))
+    widths = {str(nk): sum("cross_kernelILi" in k and f"ELi{nk}EE" in k for k in names)
+              for nk in (80, 160, 256)}
+    widths["long"] = sum("cross_long_kernel" in k for k in names)
+    log(json.dumps({"sass": "cross_attention", "instances_by_width": widths}))
+    if widths != {"80": 10, "160": 10, "256": 8, "long": 2}:
+        raise AssertionError(f"cross_attention instances by score width: {widths}")
     log(f"[build] {time.time() - t0:.1f} s")
 
 
@@ -921,7 +942,7 @@ def phase_image() -> dict:
     16x320x512, 50 DDPM steps, CFG 7.5, twice (the first video is also the
     process's first use of the 154-key shapes). Then one CFG-batched UNet forward
     on the conditioned 154-key states with LAVIE_ATTN2 unset and "cross"
-    (the long-kv body of cross_attention.cu), outputs compared, and
+    (cross_attention.cu's 160-key wgmma body), outputs compared, and
     LAVIE_ATTN2=fused refused before any launch."""
     import numpy as np
 
@@ -974,11 +995,15 @@ def phase_image() -> dict:
             raise AssertionError(f"{name} was not launched on the image path")
     assert_default_routes("image", launches)
 
-    # attn2 over the 154 keys: the default route against LAVIE_ATTN2=cross
+    # attn2 over the 154 keys: the default route against LAVIE_ATTN2=cross,
+    # each forward's event ms and, the forward being host-bound, the device
+    # ms of its kernels (torch.profiler) and of the cross attention's
+    from torch.profiler import ProfilerActivity, profile
+
     g = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(2, 16, 40, 64, 4, generator=g, device="cuda")
     ts = torch.full((2,), 981.0, device="cuda")
-    outs, ms, ab = {}, {}, {}
+    outs, ms, ab, device_ms, attn_ms = {}, {}, {}, {}, {}
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
         for route in (None, "cross", "cross", None):
@@ -989,10 +1014,17 @@ def phase_image() -> dict:
                 y = pipe.unet(x, ts, states)
                 end.record()
                 torch.cuda.synchronize()
-            key = route or "unset"
-            if key in outs:  # the first forward of each route is its warm-up
-                ms[key] = start.elapsed_time(end)
-            outs[key], ab[key] = y.float(), read_launches()
+                launches_ab = read_launches()
+                key = route or "unset"
+                if key in outs:  # the first forward of each route is its warm-up
+                    ms[key] = start.elapsed_time(end)
+                    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                        pipe.unet(x, ts, states)
+                        torch.cuda.synchronize()
+                    kernels = list(device_kernels(prof))
+                    device_ms[key] = sum(us for _, us in kernels) / 1e3
+                    attn_ms[key] = sum(us for e, us in kernels if "cross_kernel<" in e.key) / 1e3
+            outs[key], ab[key] = y.float(), launches_ab
         zero_launches()
         with env(LAVIE_ATTN2="fused"):
             try:
@@ -1004,7 +1036,8 @@ def phase_image() -> dict:
     scale = outs["unset"].abs().max().item()
     diff = (outs["cross"] - outs["unset"]).abs().max().item()
     row = {"phase": "image_attn2", "keys": IMAGE_KEYS, "shape": list(x.shape), "ms": ms,
-           "max_abs_diff": diff, "max_abs_ref": scale, "tol": MODEL_TOL["model"],
+           "device_ms": device_ms, "cross_attention_device_ms": attn_ms, "max_abs_diff": diff,
+           "max_abs_ref": scale, "tol": MODEL_TOL["model"],
            "launches": {k: {n: c for n, c in v.items() if c} for k, v in ab.items()},
            "fused_refused": refused, "fused_launches": fused_launches}
     log(json.dumps(row))
@@ -1646,7 +1679,7 @@ def phase_cross_kernels() -> dict:
             bound_with_round_trips_ms=bound(n_bytes + 6 * b * n * c * 2, ops)[0],
             kernels_ms=kernel_ms(lambda: cb.fused_ln_cross_attention(*fargs))))
         del x, p, fargs, k, v, kt, vt
-    # the image path's attn2: 77 text and 77 mapped keys, cross_long_kernel
+    # the image path's attn2: 77 text and 77 mapped keys, the 160-key wgmma body
     rows["cross_attention_154"] = []
     for where, b, n, d in levels[:len(ATTENTION_LEVELS)]:
         c, scale, lkv = h * d, d ** -0.5, IMAGE_KEYS
@@ -1661,6 +1694,23 @@ def phase_cross_kernels() -> dict:
             lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
             (2 * b * n * c + 2 * b * lkv * c) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),),
             launch_ms=time_ms(lambda: ca._launch(*args, plan))))
+        del q, k, v, ql, kl, vl, args
+    # the most keys the kernel takes, on no path: the 256-key wgmma body at
+    # d = 128 and cross_long_kernel at d = 160, at base L2's queries
+    rows["cross_attention_256"] = []
+    for d in (128, 160):
+        b, n, lkv, scale = 2, 16 * ATTENTION_LEVELS[2][0], ca.MAX_KV, d ** -0.5
+        q, k, v = bf(b, n, h, d), bf(b, lkv, h, d), bf(b, lkv, h, d)
+        ql, kl, vl = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        args = (q, k, v, scale)
+        plan = ca.launch_plan(b, n, h, d, lkv, sms)
+        rows["cross_attention_256"].append(check_row(
+            "cross_attention", {"where": "L=256", "B": b, "S": n, "H": h, "d": d, "L": lkv},
+            ca.cross_attention(*args), ca.cross_attention_reference(*args), ATTN_TOL,
+            lambda: ca.cross_attention(*args), lambda: ca.cross_attention_reference(*args),
+            lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
+            (2 * b * n * h * d + 2 * b * lkv * h * d) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),),
+            threads=plan.threads, launch_ms=time_ms(lambda: ca._launch(*args, plan))))
         del q, k, v, ql, kl, vl, args
     torch.cuda.empty_cache()
     return rows
@@ -2012,7 +2062,8 @@ def phase_cascade() -> dict:
     steps, 50 DDIM TSR steps), which writes its file; then, that predictor
     freed, a second one in turbo, Predictor().setup(conv_quant="int8"), and
     its cascade pipeline for option 4 (16x320x512 → 61x320x512 →
-    61x1280x2048: seven VSR windows of 8 and a tail of 5) with
+    61x1280x2048: seven VSR windows of 8 and a tail of 5; base and TSR at
+    CASCADE_BASE_STEPS and CASCADE_TSR_STEPS, VSR at CASCADE_VSR_STEPS) with
     LAVIE_TRESBLOCK_STATS=1, LAVIE_TEMPORAL_KERNEL=1, LAVIE_TRESBLOCK_INT8=1,
     LAVIE_ATTN2=fused and LAVIE_TEMPORAL_PROJ=1, its video not written. Stage seconds come from
     wrapping each stage here (TimedStage)."""
@@ -2047,6 +2098,7 @@ def phase_cascade() -> dict:
                 video_shape = stages[1].calls[0]["shape"][1:]
             else:
                 out = cascade(prompt, interpolation=True, super_resolution=True,
+                              num_inference_steps=CASCADE_BASE_STEPS, interp_steps=CASCADE_TSR_STEPS,
                               vsr_steps=CASCADE_VSR_STEPS, seed=0, keep_intermediates=True)
                 path = None
                 video_shape = list(out.video.shape)
@@ -2064,7 +2116,8 @@ def phase_cascade() -> dict:
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "launches": got}
         if option == 4:
-            row["cut"] = {"vsr_steps": CASCADE_VSR_STEPS}
+            row["cut"] = {"base_steps": CASCADE_BASE_STEPS, "tsr_steps": CASCADE_TSR_STEPS,
+                          "vsr_steps": CASCADE_VSR_STEPS}
         log(json.dumps(row))
         if not ok or video_shape != want_shape:
             raise AssertionError(f"cascade option {option}: bad output {video_shape} (ok={ok})")
@@ -2076,8 +2129,9 @@ def phase_cascade() -> dict:
                 prefix, half = turbo_tconv_sites(UNetConfig.vsr(), 320, 512, f)
                 int8_per_step += 2 * len(prefix) + 2 * 2 * len(half)
         routes = dict(attn2_fused=option == 4, temporal_proj=option == 4)
-        want = {"base": expected_stage_launches("base", 50, folded, stats, **routes),
-                "interpolation": expected_stage_launches("interpolation", TSR_STEPS, folded, stats,
+        base_steps, tsr_steps = (CASCADE_BASE_STEPS, CASCADE_TSR_STEPS) if option == 4 else (50, TSR_STEPS)
+        want = {"base": expected_stage_launches("base", base_steps, folded, stats, **routes),
+                "interpolation": expected_stage_launches("interpolation", tsr_steps, folded, stats,
                                                          **routes)}
         if option == 4:
             want["vsr"] = expected_stage_launches("vsr", CASCADE_VSR_STEPS, folded, stats, len(frames),
@@ -2100,6 +2154,7 @@ def phase_cascade() -> dict:
 
 # the keys of a kernel row at the new paths' shapes in the kernels line
 BRANCH_ROW_KEYS = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+CROSS_ROW_KEYS = BRANCH_ROW_KEYS + ("launch_ms",)
 # the eval phase: CLIPSIM of the card against the CPU (a cosine, absolute),
 # R3D-18 features of the card against the CPU (of max|CPU|), and FVD of a set
 # against itself (of the sets' feature variance, trace(Σ)); fp32 on both
@@ -3058,8 +3113,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.time()
+    # the run's clock after each group of phases, for choosing what to cut
+    mark = lambda what: log(f"[chip_smoke] {what} done at {time.time() - t_start:.1f} s")  # noqa: E731
     phase_device()
     phase_build()
+    mark("build")
     temporal_rows = phase_temporal(16, rope=32)
     phase_temporal(TSR_FRAMES, rope=0)
     geglu_rows = phase_geglu(16)
@@ -3069,33 +3127,42 @@ def main() -> int:
     # what a tp = 2 rank of the training step calls: 4 of the 8 heads, I = 2C
     tp_rows = {"temporal": phase_temporal(16, rope=32, b=1, h=4),
                "geglu": phase_geglu(16, b=1, tp=2)}
+    mark("kernels")
     from lavie_tpu_torch.core.config import UNetConfig
 
     phase_model("model", UNetConfig.base_t2v(), 16)
     phase_model("model_tsr", UNetConfig.interpolation(), TSR_FRAMES)
+    mark("model, model_tsr")
     main_launches, main_videos = phase_main()
     base_video = main_videos[0]
     eval_launches = phase_eval(main_videos, MAIN_PROMPTS)
+    mark("main, eval")
     image_launches, image_pipe = phase_image()
     train_launches = phase_train(image_pipe)
     del image_pipe
     torch.cuda.empty_cache()
+    mark("image, train")
     tsr_launches = phase_tsr(base_video)
+    mark("tsr")
     phase_temporal(VSR_FRAMES, rope=32, b=1,
                    levels=[(s, 64) for s, _ in VSR_LEVELS[1:3]] + [(VSR_LEVELS[3][0], 128)])
     phase_geglu(VSR_FRAMES, shapes=[(VSR_FRAMES * 10240, 512), (VSR_FRAMES * 2560, 1024)])
     vsr_rows = phase_vsr_kernels()
     phase_model("model_vsr", UNetConfig.vsr(), VSR_FRAMES, batch=1, h=320, w=512, ctx_dim=1024)
     vsr_launches = phase_vsr(base_video)
+    mark("vsr_kernels, model_vsr, vsr")
     # the temporal module's versatile branch and the tiled f4 codec
     branch_rows = phase_branch_kernels()
     branch_launches = phase_vsr_branches()
     tiled_launches = phase_tiled_decode()
+    mark("branch_kernels, vsr_branches, tiled_decode")
     # multi-GPU: two ranks on the one card over gloo, then NCCL at world size 1
     mesh_launches = phase_mesh()
     phase_nccl()
+    mark("mesh, nccl")
     # tensor-parallel training: two ranks over gloo, the full-parameter step
     tp_launches = phase_tp()
+    mark("tp")
     # the opt-in routes: kernels, then each route in the model against the default
     folded_rows = phase_temporal(16, rope=32, folded=True)
     phase_temporal(VSR_FRAMES, rope=32, b=1, folded=True,
@@ -3107,6 +3174,7 @@ def main() -> int:
     phase_ab("ab_base", UNetConfig.base_t2v(), 16, "LAVIE_TEMPORAL_KERNEL",
              {"1": ("temporal_attention_folded",)}, MODEL_TOL["model"], batch=2, h=40, w=64,
              ctx_dim=768)
+    mark("optin, ab_vsr, ab_base")
     # the text cross-attention and the temporal projection boundaries: kernels,
     # then each route in the base model against the default
     cross_rows = phase_cross_kernels()
@@ -3117,12 +3185,16 @@ def main() -> int:
     ab_proj_launches = phase_ab("ab_temporal_proj", UNetConfig.base_t2v(), 16, "LAVIE_TEMPORAL_PROJ",
                                 {"1": ("ln_qkv", "out_proj_residual")}, MODEL_TOL["model"], batch=2,
                                 h=40, w=64, ctx_dim=768)["launches"]
+    mark("cross_kernels, temporal_proj_kernels, ab_attn2, ab_temporal_proj")
     # the int8 turbo mode: its pieces, then each UNet in the three settings
     turbo_rows = phase_turbo_kernels()
     phase_ab_turbo("ab_turbo_vsr", UNetConfig.vsr(), VSR_FRAMES, batch=1, h=320, w=512, ctx_dim=1024)
     phase_ab_turbo("ab_turbo_base", UNetConfig.base_t2v(), 16, batch=2, h=40, w=64, ctx_dim=768)
+    mark("turbo_kernels, ab_turbo")
     ckpt_launches = phase_ckpt()
+    mark("ckpt")
     cascade_launches = phase_cascade()
+    mark("cascade")
 
     def entry(name, source, replaces, row, note=None, counter=None, ab=None, extra=None):
         counter = counter or name
@@ -3202,12 +3274,13 @@ def main() -> int:
               "lavie_tpu/kernels/cross_attention.py:75", cross_rows["cross_attention"][0],
               note="opt-in (LAVIE_ATTN2=cross); the cascade path takes LAVIE_ATTN2=fused, so its "
                    "in-model launches are those of the ab_attn2 phase and, over the image "
-                   "path's 154 keys (cross_long_kernel), of the image phase's A/B forward",
+                   "path's 154 keys (the 160-key wgmma body), of the image phase's A/B forward",
               ab=ab_attn2_launches["cross"],
               extra={"launches_image_ab": image_launches["cross_attention_ab"],
-                     "keys_154": {k: cross_rows["cross_attention_154"][0][k]
-                                  for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                            "bound_by", "library_ms", "launch_ms")}}),
+                     "keys_154": [{k: r[k] for k in CROSS_ROW_KEYS}
+                                  for r in cross_rows["cross_attention_154"]],
+                     "keys_256": [{k: r[k] for k in CROSS_ROW_KEYS + ("threads",)}
+                                  for r in cross_rows["cross_attention_256"]]}),
         entry("fused_ln_cross_attention", "lavie_tpu_torch/csrc/cross_block.cu",
               "lavie_tpu/kernels/cross_block.py:293", cross_rows["fused_ln_cross_attention"][0],
               note="entry fused_ln_cross_attention_bf16: fused_ln_kernel (the LayerNorm pass), "

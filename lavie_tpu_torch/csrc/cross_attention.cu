@@ -13,7 +13,8 @@
 //   p = exact max-subtracted softmax over j in one pass (the whole kv is
 //       resident, so no online rescale), e_j / sum_j e_j (a division
 //       rounded to nearest, as the TPU body divides: csrc/cross_attn.cuh's
-//       div_by_sum at L <= 80, div.rn.f32 above), rounded to bf16;
+//       div_by_sum in the wgmma body, div.rn.f32 in cross_long_kernel),
+//       rounded to bf16;
 //   out = p v accumulated in fp32, rounded once to bf16.
 // Layout: q, out (B, S, H, D) and k, v (B, L, H, D), as the projections
 // produce them; D a multiple of 8 up to 160; any S (the last tile is
@@ -37,21 +38,29 @@
 // one 128-byte swizzled TMA box per 64 columns of a 4-D map over (D, H, S,
 // B) (the flash kernel's map; TMA zero-fills the columns past D and the rows
 // past S or L).
-//   L <= 80 (the 77 text tokens; cross_kernel, on the body in
-//     csrc/cross_attn.cuh that csrc/cross_head.cu shares): two consumer warpgroups
-//     take the block's items in turn, on wgmma like the flash body: S = Q K^T
-//     (m64n80k16, both operands K-major in the swizzled boxes), the softmax
-//     in the accumulator registers with quad shuffles and ex2, then O = P V
-//     with P from registers and V an MN-major B operand, so V needs no
-//     transpose and no ldmatrix runs at all. The output tile goes back into
-//     its query tile's stage, laid out as the box, and leaves by one TMA
-//     store of whole rows, as coalesced as the loads; the stage returns to
-//     the producer once a later store shows it read.
-//   80 < L <= 256 (cross_long_kernel): a row's 256 scores do not fit beside
-//     a wgmma accumulator, so each warp owns 16 queries on mma.sync m16n8k16,
-//     Q and K fragments by ldmatrix, V by ldmatrix.trans (the swizzle keeps
-//     the eight rows of each ldmatrix in distinct banks), P straight from
-//     the score registers, and stores from registers.
+//   L <= 256 but for d > 128 past 160 keys (cross_kernel<DP, NK>, on the
+//     body in csrc/cross_attn.cuh that csrc/cross_head.cu and
+//     csrc/cross_block.cu share at 80 keys): the score tile is NK keys wide,
+//     80 for the 77 text tokens, 160 for 80 < L <= 160 (the image path's 77
+//     text + 77 mapped keys), 256 above at d <= 128; K and V are loaded NK
+//     rows deep. Two consumer warpgroups take the block's items in turn (one
+//     at 256 keys, in a block of 256 threads: its 128 score registers a
+//     thread do not fit under the 168 a block of 384 allows), on wgmma like
+//     the flash body: S = Q K^T (m64nNKk16, both operands K-major
+//     in the swizzled boxes), the softmax in the accumulator registers with
+//     quad shuffles and ex2, then O = P V with P from registers and V an
+//     MN-major B operand, so V needs no transpose and no ldmatrix runs at
+//     all. The output tile goes back into its query tile's stage, laid out
+//     as the box, and leaves by one TMA store of whole rows, as coalesced as
+//     the loads; the stage returns to the producer once a later store shows
+//     it read. Each consumer holds up to two stages, so the ring needs two
+//     a consumer warpgroup; the plan gives every instance four or more.
+//   160 < L <= 256 at d > 128 (cross_long_kernel<144|160>, mma.sync): K and
+//     V alone take 196,608 bytes 256 rows deep, which leaves room for one
+//     query tile and not the wgmma body's four. Each warp owns 16 queries on
+//     mma.sync m16n8k16, Q and K fragments by ldmatrix, V by ldmatrix.trans
+//     (the swizzle keeps the eight rows of each ldmatrix in distinct banks),
+//     P straight from the score registers, and stores from registers.
 // The next tiles' loads are in flight meanwhile.
 
 #include "cross_attn.cuh"
@@ -63,6 +72,7 @@ using namespace xattn;
 using tiles::mma16816;
 
 constexpr int LONG_KEYS = 256;  // keys a thread's scores cover in cross_long_kernel
+constexpr int WIDE_MAX_D = 128;  // head dims of the 256-key wgmma body: K and V in two slabs
 
 __device__ __forceinline__ void ldsm4(uint32_t* r, uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -75,17 +85,17 @@ __device__ __forceinline__ void ldsm4_t(uint32_t* r, uint32_t addr) {
                : "r"(addr));
 }
 
-// ---- L <= 80: wgmma -------------------------------------------------------
+// ---- L <= NK keys: wgmma ---------------------------------------------------
 
-template <int DP>
-__global__ void __launch_bounds__(THREADS, 1) cross_kernel(
+template <int DP, int NK>
+__global__ void __launch_bounds__(threads_at<NK>(), 1) cross_kernel(
     const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
     const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
     const CrossArgs a) {
-  cross_body<DP>(&tm_q, &tm_k, &tm_v, &tm_o, a);
+  cross_body<DP, NK>(&tm_q, &tm_k, &tm_v, &tm_o, a);
 }
 
-// ---- 80 < L <= 256: mma.sync ----------------------------------------------
+// ---- 160 < L <= 256 at d > 128: mma.sync -----------------------------------
 
 constexpr int LONG_THREADS = 160;  // 64-query tiles: four warps, and the producer warp
 
@@ -216,28 +226,46 @@ __global__ void __launch_bounds__(LONG_THREADS, 1) cross_long_kernel(
   }
 }
 
+// the score tile's width of the wgmma body for L keys at head dim D, or 0
+// for cross_long_kernel
+inline int key_width(int L, int D) {
+  if (L <= KEYS) return KEYS;
+  if (L <= MID_KEYS) return MID_KEYS;
+  return D <= WIDE_MAX_D ? WIDE_KEYS : 0;
+}
+
+template <int DP, int NK>
+cudaError_t launch_wgmma(const CUtensorMap (&m)[4], const CrossArgs& a, int grid, int smem,
+                         cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(cross_kernel<DP, NK>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  cross_kernel<DP, NK><<<grid, threads_at<NK>(), smem, st>>>(m[0], m[1], m[2], m[3], a);
+  return cudaGetLastError();
+}
+
 template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const CrossArgs& a, int B,
                    int grid, int smem, cudaStream_t st) {
   constexpr int SLABS = Cfg<DP>::SLABS;
-  const bool wide = a.L <= KEYS;
-  // the wide kernel holds up to two stages a consumer warpgroup
-  if (smem < smem_need(SLABS, a.kv_rows, a.stages, a.tile) || (wide && a.stages < 2 * CW))
+  const int nk = key_width(a.L, a.D);
+  // the wgmma body holds up to two stages a consumer warpgroup
+  const int consumers = nk == WIDE_KEYS ? consumers_at<WIDE_KEYS>() : CW;
+  if (smem < smem_need(SLABS, a.kv_rows, a.stages, a.tile) || (nk && a.stages < 2 * consumers))
     return cudaErrorInvalidValue;
-  CUtensorMap mq, mk, mv, mo;
-  if (!make_maps(&mq, &mk, &mv, &mo, q, k, v, a, B)) return cudaErrorNotSupported;
-  cudaError_t err;
-  if (wide) {
-    err = cudaFuncSetAttribute(cross_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    cross_kernel<DP><<<grid, THREADS, smem, st>>>(mq, mk, mv, mo, a);
+  CUtensorMap m[4];
+  if (!make_maps(&m[0], &m[1], &m[2], &m[3], q, k, v, a, B)) return cudaErrorNotSupported;
+  if (nk == KEYS) return launch_wgmma<DP, KEYS>(m, a, grid, smem, st);
+  if (nk == MID_KEYS) return launch_wgmma<DP, MID_KEYS>(m, a, grid, smem, st);
+  if constexpr (DP <= WIDE_MAX_D) {
+    return launch_wgmma<DP, WIDE_KEYS>(m, a, grid, smem, st);
   } else {
-    err = cudaFuncSetAttribute(cross_long_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    cudaError_t err = cudaFuncSetAttribute(cross_long_kernel<DP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
-    cross_long_kernel<DP><<<grid, LONG_THREADS, smem, st>>>(mq, mk, mv, a);
+    cross_long_kernel<DP><<<grid, LONG_THREADS, smem, st>>>(m[0], m[1], m[2], a);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 cudaError_t dispatch(const void* q, const void* k, const void* v, const CrossArgs& a, int B,
@@ -278,10 +306,11 @@ extern "C" int cross_attention_bf16(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   const long long items = (long long)B * H * ((S + tile - 1) / tile);
   if (grid > items || items > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  // L <= KEYS: K and V are loaded KEYS rows deep, TMA zero-filling the
-  // rows past L, so that P V (over all KEYS rows of V) multiplies p = 0 by
-  // zeros and never by what lies past the V slab
-  const int kv_rows = L <= KEYS ? KEYS : (L + 15) / 16 * 16;
+  // the wgmma body loads K and V NK rows deep, TMA zero-filling the rows
+  // past L, so that P V (over all NK rows of V) multiplies p = 0 by zeros
+  // and never by what lies past the V slab
+  const int nk = key_width(L, D);
+  const int kv_rows = nk ? nk : (L + 15) / 16 * 16;
   const CrossArgs a{static_cast<bf16*>(out), S, H, D, L, kv_rows, tile, stages, (int)items,
                     scale * 1.4426950408889634f};
   return (int)dispatch(q, k, v, a, B, grid, smem, static_cast<cudaStream_t>(stream));

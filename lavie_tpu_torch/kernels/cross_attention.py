@@ -1,13 +1,16 @@
 """Short-kv cross attention: softmax(q·kᵀ·scale)·v of long query sequences
-against at most 256 keys (the 77 text tokens), port of
-lavie_tpu.kernels.cross_attention.cross_attention.
+against at most 256 keys (the 77 text tokens; the image path's 77 text and
+77 mapped), port of lavie_tpu.kernels.cross_attention.cross_attention.
 
 q (B, S, H, D) against k, v (B, L, H, D): scores accumulated and scaled in
 fp32 (the scale on the scores, not on q), a one-pass fp32 softmax (the whole
 kv is resident) whose probabilities are rounded to the activation dtype
 before P·V, P·V accumulated in fp32 and rounded once. The CUDA kernel
 (csrc/cross_attention.cu) takes any S: the JAX wrapper's block restrictions
-(S a multiple of 128 or more) were the TPU's tiling.
+(S a multiple of 128 or more) were the TPU's tiling. Its wgmma body holds a
+score tile 80, 160 or 256 keys wide (the narrowest that covers L); past 160
+keys at head dims above 128, where K and V leave no room for its ring, an
+mma.sync kernel takes the call.
 
   cross_attention            the wrapper: the CUDA kernel for a CUDA
                              tensor, the plain version for a CPU tensor
@@ -37,7 +40,12 @@ SLAB_BYTES = 128  # a 64-column row of a 128-byte swizzled TMA box
 # the kernel's shared memory besides its tiles: 1 KB to align them to the
 # swizzle atom, and the mbarriers
 RESERVED = 1024 + 16 * (MAX_STAGES + 1)
-WIDE_KEYS = 80  # L up to this: the wgmma kernel; above it the mma.sync kernel
+KEY_WIDTHS = (80, 160, 256)  # the wgmma body's score tiles: the narrowest with L <= width
+WIDE_MAX_D = 128  # head dims the 256-key tile takes; above, the mma.sync kernel past 160 keys
+# threads of the wgmma body: a producer warpgroup and two consumer
+# warpgroups; at 256 keys one consumer, whose 128 score registers a thread
+# a block of 384 threads could not hold
+WGMMA_THREADS = {80: 384, 160: 384, 256: 256}
 
 
 @dataclass(frozen=True)
@@ -46,12 +54,17 @@ class LaunchPlan:
     queries of one (batch, head); items are numbered head fastest, then query
     tile, then batch, and block i of the `grid` persistent blocks (one an SM)
     takes items i, i + grid, ...; each holds its head's K and V (`kv_rows`
-    rows each: 80 for L <= 80, the rows the wgmma products read, zero-filled
-    past L; else L rounded up to 16) and a ring of `stages` query tiles. `key_regs` names the
-    kernel: 80, the wgmma one (a producer warpgroup and two consumer
-    warpgroups taking the items in turn, L <= 80; each consumer holds up to
-    two stages, the second until its output store has read it), or 256, the
-    mma.sync one (four warps of 16 queries and a producer warp)."""
+    rows each: the wgmma body's `key_regs`, the rows its products read,
+    zero-filled past L; for the mma.sync kernel L rounded up to 16) and a
+    ring of `stages` query tiles. `key_regs` is the width of the score tile
+    and `threads` names the kernel: 384 or 256, the wgmma body at 80, 160
+    or 256 keys (the narrowest with L <= key_regs; a producer warpgroup and
+    two consumer warpgroups taking the items in turn, one at 256 keys, each
+    holding up to two stages, the second until its output store has read
+    it; the plan asks four or more), or 160, cross_long_kernel on mma.sync
+    (key_regs 256: four warps of 16 queries and a producer warp), for
+    160 < L <= 256 at d > 128 only, where K and V, 256 rows of three slabs,
+    leave room for one stage."""
     tile: int
     kv_rows: int
     key_regs: int
@@ -75,12 +88,13 @@ def launch_plan(b: int, s: int, heads: int, d: int, lkv: int, sm_count: int) -> 
     if b > 65535 or heads > 65535:
         raise ValueError(f"cross attention kernel: batch {b}, heads {heads}")
     slabs = -(-d // 64)
-    key_regs = WIDE_KEYS if lkv <= WIDE_KEYS else MAX_KV
-    kv_rows = WIDE_KEYS if lkv <= WIDE_KEYS else -(-lkv // 16) * 16
+    key_regs = next(n for n in KEY_WIDTHS if lkv <= n)
+    wgmma = key_regs < MAX_KV or d <= WIDE_MAX_D
+    kv_rows = key_regs if wgmma else -(-lkv // 16) * 16
     kv_bytes = 2 * slabs * kv_rows * SLAB_BYTES
     stage = slabs * TILE * SLAB_BYTES
     stages = min(MAX_STAGES, (SMEM_MAX - RESERVED - kv_bytes) // stage)
-    if stages < (4 if key_regs == WIDE_KEYS else 1):
+    if stages < (4 if wgmma else 1):
         raise ValueError(f"cross attention kernel: {kv_bytes + stage + RESERVED} shared bytes")
     items = b * heads * -(-s // TILE)
     if items > 2**31 - 1:
@@ -89,7 +103,7 @@ def launch_plan(b: int, s: int, heads: int, d: int, lkv: int, sm_count: int) -> 
     if grid >= heads:  # a multiple of H: each block keeps one head
         grid -= grid % heads
     return LaunchPlan(tile=TILE, kv_rows=kv_rows, key_regs=key_regs, slabs=slabs, stages=stages,
-                      threads=384 if key_regs == WIDE_KEYS else (TILE // 16 + 1) * 32,
+                      threads=WGMMA_THREADS[key_regs] if wgmma else (TILE // 16 + 1) * 32,
                       items=items, grid=grid, smem_bytes=RESERVED + kv_bytes + stages * stage)
 
 

@@ -43,8 +43,9 @@ def _qkv(seed, b, s, h, d, lkv):
             rng.randn(b, lkv, h, d).astype(np.float32))
 
 
-def test_cross_attention_plain_matches_pallas_interpret():
-    q, k, v = _qkv(200, 1, 256, 2, 64, 77)
+@pytest.mark.parametrize("lkv", [77, 154, 256])  # text; the image path's text + mapped; the most
+def test_cross_attention_plain_matches_pallas_interpret(lkv):
+    q, k, v = _qkv(200, 1, 256, 2, 64, lkv)
     want = jax_cross(J(q), J(k), J(v), scale=0.125, interpret=True)
     got = ca.cross_attention_reference(t(q), t(k), t(v), 0.125)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)

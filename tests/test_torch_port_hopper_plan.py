@@ -88,7 +88,7 @@ def test_geglu_plan_refuses_what_the_kernels_cannot_take(n, c):
 
 
 CROSS_DIMS = [8, 40, 64, 80, 128, 136, 160]
-CROSS_KEYS = [1, 16, 77, 80, 81, 200, 256]
+CROSS_KEYS = [1, 16, 77, 80, 81, 154, 160, 161, 200, 256]
 
 
 @pytest.mark.parametrize("lkv", CROSS_KEYS)
@@ -96,25 +96,43 @@ CROSS_KEYS = [1, 16, 77, 80, 81, 200, 256]
 def test_cross_plan_fits_the_card(d, lkv):
     for b, s, h in ((2, 40960, 8), (1, 20480, 8), (2, 640, 8), (3, 37, 2), (1, 1, 1)):
         p = ca.launch_plan(b, s, h, d, lkv, H100_SMS)
-        # L <= 80: the wgmma kernel (a producer and two consumer warpgroups,
-        # each holding up to two stages); longer: the mma.sync kernel (four
-        # warps of 16 queries and a producer warp)
-        assert p.key_regs == (80 if lkv <= 80 else 256)
-        assert p.threads == (384 if lkv <= 80 else 160) and p.tile == 64
-        assert p.stages >= (4 if lkv <= 80 else 1)
-        # wgmma's score tile is 80 keys wide and P·V reads all 80 V rows, so
-        # the wgmma kernel loads 80 (zero-filled past L); K and V rows are
-        # whole k16 steps
+        # the wgmma body's score tile is the narrowest of 80, 160 and 256
+        # keys that holds L; past 160 keys at d > 128 (three slabs) K and V
+        # leave room for one stage, and the mma.sync kernel takes the call
+        # (four warps of 16 queries and a producer warp)
+        width = 80 if lkv <= 80 else 160 if lkv <= 160 else 256
+        wgmma = lkv <= 160 or d <= 128
+        assert p.key_regs == width and p.tile == 64
+        # a producer warpgroup and two consumer warpgroups; at 256 keys one
+        # (a block of 384 threads caps a thread below its 128 scores)
+        assert p.threads == ((384 if width < 256 else 256) if wgmma else 160)
+        # each consumer holds up to two stages: every wgmma instance has a
+        # ring of four or more
+        assert p.stages >= (4 if wgmma else 1)
+        # wgmma's score tile is key_regs keys wide and P·V reads all of its
+        # V rows, so the wgmma body loads key_regs rows (zero-filled past
+        # L); K and V rows are whole k16 steps
         assert p.kv_rows % 16 == 0 and lkv <= p.kv_rows <= p.key_regs
-        assert p.kv_rows == (80 if lkv <= 80 else -(-lkv // 16) * 16)
+        assert p.kv_rows == (width if wgmma else -(-lkv // 16) * 16)
         assert p.slabs * 64 >= d and (p.slabs - 1) * 64 < d
         assert 1 <= p.stages <= ca.MAX_STAGES
         kv = 2 * p.slabs * p.kv_rows * ca.SLAB_BYTES
         stage = p.slabs * p.tile * ca.SLAB_BYTES
         # every box starts on a 1 KB swizzle atom
         assert kv % 1024 == 0 and stage % 1024 == 0
-        assert p.smem_bytes == ca.RESERVED + kv + p.stages * stage <= ca.SMEM_MAX
+        assert p.smem_bytes == ca.RESERVED + kv + p.stages * stage <= ca.SMEM_MAX == 232_448
         assert 1 <= p.grid <= min(p.items, H100_SMS)
+
+
+def test_cross_plan_at_the_image_path_keys():
+    """The image path's 154 keys at the base head dims take the 160-key
+    wgmma body: K and V 160 rows deep, and at d = 160 the ring's four
+    stages beside them (2·3·160·128 + 4·24,576 + the reserve ≤ 232,448)."""
+    for d, stages in ((40, 8), (80, 8), (160, 4)):
+        p = ca.launch_plan(2, 640, 8, d, 154, H100_SMS)
+        assert (p.key_regs, p.kv_rows, p.threads, p.stages) == (160, 160, 384, stages)
+    p = ca.launch_plan(2, 640, 8, 160, 154, H100_SMS)
+    assert p.smem_bytes == ca.RESERVED + 122_880 + 4 * 24_576
 
 
 def _walk(p, b, s, h):
@@ -136,7 +154,8 @@ def _walk(p, b, s, h):
 
 
 @pytest.mark.parametrize("s", [1, 37, 64, 129, 1000, 20480])
-@pytest.mark.parametrize("d,lkv", [(8, 1), (40, 77), (80, 80), (128, 81), (160, 256)])
+@pytest.mark.parametrize("d,lkv", [(8, 1), (40, 77), (80, 80), (128, 81), (40, 154), (160, 154),
+                                   (128, 256), (160, 256)])
 def test_cross_plan_covers_every_query_once(d, lkv, s):
     for b, h in ((2, 8), (3, 1)):
         p = ca.launch_plan(b, s, h, d, lkv, H100_SMS)

@@ -247,7 +247,7 @@ def test_head_plan_fits_the_card(c, n, b, lkv, sms):
     # the attention: the text cross attention's wgmma kernel at head dim 64,
     # K and V 80 rows deep, its ring of query tiles beside them in 227 KB
     a = p.attn
-    assert a.key_regs == ca.WIDE_KEYS and a.kv_rows == 80 and a.slabs == 1 and a.tile == 64
+    assert a.key_regs == ca.KEY_WIDTHS[0] == a.kv_rows == 80 and a.slabs == 1 and a.tile == 64
     assert a.threads == 384 and 4 <= a.stages <= ca.MAX_STAGES
     assert a.smem_bytes == ca.RESERVED + 2 * 80 * ca.SLAB_BYTES + a.stages * 64 * ca.SLAB_BYTES
     assert a.smem_bytes <= ca.SMEM_MAX
