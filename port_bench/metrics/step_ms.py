@@ -1,0 +1,7 @@
+"""Wall milliseconds of the window over the UNet forwards (denoising steps)
+completed in it; each request's text encoding, VAE passes and copy to the
+host fall inside the window where they happen."""
+
+
+def read(ctx):
+    return ctx.window_s / ctx.forwards * 1e3 if ctx.forwards else None
