@@ -17,6 +17,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from lavie_tpu_torch.utils.profiling import span
+
 
 def needs_grad(tensors: Sequence[Optional[torch.Tensor]]) -> bool:
     """Grad mode is on and one of `tensors` requires grad."""
@@ -46,8 +48,8 @@ class KernelWithPlainBackward(torch.autograd.Function):
     def backward(ctx, grad_out):
         saved = ctx.saved_tensors
         wants = ctx.needs_input_grad[2:]
-        # a profiler range per call, so a trace shows the recompute's share
-        with torch.profiler.record_function("plain_backward"), torch.enable_grad():
+        # a span per call, so a trace shows the recompute's share
+        with span("plain_backward"), torch.enable_grad():
             inputs = [t.detach().requires_grad_(w) if t is not None else None
                       for t, w in zip(saved, wants)]
             out = ctx.reference(*inputs)

@@ -20,6 +20,7 @@ from lavie_tpu_torch.nn.layers import (
     TemporalConv,
     groupnorm_affine_from_moments,
 )
+from lavie_tpu_torch.utils.profiling import span
 
 
 class ResnetBlock3D(nn.Module):
@@ -45,16 +46,17 @@ class ResnetBlock3D(nn.Module):
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
         """x (B, F, H, W, C); temb (B, temb_channels)."""
-        h = self.conv1(F.silu(self.norm1(x)))
-        if temb is not None and self.time_emb_proj is not None:
-            h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-        h = self.conv2(F.silu(self.norm2(h)))
-        if self.conv_shortcut is not None:
-            x = self.conv_shortcut(x)
-        out = x + h
-        if self.output_scale_factor != 1.0:
-            out = out / self.output_scale_factor
-        return out
+        with span("resnet"):
+            h = self.conv1(F.silu(self.norm1(x)))
+            if temb is not None and self.time_emb_proj is not None:
+                h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
+            h = self.conv2(F.silu(self.norm2(h)))
+            if self.conv_shortcut is not None:
+                x = self.conv_shortcut(x)
+            out = x + h
+            if self.output_scale_factor != 1.0:
+                out = out / self.output_scale_factor
+            return out
 
 
 class Upsample3D(nn.Module):

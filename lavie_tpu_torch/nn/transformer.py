@@ -60,6 +60,7 @@ from lavie_tpu_torch.kernels.temporal_proj import ln_qkv, out_proj_residual
 from lavie_tpu_torch.nn.attention import Attention, SparseCausalAttention, TemporalAttention
 from lavie_tpu_torch.nn.layers import GroupNorm
 from lavie_tpu_torch.nn.resnet import ResnetBlock3DCNN
+from lavie_tpu_torch.utils.profiling import span
 
 ATTN2_ROUTES = ("", "cross", "fused")
 
@@ -269,6 +270,11 @@ class Transformer3D(nn.Module):
     def forward(self, hidden_states: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor]) -> torch.Tensor:
         """hidden_states (B, F, H, W, C); encoder_hidden_states (B, L, D)."""
+        with span("transformer"):
+            return self._forward(hidden_states, encoder_hidden_states)
+
+    def _forward(self, hidden_states: torch.Tensor,
+                 encoder_hidden_states: Optional[torch.Tensor]) -> torch.Tensor:
         b, f, h, w, c = hidden_states.shape
         if self.resblock_temporal is not None:
             hidden_states = self.resblock_temporal(hidden_states)

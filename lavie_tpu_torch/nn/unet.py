@@ -42,6 +42,7 @@ from lavie_tpu_torch.nn.layers import GroupNorm, InflatedConv, TimestepEmbedding
 from lavie_tpu_torch.nn.resnet import Downsample3D, ResnetBlock3D, Upsample3D
 from lavie_tpu_torch.nn.temporal_module import TemporalModule3D
 from lavie_tpu_torch.nn.transformer import FeedForward, Transformer3D
+from lavie_tpu_torch.utils.profiling import span
 
 Prefix = Tuple[torch.Tensor, List[torch.Tensor]]
 
@@ -355,7 +356,7 @@ class UNet3D(nn.Module):
                 prefix: Optional[Prefix] = None, frames: Optional[int] = None) -> torch.Tensor:
         """`frames`: the videos' frame count when `sample` holds this rank's
         share of them over the mesh's sp axis (set_mesh); None: every frame."""
-        with self._frame_sharded(sample, frames):
+        with span("unet"), self._frame_sharded(sample, frames):
             return self._forward(sample, timesteps, encoder_hidden_states, class_labels, prefix)
 
     def _forward(self, sample: torch.Tensor, timesteps: torch.Tensor,

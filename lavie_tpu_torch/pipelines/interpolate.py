@@ -43,6 +43,7 @@ from lavie_tpu_torch.io.tokenizer import CLIPTokenizer
 from lavie_tpu_torch.nn.vae import AutoencoderKL
 from lavie_tpu_torch.pipelines.t2v import PipelineOutput, TextToVideoPipeline
 from lavie_tpu_torch.utils.masks import mask_generation
+from lavie_tpu_torch.utils.profiling import span
 
 
 def copied_video_indices(num_out_frames: int = 61) -> np.ndarray:
@@ -141,52 +142,62 @@ class VideoInterpolationPipeline(TextToVideoPipeline):
         noise, `text_states` (2, L, D) [uncond; cond] the text encoder, and
         `encoder_noise` the VAE posterior's ε at the encoded slots.
         `encode_chunk` frames are decoded at a time."""
-        cfg = self.sampling
-        steps = num_inference_steps or cfg.num_inference_steps
-        guidance = guidance_scale if guidance_scale is not None else cfg.guidance_scale
+        with span("request"):
+            cfg = self.sampling
+            steps = num_inference_steps or cfg.num_inference_steps
+            guidance = guidance_scale if guidance_scale is not None else cfg.guidance_scale
 
-        frames = np.asarray(video)
-        if frames.dtype == np.uint8:
-            frames = frames.astype(np.float32) / 127.5 - 1.0
-        # resample onto the out_frames grid (reference reads 61 frames via
-        # linspace over the source, interpolation/sample.py:73-81)
-        idx = np.linspace(0, frames.shape[0] - 1, out_frames).round().astype(int)
-        frames = frames[idx][None]
-        b, _, height, width, _ = frames.shape
+            frames = np.asarray(video)
+            if frames.dtype == np.uint8:
+                frames = frames.astype(np.float32) / 127.5 - 1.0
+            # resample onto the out_frames grid (reference reads 61 frames via
+            # linspace over the source, interpolation/sample.py:73-81)
+            idx = np.linspace(0, frames.shape[0] - 1, out_frames).round().astype(int)
+            frames = frames[idx][None]
+            b, _, height, width, _ = frames.shape
 
-        if text_states is not None:
-            states = torch.as_tensor(np.asarray(text_states), device=self.device).to(self.dtype)
-        else:
-            states = self.encode_prompts([prompt] * b, negative_prompt)
-
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        f8 = self.vae_config.downscale_factor
-        shape = (b, out_frames, height // f8, width // f8, 4)
-        if latents is None:
-            x = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
-        else:
-            x = torch.as_tensor(np.asarray(latents, np.float32), device=self.device).reshape(shape)
-        extra = self._conditioning(frames, out_frames, gen, mask_type, seed, encoder_noise)
-        _, on_sp = self._shard_axes(b, out_frames, shard_frames=True)
-        x, extra = self._local(x, False, on_sp), self._local(extra, False, on_sp)
-        sharded = out_frames if on_sp else None
-
-        ts, pts = spaced_timesteps(steps, cfg.num_train_timesteps)
-        for t, pt in zip(ts.tolist(), pts.tolist()):
-            xin = torch.cat([torch.cat([x, x]).to(self.dtype), extra], dim=-1)
-            tt = torch.full((2 * b,), t, device=self.device, dtype=torch.float32)
-            e = classifier_free_guidance(self.unet(xin, tt, states, frames=sharded).float(),
-                                         guidance)
-            if cfg.sample_method == "ddpm":
-                # OpenAI p_sample on the spaced chain, FIXED_LARGE variance
-                noise = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
-                noise = self._local(noise, False, on_sp)
-                x = ddpm_step(self.schedule, x, e, t, pt, noise, clip_sample=cfg.clip_sample,
-                              variance_type="fixed_large")
-            elif cfg.sample_method == "ddim":
-                x = ddim_step(self.schedule, x, e, t, pt, clip_sample=cfg.clip_sample)
+            if text_states is not None:
+                states = torch.as_tensor(np.asarray(text_states), device=self.device).to(self.dtype)
             else:
-                raise NotImplementedError(f"sample_method {cfg.sample_method} for TSR")
-        video = self._whole(self._decode(x, encode_chunk), b, out_frames, False, on_sp)
-        x = self._whole(x, b, out_frames, False, on_sp)
-        return PipelineOutput(video=video.cpu().numpy(), latents=x)
+                with span("text_encode"):
+                    states = self.encode_prompts([prompt] * b, negative_prompt)
+
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            f8 = self.vae_config.downscale_factor
+            shape = (b, out_frames, height // f8, width // f8, 4)
+            if latents is None:
+                x = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+            else:
+                x = torch.as_tensor(np.asarray(latents, np.float32), device=self.device)
+                x = x.reshape(shape)
+            with span("vae_encode"):
+                extra = self._conditioning(frames, out_frames, gen, mask_type, seed, encoder_noise)
+            _, on_sp = self._shard_axes(b, out_frames, shard_frames=True)
+            x, extra = self._local(x, False, on_sp), self._local(extra, False, on_sp)
+            sharded = out_frames if on_sp else None
+
+            ts, pts = spaced_timesteps(steps, cfg.num_train_timesteps)
+            for k, (t, pt) in enumerate(zip(ts.tolist(), pts.tolist())):
+                with span("step", k=k, t=t):
+                    xin = torch.cat([torch.cat([x, x]).to(self.dtype), extra], dim=-1)
+                    tt = torch.full((2 * b,), t, device=self.device, dtype=torch.float32)
+                    pred = self.unet(xin, tt, states, frames=sharded).float()
+                    e = classifier_free_guidance(pred, guidance)
+                    if cfg.sample_method == "ddpm":
+                        # OpenAI p_sample on the spaced chain, FIXED_LARGE variance
+                        noise = torch.randn(shape, generator=gen, device=self.device,
+                                            dtype=torch.float32)
+                        noise = self._local(noise, False, on_sp)
+                        x = ddpm_step(self.schedule, x, e, t, pt, noise,
+                                      clip_sample=cfg.clip_sample, variance_type="fixed_large")
+                    elif cfg.sample_method == "ddim":
+                        x = ddim_step(self.schedule, x, e, t, pt, clip_sample=cfg.clip_sample)
+                    else:
+                        raise NotImplementedError(f"sample_method {cfg.sample_method} for TSR")
+            with span("vae_decode"):
+                video = self._decode(x, encode_chunk)
+            video = self._whole(video, b, out_frames, False, on_sp)
+            x = self._whole(x, b, out_frames, False, on_sp)
+            with span("to_host"):
+                video = video.cpu().numpy()
+            return PipelineOutput(video=video, latents=x)

@@ -56,6 +56,7 @@ from lavie_tpu_torch.nn.clip import CLIPTextModel, CLIPVisionModel
 from lavie_tpu_torch.nn.mapping import MappingNetwork
 from lavie_tpu_torch.nn.unet import UNet3D
 from lavie_tpu_torch.nn.vae import AutoencoderKL
+from lavie_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -288,77 +289,91 @@ class TextToVideoPipeline:
         """`latents` (B, F, h, w, 4) replace the seeded initial noise;
         `text_states` (2B, L, D) [uncond; cond] replace the text encoder;
         `image` conditions every prompt on one image (condition_on_image)."""
-        cfg = self.sampling
-        f8 = self.vae_config.downscale_factor
-        if latents is not None and video_length is None:
-            lat = np.asarray(latents)
-            video_length = lat.shape[1]
-            height = height or lat.shape[2] * f8
-            width = width or lat.shape[3] * f8
-        video_length = video_length or cfg.video_length
-        height, width = height or cfg.height, width or cfg.width
-        steps = num_inference_steps or cfg.num_inference_steps
-        guidance = guidance_scale if guidance_scale is not None else cfg.guidance_scale
-        method = sample_method or cfg.sample_method
+        with span("request"):
+            cfg = self.sampling
+            f8 = self.vae_config.downscale_factor
+            if latents is not None and video_length is None:
+                lat = np.asarray(latents)
+                video_length = lat.shape[1]
+                height = height or lat.shape[2] * f8
+                width = width or lat.shape[3] * f8
+            video_length = video_length or cfg.video_length
+            height, width = height or cfg.height, width or cfg.width
+            steps = num_inference_steps or cfg.num_inference_steps
+            guidance = guidance_scale if guidance_scale is not None else cfg.guidance_scale
+            method = sample_method or cfg.sample_method
 
-        prompts = [prompt] if isinstance(prompt, str) else list(prompt)
-        if text_states is not None:
-            states = torch.as_tensor(np.asarray(text_states), device=self.device).to(self.dtype)
-            batch = states.shape[0] // 2
-        else:
-            states = self.encode_prompts(prompts, negative_prompt)
-            batch = len(prompts)
-        if image is not None:
-            states = self.condition_on_image(states, image)
-
-        gen = torch.Generator(device=self.device).manual_seed(seed if seed is not None else 0)
-        shape = (batch, video_length, height // f8, width // f8, self.unet_config.in_channels)
-        if latents is None:
-            x = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
-        else:
-            x = torch.as_tensor(np.asarray(latents, np.float32), device=self.device).reshape(shape)
-        on_dp, on_sp = self._shard_axes(batch, video_length)
-        x = self._local(x, on_dp, on_sp)
-        if on_dp:  # this rank's prompts, in both CFG halves
-            states = torch.cat([shard_batch(self.mesh, h) for h in states.chunk(2)])
-        frames = video_length if on_sp else None
-
-        def eps(x: torch.Tensor, t: float, scale_in: float = 1.0) -> torch.Tensor:
-            xin = torch.cat([x, x]).to(self.dtype)
-            if scale_in != 1.0:
-                xin = xin * scale_in
-            tt = torch.full((2 * x.shape[0],), t, device=self.device, dtype=torch.float32)
-            pred = self.unet(xin, tt, states, frames=frames).float()
-            return classifier_free_guidance(pred, guidance)
-
-        if method in ("ddpm", "ddim"):
-            if method == "ddpm":
-                ts = ddpm_timesteps(steps, cfg.num_train_timesteps)
+            prompts = [prompt] if isinstance(prompt, str) else list(prompt)
+            if text_states is not None:
+                states = torch.as_tensor(np.asarray(text_states), device=self.device)
+                states = states.to(self.dtype)
+                batch = states.shape[0] // 2
             else:
-                ts = ddim_timesteps(steps, cfg.num_train_timesteps, cfg.steps_offset)
-            pts = prev_timesteps(ts, cfg.num_train_timesteps)
-            final_ab = None if cfg.set_alpha_to_one else float(self.schedule.alphas_cumprod[0])
-            for t, pt in zip(ts.tolist(), pts.tolist()):
-                e = eps(x, t)
-                if method == "ddpm":
-                    noise = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
-                    noise = self._local(noise, on_dp, on_sp)
-                    x = ddpm_step(self.schedule, x, e, t, pt, noise,
-                                  prediction_type=cfg.prediction_type, clip_sample=cfg.clip_sample)
-                else:
-                    x = ddim_step(self.schedule, x, e, t, pt, prediction_type=cfg.prediction_type,
-                                  clip_sample=cfg.clip_sample, final_alpha_bar=final_ab)
-        elif method == "eulerdiscrete":
-            ts_f, sigmas, init_sigma = euler_sigmas(self.schedule.alphas_cumprod, steps,
-                                                    cfg.num_train_timesteps)
-            x = x * init_sigma
-            for i, t in enumerate(ts_f.tolist()):
-                scale_in = float(1.0 / np.sqrt(np.float32(sigmas[i]) ** 2 + np.float32(1.0)))
-                x = euler_step(x, eps(x, t, scale_in), sigmas[i], sigmas[i + 1],
-                               prediction_type=cfg.prediction_type)
-        else:
-            raise NotImplementedError(f"sample_method {method}")
+                with span("text_encode"):
+                    states = self.encode_prompts(prompts, negative_prompt)
+                batch = len(prompts)
+            if image is not None:
+                states = self.condition_on_image(states, image)
 
-        video = self._whole(self._decode(x, decode_chunk), batch, video_length, on_dp, on_sp)
-        x = self._whole(x, batch, video_length, on_dp, on_sp)
-        return PipelineOutput(video=video.cpu().numpy(), latents=x)
+            gen = torch.Generator(device=self.device).manual_seed(seed if seed is not None else 0)
+            shape = (batch, video_length, height // f8, width // f8, self.unet_config.in_channels)
+            if latents is None:
+                x = torch.randn(shape, generator=gen, device=self.device, dtype=torch.float32)
+            else:
+                x = torch.as_tensor(np.asarray(latents, np.float32), device=self.device)
+                x = x.reshape(shape)
+            on_dp, on_sp = self._shard_axes(batch, video_length)
+            x = self._local(x, on_dp, on_sp)
+            if on_dp:  # this rank's prompts, in both CFG halves
+                states = torch.cat([shard_batch(self.mesh, h) for h in states.chunk(2)])
+            frames = video_length if on_sp else None
+
+            def eps(x: torch.Tensor, t: float, scale_in: float = 1.0) -> torch.Tensor:
+                xin = torch.cat([x, x]).to(self.dtype)
+                if scale_in != 1.0:
+                    xin = xin * scale_in
+                tt = torch.full((2 * x.shape[0],), t, device=self.device, dtype=torch.float32)
+                pred = self.unet(xin, tt, states, frames=frames).float()
+                return classifier_free_guidance(pred, guidance)
+
+            if method in ("ddpm", "ddim"):
+                if method == "ddpm":
+                    ts = ddpm_timesteps(steps, cfg.num_train_timesteps)
+                else:
+                    ts = ddim_timesteps(steps, cfg.num_train_timesteps, cfg.steps_offset)
+                pts = prev_timesteps(ts, cfg.num_train_timesteps)
+                final_ab = None if cfg.set_alpha_to_one else float(self.schedule.alphas_cumprod[0])
+                for k, (t, pt) in enumerate(zip(ts.tolist(), pts.tolist())):
+                    with span("step", k=k, t=t):
+                        e = eps(x, t)
+                        if method == "ddpm":
+                            noise = torch.randn(shape, generator=gen, device=self.device,
+                                                dtype=torch.float32)
+                            noise = self._local(noise, on_dp, on_sp)
+                            x = ddpm_step(self.schedule, x, e, t, pt, noise,
+                                          prediction_type=cfg.prediction_type,
+                                          clip_sample=cfg.clip_sample)
+                        else:
+                            x = ddim_step(self.schedule, x, e, t, pt,
+                                          prediction_type=cfg.prediction_type,
+                                          clip_sample=cfg.clip_sample, final_alpha_bar=final_ab)
+            elif method == "eulerdiscrete":
+                ts_f, sigmas, init_sigma = euler_sigmas(self.schedule.alphas_cumprod, steps,
+                                                        cfg.num_train_timesteps)
+                x = x * init_sigma
+                for k, t in enumerate(ts_f.tolist()):
+                    with span("step", k=k, t=t):
+                        sigma = np.float32(sigmas[k])
+                        scale_in = float(1.0 / np.sqrt(sigma ** 2 + np.float32(1.0)))
+                        x = euler_step(x, eps(x, t, scale_in), sigmas[k], sigmas[k + 1],
+                                       prediction_type=cfg.prediction_type)
+            else:
+                raise NotImplementedError(f"sample_method {method}")
+
+            with span("vae_decode"):
+                video = self._decode(x, decode_chunk)
+            video = self._whole(video, batch, video_length, on_dp, on_sp)
+            x = self._whole(x, batch, video_length, on_dp, on_sp)
+            with span("to_host"):
+                video = video.cpu().numpy()
+            return PipelineOutput(video=video, latents=x)

@@ -1,0 +1,13 @@
+"""Device ms a step of the profiled stretch between the CUDA events at the
+edges of the ResnetBlock3D spans (nn/resnet.py), summed: the card's wall
+time inside the resnets, idle inside them included. From the program's
+spans (port_bench/spans.py)."""
+
+from lavie_tpu_torch.utils import profiling
+
+from port_bench import spans
+
+
+def read(ctx):
+    split = spans.split_of(ctx, profiling)
+    return None if split is None else split.resnet_ms

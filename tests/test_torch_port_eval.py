@@ -235,13 +235,11 @@ def test_profiling_counts_match_jax(tmp_path):
             == jprof.count_flops_attention(2, 8, 4096, 77, 40))
     a = np.random.RandomState(14).randn(64, 48).astype(np.float32)
     b = np.random.RandomState(15).randn(48, 32).astype(np.float32)
-    want = jprof.compiled_flops(lambda x, y: x @ y, jnp.asarray(a), jnp.asarray(b))
-    assert profiling.compiled_flops(torch.matmul, t(a), t(b)) == want == 2 * 64 * 48 * 32
-    results = {}
     with profiling.trace(str(tmp_path / "prof")):
-        with profiling.device_timer("mm", results), profiling.annotate("mm"):
+        with profiling.span("mm"):
             torch.matmul(t(a), t(b))
-    assert results["mm"] >= 0 and os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    assert [sp.name for sp in profiling.spans()] == ["mm"]
+    assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
 
 
 def _clip_dirs(tmp_path):
