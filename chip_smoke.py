@@ -15,6 +15,11 @@ its result line:
                 SASS_REQUIRED (wgmma or mma, and TMA loads; multicast TMA
                 loads in the d=512 flash kernel; TMA stores where the
                 staged GEMM stores its tiles)
+  2b. group_norm  GroupNorm's two kernels (csrc/group_norm.cu) at the base,
+                TSR and VAE shapes of GROUP_NORM_SHAPES against their plain
+                version, timed beside it, the eager ops they replaced and
+                F.group_norm (a yardstick only), with their bound and device
+                ms by kernel; the profile phases count their calls a forward
   3. kernels    each kernel at every base-path and TSR-path shape against its
                 plain PyTorch version in bf16 (tolerance relative to
                 max|plain|), timed with CUDA events beside the plain version
@@ -191,7 +196,8 @@ its result line:
                 option 4 (61x1280x2048, not written) with the five opt-in
                 switches set, cut to 10 base, 10 TSR and 1 VSR step; stage seconds,
                 shapes, peak memory and exact launch counts per stage
- 23. result     a `kernels` JSON line, then the `ok` JSON line last
+ 23. result     a `kernels` JSON line, a `kernels_new` line (GroupNorm,
+                which replaces no Pallas kernel), then the `ok` JSON line last
 Launch counts are zeroed just before each path (main, eval, image, train,
 tsr, vsr, vsr_branches, tiled_decode, each sharded run of mesh, the first
 tp step, ckpt, cascade) and read just after it; the paths before the cascade run the default routes and
@@ -476,7 +482,7 @@ def phase_build() -> None:
     t0 = time.time()
     logs = _build.build(["temporal_fused", "geglu", "flash_attention", "temporal_resblock",
                          "cross_block", "cross_head", "transformer_tail", "cross_attention",
-                         "temporal_proj"])
+                         "temporal_proj", "group_norm"])
     for name, text in logs.items():
         report = ptxas_report(text)
         entries, spill_lines = text.count("Compiling entry function"), text.count("spill stores")
@@ -629,6 +635,86 @@ def phase_flash() -> tuple:
     return sparse_rows, kv_row
 
 
+# GroupNorm at the main path's shapes: (where, N, P, C, silu, shift); the
+# base UNet's resnets (N = 2 videos) and transformers (N = 32 frames), the
+# TSR UNet's L0 (61 frames) and the VAE decoder over 8 frames of 320x512
+GROUP_NORM_SHAPES = [
+    ("base resnet L0 norm1", 2, 40960, 320, True, False),
+    ("base resnet L0 norm2", 2, 40960, 320, True, True),
+    ("base up resnet L0 norm1", 2, 40960, 960, True, False),
+    ("base up resnet L1 norm1", 2, 10240, 1920, True, False),
+    ("base up resnet L2 norm1", 2, 2560, 2560, True, False),
+    ("base up resnet L3 norm1", 2, 640, 2560, True, False),
+    ("base transformer L0", 32, 2560, 320, False, False),
+    ("base transformer L1", 32, 640, 640, False, False),
+    ("base transformer L2", 32, 160, 1280, False, False),
+    ("base transformer L3", 32, 40, 1280, False, False),
+    ("TSR resnet L0 norm2", 2, 156160, 320, True, True),
+    ("TSR transformer L0", 122, 2560, 320, False, False),
+    ("VAE decoder up3", 8, 163840, 128, True, False),
+    ("VAE decoder up2", 8, 40960, 256, True, False),
+    ("VAE decoder mid", 8, 2560, 512, True, False),
+]
+GROUP_NORM_TOL = 1e-2  # of max|plain|: the statistics summed in another order
+
+
+def eager_group_norm(x, weight, bias, groups, eps, silu, shift):
+    """The ops GroupNorm ran before its kernels (nn/layers.py's route for a
+    CPU or frame-sharded call): x + shift, a fp32 copy, var_mean over a (N,
+    P, G, C/G) view, the (N, C) affine, two broadcast bf16 ops, F.silu."""
+    n, c = x.shape[0], x.shape[-1]
+    shape = (n,) + (1,) * (x.ndim - 2) + (c,)
+    if shift is not None:
+        x = x + shift.view(shape)
+    var, mean = torch.var_mean(x.reshape(n, -1, groups, c // groups).float(), dim=(1, 3),
+                               unbiased=False)
+    inv_c = torch.rsqrt(var + eps).repeat_interleave(c // groups, dim=1)
+    w = inv_c * weight.float()
+    u = bias.float() - mean.repeat_interleave(c // groups, dim=1) * w
+    y = x * w.to(x.dtype).view(shape) + u.to(x.dtype).view(shape)
+    return F.silu(y) if silu else y
+
+
+def phase_group_norm() -> list:
+    """GroupNorm's two kernels (row 16) at the main path's shapes against
+    their plain version (group_norm_reference), timed beside the plain
+    version, the eager ops they replaced (eager_ms) and F.group_norm (with
+    F.silu and the shift's add where the call has them; a yardstick the port
+    never calls), with their bound (x read twice, y written once: 6 bytes an
+    element) and the device ms by kernel (torch.profiler)."""
+    from lavie_tpu_torch.kernels import group_norm as gn
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    rows = []
+    for where, n, p, c, silu, with_shift in GROUP_NORM_SHAPES:
+        x = (torch.randn(n, p, c, generator=g, device="cuda") + 0.3).bfloat16()
+        weight = (1 + 0.1 * torch.randn(c, generator=g, device="cuda")).bfloat16()
+        bias = (0.1 * torch.randn(c, generator=g, device="cuda")).bfloat16()
+        shift = torch.randn(n, c, generator=g, device="cuda").bfloat16() if with_shift else None
+        args = (x, weight, bias, 32, 1e-6)
+        kw = {"silu": silu, "shift": shift}
+        out = gn.group_norm(*args, **kw)
+        ref = gn.group_norm_reference(*args, **kw)
+        xv = x.permute(0, 2, 1)
+
+        def library(xv=xv, weight=weight, bias=bias, shift=shift, silu=silu):
+            h = xv if shift is None else xv + shift[:, :, None]
+            y = F.group_norm(h, 32, weight, bias, 1e-6)
+            return F.silu(y) if silu else y
+
+        fn = lambda args=args, kw=kw: gn.group_norm(*args, **kw)  # noqa: E731
+        rows.append(check_row(
+            "group_norm", {"where": where, "N": n, "P": p, "C": c, "silu": silu,
+                           "shift": with_shift},
+            out, ref, GROUP_NORM_TOL, fn,
+            lambda args=args, kw=kw: gn.group_norm_reference(*args, **kw),
+            library, 6 * n * p * c, (),
+            eager_ms=time_ms(lambda: eager_group_norm(*args, silu, shift), 5, 3),
+            device_ms=kernel_ms(fn), plan=str(gn._plan(x, 32))))
+        del x, out, ref, xv
+    return rows
+
+
 class plain_kernels:
     """Within the block the UNet and VAE modules call the plain versions of
     every kernel instead of the kernels."""
@@ -636,6 +722,7 @@ class plain_kernels:
     def _swaps(self):
         import lavie_tpu_torch.kernels.attention as dpa_mod
         import lavie_tpu_torch.nn.attention as attn_mod
+        import lavie_tpu_torch.nn.layers as layers_mod
         import lavie_tpu_torch.nn.resnet as res_mod
         import lavie_tpu_torch.nn.transformer as tr_mod
         import lavie_tpu_torch.nn.vae as vae_mod
@@ -643,6 +730,7 @@ class plain_kernels:
         from lavie_tpu_torch.kernels import cross_block as cb
         from lavie_tpu_torch.kernels import flash_attention as fa
         from lavie_tpu_torch.kernels import geglu as gg
+        from lavie_tpu_torch.kernels import group_norm as gn
         from lavie_tpu_torch.kernels import temporal_fused as tf
         from lavie_tpu_torch.kernels import temporal_proj as tp
         from lavie_tpu_torch.kernels import temporal_resblock as tr
@@ -661,6 +749,8 @@ class plain_kernels:
             (tr_mod, "cross_attention_head", cb.cross_attention_head_reference),
             (tr_mod, "transformer_tail", cb.transformer_tail_reference),
             (res_mod, "gn_silu_tconv", tr.gn_silu_tconv_reference),
+            (layers_mod, "group_norm", gn.group_norm_reference),
+            (layers_mod, "group_norm_affine", gn.affine_reference),
         ]
 
     def __enter__(self):
@@ -787,15 +877,22 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
 
     x, ts, ctx, labels = unet_inputs(unet.config, batch, frames, h, w, ctx_dim, seed=4, t=500.0,
                                      keys=keys)
+    from lavie_tpu_torch.kernels.group_norm import group_norm
+
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    gn_counts = lambda: (group_norm.launches, group_norm.silu_launches,  # noqa: E731
+                         group_norm.shift_launches)
     with torch.no_grad():
         unet(x, ts, ctx, labels)
         torch.cuda.synchronize()
+        gn_before = gn_counts()
         with profile(activities=activities) as prof:
             t0 = time.time()
             unet(x, ts, ctx, labels)
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
+        gn_forward = dict(zip(("launches", "silu_launches", "shift_launches"),
+                              (a - b for a, b in zip(gn_counts(), gn_before))))
         with profile(activities=activities, record_shapes=True) as shaped:
             unet(x, ts, ctx, labels)
             torch.cuda.synchronize()
@@ -829,6 +926,7 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
         "phase": phase, "shape": list(x.shape), "wall_ms": wall_ms,
         "device_ms": busy if busy > 0 else "not measured",
         "busy_share": busy / wall_ms if busy > 0 else "not measured",
+        "device_launches": sum(n for _, _, n in top), "group_norm_calls": gn_forward,
         "groups_ms": groups,
         "top_kernels": [{"ms": ms, "name": k, "calls": n} for ms, k, n in top[:12]],
         "host_top": [{"ms": ms, "name": k, "calls": n} for ms, k, n in host[:10]],
@@ -906,6 +1004,9 @@ def phase_main() -> tuple:
     videos = []
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    from lavie_tpu_torch.kernels.group_norm import group_norm
+
+    gn_before = group_norm.launches
     for prompt in prompts:
         torch.cuda.synchronize()
         t0 = time.time()
@@ -923,6 +1024,7 @@ def phase_main() -> tuple:
             raise AssertionError(f"bad output for {prompt!r}: {video.shape} {video.dtype}")
         videos.append(video[0])
     launches = read_launches()
+    launches["group_norm"] = group_norm.launches - gn_before  # UNet and VAE, both prompts
     log(json.dumps({"phase": "main", "launches": launches,
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for name in ("temporal_attention", "geglu"):
@@ -3118,6 +3220,7 @@ def main() -> int:
     phase_device()
     phase_build()
     mark("build")
+    group_norm_rows = phase_group_norm()
     temporal_rows = phase_temporal(16, rope=32)
     phase_temporal(TSR_FRAMES, rope=0)
     geglu_rows = phase_geglu(16)
@@ -3299,6 +3402,15 @@ def main() -> int:
                    "launched on the cascade path and in ab_temporal_proj",
               ab=ab_proj_launches["1"]),
     ]}))
+    gn_row = group_norm_rows[0]  # the base UNet's L0 resnet norm1
+    log(json.dumps({"kernels_new": [{
+        "name": "group_norm", "route": "cuda", "source": "lavie_tpu_torch/csrc/group_norm.cu",
+        "replaces": "no Pallas kernel: the JAX package leaves GroupNorm to XLA "
+                    "(lavie_tpu/nn/layers.py:45, groupnorm_affine); the port's eager GroupNorm",
+        "launches_main": main_launches["group_norm"], **{k: gn_row[k] for k in BRANCH_ROW_KEYS},
+        "eager_ms": gn_row["eager_ms"], "device_ms": gn_row["device_ms"],
+        "shapes": [{k: r[k] for k in BRANCH_ROW_KEYS + ("eager_ms", "device_ms")}
+                   for r in group_norm_rows]}]}))
     log(f"[chip_smoke] {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

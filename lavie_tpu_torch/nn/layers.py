@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from lavie_tpu_torch.core.collectives import FrameShard, all_reduce_sum
+from lavie_tpu_torch.kernels._autograd import needs_grad
+from lavie_tpu_torch.kernels.group_norm import group_norm, group_norm_affine, kernel_takes
 from lavie_tpu_torch.nn import quant
 from lavie_tpu_torch.nn.embeddings import sinusoidal_timestep_embedding
 
@@ -24,6 +26,16 @@ class GroupNorm(nn.Module):
     over every axis but N and C, in fp32; the normalisation is then applied
     as one per-(N, C) multiply-add in the input dtype (lavie_tpu's
     groupnorm_affine). Consecutive channels form a group, as in torch.
+    `forward(x, shift=, silu=)` normalises x + shift[:, None, ..., :] (shift
+    (N, C), the time embedding before a resnet's norm2) and applies the SiLU
+    after it when `silu`.
+
+    A CUDA bf16 x that kernels/group_norm.py's kernels take (contiguous, C %
+    8 == 0) runs on them: the statistics from per-channel fp32 moments, the
+    shift folded into them and into the affine, the SiLU in the normalising
+    pass. Every other call runs the ops below: a CPU tensor, a width the
+    kernels do not take (the VSR v_cond_conv's 3 channels), a frame-sharded
+    call.
 
     With `frame_shard` set (UNet3D sets it for a frame-sharded forward) x is
     this rank's frames (B, F_local, H, W, C) of videos sharded over a group,
@@ -42,9 +54,15 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.frame_shard: Optional[FrameShard] = None
 
+    def _kernels_take(self, x: torch.Tensor, shift: Optional[torch.Tensor] = None) -> bool:
+        return self.frame_shard is None and kernel_takes(x, self.weight, self.bias,
+                                                         self.num_groups, shift)
+
     def affine(self, x: torch.Tensor):
         """The fp32 per-(N, C) (w, u) with GroupNorm(x) = x·w + u, for
         kernels that apply the normalisation themselves."""
+        if self._kernels_take(x) and not needs_grad((x, self.weight, self.bias)):
+            return group_norm_affine(x, self.weight, self.bias, self.num_groups, self.eps)
         n, c = x.shape[0], x.shape[-1]
         g = self.num_groups
         xf = x.reshape(n, -1, g, c // g).float()
@@ -62,11 +80,18 @@ class GroupNorm(nn.Module):
         w = inv_c * self.weight.float()
         return w, self.bias.float() - mean_c * w
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shift: Optional[torch.Tensor] = None,
+                silu: bool = False) -> torch.Tensor:
+        if self._kernels_take(x, shift):
+            return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, silu=silu,
+                              shift=shift)
         n, c = x.shape[0], x.shape[-1]
-        w, u = self.affine(x)
         shape = (n,) + (1,) * (x.ndim - 2) + (c,)
-        return x * w.to(x.dtype).view(shape) + u.to(x.dtype).view(shape)
+        if shift is not None:
+            x = x + shift.view(shape)
+        w, u = self.affine(x)
+        y = x * w.to(x.dtype).view(shape) + u.to(x.dtype).view(shape)
+        return F.silu(y) if silu else y
 
 
 def groupnorm_affine_from_moments(mean_c: torch.Tensor, meansq_c: torch.Tensor,

@@ -25,9 +25,10 @@ from lavie_tpu_torch.utils.profiling import span
 
 class ResnetBlock3D(nn.Module):
     """GN→SiLU→conv→(+temb)→GN→SiLU→conv with shortcut. The GroupNorms take
-    their statistics over all frames of a video, (F, H, W); norm2 has
-    `groups_out` groups when given (the VSR v_cond_conv: 3 on its RGB input,
-    32 after)."""
+    their statistics over all frames of a video, (F, H, W), and apply the
+    SiLU after them (GroupNorm's `silu`); norm2 takes the time embedding as
+    its `shift`, so the add runs inside it. norm2 has `groups_out` groups
+    when given (the VSR v_cond_conv: 3 on its RGB input, 32 after)."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 1280, groups: int = 32, eps: float = 1e-6,
@@ -47,10 +48,11 @@ class ResnetBlock3D(nn.Module):
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
         """x (B, F, H, W, C); temb (B, temb_channels)."""
         with span("resnet"):
-            h = self.conv1(F.silu(self.norm1(x)))
+            h = self.conv1(self.norm1(x, silu=True))
+            shift = None
             if temb is not None and self.time_emb_proj is not None:
-                h = h + self.time_emb_proj(F.silu(temb))[:, None, None, None, :]
-            h = self.conv2(F.silu(self.norm2(h)))
+                shift = self.time_emb_proj(F.silu(temb))  # norm2 of h + temb
+            h = self.conv2(self.norm2(h, shift=shift, silu=True))
             if self.conv_shortcut is not None:
                 x = self.conv_shortcut(x)
             out = x + h

@@ -30,7 +30,6 @@ import contextlib
 from typing import List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from lavie_tpu_torch.core.config import UNetConfig
@@ -384,4 +383,4 @@ class UNet3D(nn.Module):
             x = block(x, res, emb, encoder_hidden_states)
             if self.up_temporal_blocks is not None:
                 x = self.up_temporal_blocks[i](x, emb, timesteps)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))

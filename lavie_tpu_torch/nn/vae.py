@@ -44,8 +44,8 @@ class VAEResnetBlock(nn.Module):
         self.conv_shortcut = InflatedConv(cin, cout, 1) if cin != cout else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        h = self.conv2(self.norm2(h, silu=True))
         if self.conv_shortcut is not None:
             x = self.conv_shortcut(x)
         return x + h
@@ -145,7 +145,7 @@ class Encoder(nn.Module):
         for block in self.down_blocks:
             x = block(x)
         x = self.mid_block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
 
 class Decoder(nn.Module):
@@ -171,7 +171,7 @@ class Decoder(nn.Module):
     def forward_up(self, x: torch.Tensor) -> torch.Tensor:
         for block in self.up_blocks:
             x = block(x)
-        return self.conv_out(F.silu(self.conv_norm_out(x)))
+        return self.conv_out(self.conv_norm_out(x, silu=True))
 
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         return self.forward_up(self.forward_mid(z))
