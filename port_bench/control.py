@@ -29,17 +29,20 @@ def readings(cell, seeds, requests: int, device: str = "cuda", data=None) -> lis
 
     c = Cell(cell, device, data)
     rows = []
-    for i, seed in enumerate(seeds):
-        c.load(seed)
-        if i == 0:
-            c.warm_up()
-        done, _, _ = c.window(math.inf, requests)
-        prog, ctrl = check.check_run(c.config, c.workload, seed, c.device, done, c.traffic,
-                                     with_control=True)
-        row = {"seed": seed, "program": prog, "control": ctrl,
-               "request_s": [r.wall_s for r in done]}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+    try:
+        for i, seed in enumerate(seeds):
+            c.load(seed)
+            if i == 0:
+                c.warm_up()
+            done, _, _ = c.window(math.inf, requests)
+            prog, ctrl = check.check_run(c.stage, c.config, c.workload, seed, c.device, done,
+                                         c.traffic, with_control=True)
+            row = {"seed": seed, "program": prog, "control": ctrl,
+                   "request_s": [r.wall_s for r in done]}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    finally:
+        c.close()
     return rows
 
 

@@ -4,10 +4,9 @@ write them to counts/<cell>.json, which the `mfu` metric reads:
 
     python3 port_bench/count_flops.py --workload <cell> [--write]
 
-A request runs the text tower once, the UNet once a step at the CFG batch,
-the VAE encoder over the interpolation stage's key frames and the decoder
-over every output frame; `flops_per_step` spreads the text tower and the
-VAE over the request's steps.
+What a request runs is the stage's (stages/<stage>.py, `count`):
+`flops_per_step` is a denoising step's share of a request, its text tower
+and VAE passes spread over its steps.
 """
 
 from __future__ import annotations
@@ -17,50 +16,25 @@ import json
 import sys
 from pathlib import Path
 
-import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from port_bench.data import BenchData  # noqa: E402
-from port_bench.reference import models as ref  # noqa: E402
 
 
-def _flops(fn) -> int:
+def flops(fn) -> int:
+    """The flops torch's counter sees `fn` run."""
     counter = FlopCounterMode(display=False)
     with counter, torch.no_grad():
         fn()
     return int(counter.get_total_flops())
 
 
-def count(config: dict, workload: dict) -> dict:
-    b = workload["prompts_per_request"]
-    f, h, w = config["frames"], config["height"] // 8, config["width"] // 8
-    unet, vae, text = config["unet"], config["vae"], config["text"]
-    meta = torch.device("meta")
-    with meta:
-        tower, net, codec = ref.CLIPTextModel(text), ref.UNet3D(unet), ref.AutoencoderKL(vae)
-    ids = torch.zeros((2 * b, text["max_position_embeddings"]), dtype=torch.long, device=meta)
-    x = torch.zeros((2 * b, f, h, w, unet["in_channels"]), device=meta)
-    t = torch.zeros((2 * b,), device=meta)
-    states = torch.zeros((2 * b, text["max_position_embeddings"], text["hidden_size"]), device=meta)
-    out = {
-        "text": _flops(lambda: tower(ids)),
-        "unet_forward": _flops(lambda: net(x, t, states)),
-        "vae_decode": _flops(lambda: codec.decode(
-            torch.zeros((b * f, h, w, vae["latent_channels"]), device=meta))),
-        "vae_encode": 0,
-    }
-    clip = workload.get("clip")
-    if clip:
-        keys = len(np.unique(np.repeat(np.arange(0, f + 1, 4), 4)[1:f + 1]))
-        out["vae_encode"] = _flops(lambda: codec.encode(
-            torch.zeros((b * keys, config["height"], config["width"], 3), device=meta)))
-    out["steps"] = workload["steps"]
-    out["flops_per_step"] = out["unet_forward"] + (
-        out["text"] + out["vae_encode"] + out["vae_decode"]) / workload["steps"]
-    return out
+def count(config: dict, workload: dict, data: BenchData = None) -> dict:
+    """The stage's counts of the cell's work."""
+    return (data or BenchData()).stage(config["stage"]).count(config, workload)
 
 
 def main() -> int:
@@ -70,7 +44,7 @@ def main() -> int:
     args = p.parse_args()
     data = BenchData()
     workload = data.workload(args.workload)
-    counts = count(data.config(workload["config"]), workload)
+    counts = count(data.config(workload["config"]), workload, data)
     text = json.dumps(counts, indent=1)
     print(text)
     if args.write:

@@ -1,8 +1,10 @@
 """One cell's run: set-up, the timed window, the metrics and the check.
 
-`Cell` is the system under test, observed (window.py); `run_cell` is one
-run of the benchmark's command (run.py), and `control.py` drives a `Cell`
-over many seeds in one process.
+`Cell` is the system under test, the pipeline of the configuration's stage
+(stages/<stage>.py), observed (window.py); `run_cell` is one run of the
+benchmark's command (run.py), and `control.py` drives a `Cell` over many
+seeds in one process. Steps are denoising steps, whatever number of UNet
+calls the stage makes in one.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ from port_bench.data import BenchData
 
 
 class Context:
-    """What a metric's reader reads (metrics/<name>.py's read(ctx))."""
+    """What a metric's reader reads (metrics/<name>.py's read(ctx)). Its
+    `forwards`, like the stretch's, counts denoising steps; `bounds` holds
+    each kernel's bound over one step."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)
@@ -41,21 +45,20 @@ class Context:
 
 
 class Cell:
-    """One cell's system under test on `device`: the pipeline built from the
-    configuration (and the cell's libraries built), observed by the harness;
-    `load(seed)` gives it the seed's weights and traffic."""
+    """One cell's system under test on `device`: the stage's pipeline built
+    from the configuration (and the cell's libraries built), observed by the
+    harness; `load(seed)` gives it the seed's weights and traffic."""
 
     def __init__(self, cell: str, device: str = "cuda", data=None):
         self.cell, self.data = cell, data or BenchData()
         self.workload = self.data.workload(cell)
         self.config = self.data.config(self.workload["config"])
+        self.stage = self.data.stage(self.config["stage"])
         self.device = torch.device(device)
         if self.device.type == "cuda":
             program.build_libraries(self.config)
-        self.pipe = program.build_pipeline(self.config, self.device)
-        self.obs = window.Observer(self.pipe, program.stepper_module(self.config),
-                                   f'{self.config["sampling"]["sample_method"]}_step',
-                                   self.config["unet"]["out_channels"], self.device)
+        self.pipe = program.build_pipeline(self.stage, self.config, self.device)
+        self.obs = window.Observer(self.pipe, self.stage, self.config, self.device)
         self.seed = self.traffic = None
 
     def load(self, seed: int) -> None:
@@ -67,8 +70,9 @@ class Cell:
         self.seed, self.traffic = seed, traffic.Traffic(self.workload, seed)
 
     def serve(self, req, steps=None):
-        return program.call(self.pipe, self.config, self.workload, self.traffic, req,
-                            steps or self.workload["steps"])
+        """One request: (its video on the host, its final latents)."""
+        return self.stage.call(self.pipe, self.config, self.workload, self.traffic, req,
+                               steps or self.workload["steps"])
 
     def warm_up(self) -> None:
         """One request at the cell's shapes, with the workload's warm-up steps."""
@@ -76,10 +80,11 @@ class Cell:
         self.serve(self.traffic.request(-1), self.workload["warmup_steps"])
 
     def window(self, seconds: float, max_requests: int = 0) -> tuple:
-        forwards = self.obs.forwards
+        """(the requests completed, wall seconds, denoising steps run)."""
+        steps = self.obs.steps_done
         done, wall = window.closed_loop(self.obs, self.traffic.request, self.serve, seconds,
                                         max_requests)
-        return done, wall, self.obs.forwards - forwards
+        return done, wall, self.obs.steps_done - steps
 
     def close(self) -> None:
         """Free the program's state on the device."""
@@ -119,31 +124,32 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, t_start: float =
     print("set-up " + ", ".join(f"{name} {t - t0:.2f} s" for (name, t), t0 in zip(marks, starts))
           + f", total {setup_s:.2f} s", file=sys.stderr)
 
-    done, wall, forwards = c.window(seconds)
+    done, wall, steps = c.window(seconds)
     after = program.read_launches()
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     stretch = c.obs.stretch.read() if c.obs.stretch is not None else None
     requests_made = c.traffic
     c.close()
 
-    per_forward = {k: (after[k] - before[k]) / max(forwards, 1) for k in after}
-    opt_in_clear = all(per_forward[k] == 0 for k in yardstick.OPT_IN)
-    routes_ok = {k: opt_in_clear and per_forward[k] == n
+    # `launches_per_forward` holds a denoising step's launches
+    per_step = {k: (after[k] - before[k]) / max(steps, 1) for k in after}
+    opt_in_clear = all(per_step[k] == 0 for k in yardstick.OPT_IN)
+    routes_ok = {k: opt_in_clear and per_step[k] == n
                  for k, n in config["launches_per_forward"].items()}
-    print("launches a forward " + json.dumps(per_forward), file=sys.stderr)
+    print("launches a step " + json.dumps(per_step), file=sys.stderr)
 
     ctx = Context(cell=cell, config=config, workload=workload, counts=c.data.counts(cell),
-                  setup_s=setup_s, window_s=wall, forwards=forwards, requests=done,
+                  setup_s=setup_s, window_s=wall, forwards=steps, requests=done,
                   stretch=stretch, routes_ok=routes_ok, yardstick=yardstick,
-                  bounds=yardstick.forward_bounds(config, 2 * workload["prompts_per_request"],
-                                                  config["frames"]))
+                  bounds=c.stage.bounds(config, workload),
+                  span_counts=c.stage.span_counts(config))
     metrics = {}
     for m in c.data.metrics_for(cell, trace):
         value = c.data.reader(m["name"])(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
-    numbers, _ = check.check_run(config, workload, seed, dev, done, requests_made)
+    numbers, _ = check.check_run(c.stage, config, workload, seed, dev, done, requests_made)
     correct, checks = check.verdict(numbers, workload["check"]["limits"])
     result = {
         "correct": correct, "attempted": len(done), "failed": 0, "metrics": metrics,

@@ -1,8 +1,8 @@
 """The whole step's share of the chip's bf16 peak: the frozen FLOPs of one
-step (counts/<cell>.json: a UNet forward, plus the text tower and the VAE
-passes of a request over its steps, counted over the reference on the meta
-device) over the traced run's milliseconds a step outside the profiled
-stretch."""
+denoising step (counts/<cell>.json: the step's UNet calls, plus the text
+tower and the VAE passes of a request over its steps, counted over the
+reference on the meta device) over the traced run's milliseconds a
+denoising step outside the profiled stretch."""
 
 
 def read(ctx):

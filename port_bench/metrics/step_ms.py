@@ -1,6 +1,7 @@
-"""Wall milliseconds of the window over the UNet forwards (denoising steps)
-completed in it; each request's text encoding, VAE passes and copy to the
-host fall inside the window where they happen."""
+"""Wall milliseconds of the window over the denoising steps completed in it
+(each one or more UNet calls, as the stage's UNET_CALLS say); each
+request's text encoding, VAE passes and copy to the host fall inside the
+window where they happen."""
 
 
 def read(ctx):

@@ -19,10 +19,12 @@ Each idle gap of the stretch (between its merged device operations, as
     sync, a copy, the tracer, the card's own pause between kernels). A host
     in a later step than the card is always ahead;
   - `unet`: otherwise, the host was inside a UNet forward when the gap
-    ended, the forward of the step the card was on: its dispatch;
-  - `loop`: otherwise, in the step outside the forward (the CFG batch,
+    ended, a forward of the step the card was on: its dispatch;
+  - `loop`: otherwise, in the step outside the forwards (the CFG batch,
     guidance, the sampler step, the noise draw).
-The three, times the stretch's forwards, add up to its gaps.
+The three, times the stretch's denoising steps, add up to its gaps. How
+many `unet` spans a step makes, and how many `resnet` and `transformer`
+spans each holds, is the stage's (stages/<stage>.py, `span_counts`).
 """
 
 from __future__ import annotations
@@ -31,8 +33,6 @@ import sys
 from bisect import bisect_right
 from dataclasses import dataclass
 from typing import Callable, List, Optional, Tuple
-
-from port_bench import yardstick
 
 IDLE_KINDS = ("unet", "loop", "ahead")
 # how far the host's clock and the trace's may disagree, µs; a stretch whose
@@ -43,23 +43,13 @@ CLOCK_US = 1000.0
 
 @dataclass
 class Split:
-    """Per step of the stretch: idle ms by where the host was, and the
-    card's ms between the events of the `resnet` and `transformer` spans."""
+    """Per denoising step of the stretch: idle ms by where the host was, and
+    the card's ms between the events of the `resnet` and `transformer`
+    spans."""
     idle_ms: dict  # kind → ms
     resnet_ms: float
     transformer_ms: float
     in_step_share: float  # of the gap time, the share that ends inside a step
-
-
-def forward_counts(config: dict) -> Tuple[int, int]:
-    """(ResnetBlock3D, Transformer3D) calls of one UNet forward: each down
-    block's layers, the mid block's two resnets and one transformer, each
-    up block's layers + 1; transformers where `transformer_levels` counts
-    them."""
-    unet = config["unet"]
-    n, levels = unet["layers_per_block"], len(unet["block_out_channels"])
-    calls = yardstick.transformer_levels(unet, config["height"], config["width"])
-    return n * levels + 2 + (n + 1) * levels, sum(c for _, _, c in calls)
 
 
 def gaps(st) -> List[Tuple[float, float, str]]:
@@ -99,30 +89,32 @@ def _none(why: str) -> None:
     return None
 
 
-def split(st, recorded: list, config: dict, to_us: Callable) -> Optional[Split]:
-    """None without device operations, when a forward's spans differ from
-    the configuration's counts, or when the first `unet` span does not start
-    before the stretch's first device operation (by more than CLOCK_US
-    where the operation comes first); the reason on standard error where
-    spans were recorded."""
+def split(st, recorded: list, counts: Tuple[int, int, int], to_us: Callable) -> Optional[Split]:
+    """None without device operations, when the spans differ from the
+    stage's `counts` (unet spans a step, resnet and transformer spans a unet
+    span), or when the first `unet` span does not start before the
+    stretch's first device operation (by more than CLOCK_US where the
+    operation comes first); the reason on standard error where spans were
+    recorded."""
     if st is None or not st.ops or not st.forwards:
         return None
     unets = [sp for sp in recorded if sp.name == "unet"]
-    if len(unets) != st.forwards or any(sp.device_ms is None for sp in unets):
-        return _none(f"{len(unets)} unet spans with card times, {st.forwards} forwards")
-    counts = {id(u): [0, 0] for u in unets}
+    per_step, want = counts[0], list(counts[1:])
+    if len(unets) != st.forwards * per_step or any(sp.device_ms is None for sp in unets):
+        return _none(f"{len(unets)} unet spans with card times, {st.forwards} steps of "
+                     f"{per_step}")
+    calls = {id(u): [0, 0] for u in unets}
     device_ms = {"resnet": 0.0, "transformer": 0.0}
     for sp in recorded:
         if sp.name in device_ms:
             u = enclosing(sp.parent, "unet")
-            if u is None or id(u) not in counts or sp.device_ms is None:
+            if u is None or id(u) not in calls or sp.device_ms is None:
                 return _none(f"a {sp.name} span outside the stretch's unet spans")
-            counts[id(u)][sp.name == "transformer"] += 1
+            calls[id(u)][sp.name == "transformer"] += 1
             device_ms[sp.name] += sp.device_ms
-    want = list(forward_counts(config))
-    if any(c != want for c in counts.values()):
-        return _none(f"resnet and transformer spans a forward {sorted(set(map(tuple, counts.values())))},"
-                     f" not {tuple(want)}")
+    if any(c != want for c in calls.values()):
+        seen = sorted(set(map(tuple, calls.values())))
+        return _none(f"resnet and transformer spans a unet span {seen}, not {tuple(want)}")
     u0 = unets[0]
     anchor, first_op = to_us(u0.start_ns), st.ops[0][2]
     if anchor - first_op >= CLOCK_US:
@@ -169,6 +161,6 @@ def split_of(ctx, profiling) -> Optional[Split]:
     program records no spans (`profiling` without `spans`)."""
     if "span_split" not in ctx.__dict__:
         recorded = profiling.spans() if hasattr(profiling, "spans") else []
-        ctx.span_split = (split(ctx.stretch, recorded, ctx.config, profiling.trace_us)
+        ctx.span_split = (split(ctx.stretch, recorded, ctx.span_counts, profiling.trace_us)
                           if recorded else None)
     return ctx.span_split

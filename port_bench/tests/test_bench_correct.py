@@ -12,9 +12,7 @@ import torch
 from port_bench import check
 from port_bench.control import readings
 from port_bench.harness import run_cell
-from port_bench.tests.tiny import limits, tiny_data
-
-STAGES = ("t2v", "interpolate")
+from port_bench.tests.tiny import STAGES, limits, tiny_data
 
 
 @pytest.fixture(autouse=True)
@@ -45,15 +43,13 @@ def test_the_control_fails_the_cells_limits(stage, tmp_path):
         assert not ok, checks
 
 
-def _stuck_step(monkeypatch, stage):
-    import lavie_tpu_torch.pipelines.interpolate as tsr
-    import lavie_tpu_torch.pipelines.t2v as t2v
-
-    module, name = (t2v, "ddpm_step") if stage == "t2v" else (tsr, "ddim_step")
-    monkeypatch.setattr(module, name, lambda schedule, sample, *a, **k: sample)
+def _stuck_step(monkeypatch, data):
+    """The stage's sampler step returns the latents it was given."""
+    holder, name = data.stage(data.config("tiny")["stage"]).sampler(data.config("tiny"))
+    monkeypatch.setattr(holder, name, lambda schedule, sample, *a, **k: sample)
 
 
-def _half_batch(monkeypatch, stage):
+def _half_batch(monkeypatch, data):
     from lavie_tpu_torch.nn.unet import UNet3D
 
     forward = UNet3D.forward
@@ -66,7 +62,7 @@ def _half_batch(monkeypatch, stage):
     monkeypatch.setattr(UNet3D, "forward", half)
 
 
-def _altered_frame(monkeypatch, stage):
+def _altered_frame(monkeypatch, data):
     from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
 
     decode = TextToVideoPipeline._decode
@@ -79,7 +75,7 @@ def _altered_frame(monkeypatch, stage):
     monkeypatch.setattr(TextToVideoPipeline, "_decode", altered)
 
 
-def _unobserved_step(monkeypatch, stage):
+def _unobserved_step(monkeypatch, data):
     """A pipeline whose sampler step the harness cannot see."""
     from port_bench import window
 
@@ -90,7 +86,8 @@ def _unobserved_step(monkeypatch, stage):
 @pytest.mark.parametrize("fault", [_stuck_step, _half_batch, _altered_frame, _unobserved_step],
                          ids=["stuck_step", "half_batch", "altered_frame", "unobserved_step"])
 def test_a_broken_timed_path_reads_incorrect(stage, fault, monkeypatch, tmp_path):
-    fault(monkeypatch, stage)
-    res = run_cell("tiny", 99, 1.0, False, device="cpu", data=tiny_data(tmp_path, stage))
+    data = tiny_data(tmp_path, stage)
+    fault(monkeypatch, data)
+    res = run_cell("tiny", 99, 1.0, False, device="cpu", data=data)
     assert not res["correct"], res["checks"]
 

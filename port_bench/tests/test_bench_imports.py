@@ -53,8 +53,8 @@ torch.set_num_threads(2)
 from pathlib import Path
 from port_bench.harness import run_cell
 from port_bench.run import forbidden_modules
-from port_bench.tests.tiny import tiny_data
-for stage in ("t2v", "interpolate"):
+from port_bench.tests.tiny import STAGES, tiny_data
+for stage in STAGES:
     data = tiny_data(Path({str(tmp_path)!r}) / stage, stage)
     run_cell("tiny", 5, 0.5, True, device="cpu", data=data)
 tops = sorted({{m.split(".")[0] for m in sys.modules}})

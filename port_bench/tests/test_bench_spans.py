@@ -23,7 +23,9 @@ from port_bench.data import BenchData
 from port_bench.harness import Context
 
 READERS = ("unet_idle_ms", "loop_idle_ms", "ahead_idle_ms", "resnet_ms", "transformer_ms")
-CONFIG = BenchData().config("lavie-base")  # 22 resnets and 16 transformers a forward
+CONFIG = BenchData().config("lavie-base")
+# one forward a step, 22 resnets and 16 transformers in it
+COUNTS = BenchData().stage("t2v").span_counts(CONFIG)
 
 
 def _span(name, start_us, end_us, parent=None, device=None, **attrs):
@@ -76,10 +78,10 @@ def _stretch(forwards=2, early=()):
     return trace.reduce_events(events, forwards, 0.0)
 
 
-def _read(monkeypatch, st, recorded, config=CONFIG):
+def _read(monkeypatch, st, recorded, counts=COUNTS):
     monkeypatch.setattr(profiling, "spans", lambda: recorded)
     monkeypatch.setattr(profiling, "trace_us", lambda ns: ns / 1e3)
-    ctx = Context(stretch=st, config=config)
+    ctx = Context(stretch=st, span_counts=counts)
     data = BenchData()
     return {name: data.reader(name)(ctx) for name in READERS}
 
@@ -99,8 +101,17 @@ def test_gaps_are_put_down_to_where_the_host_was(monkeypatch):
                                               (1205, 1270)]
 
 
+def test_two_unet_calls_make_one_step(monkeypatch):
+    """A stage with two UNet calls a step (the CFG halves): the stretch's two
+    unet spans are one step, and every per-step reading doubles."""
+    got = _read(monkeypatch, _stretch(forwards=1), _recorded(), counts=(2,) + COUNTS[1:])
+    assert got["unet_idle_ms"] == pytest.approx((8 + 35) / 1e3)
+    assert got["resnet_ms"] == pytest.approx(2 * 22 * 1e-4)
+    assert got["transformer_ms"] == pytest.approx(2 * 16 * 2e-4)
+
+
 def test_the_first_step_counts_as_inside_a_step():
-    split = spans.split(_stretch(), _recorded(), CONFIG, lambda ns: ns / 1e3)
+    split = spans.split(_stretch(), _recorded(), COUNTS, lambda ns: ns / 1e3)
     # [900, 1000] and [1205, 1270] end in step 2's span, [12, 20] and [200,
     # 310] in step 0's (open when the profiler started), [500, 535] in step 1
     assert split.in_step_share == pytest.approx(1.0)
@@ -119,7 +130,7 @@ def test_none_where_there_is_nothing_to_read(monkeypatch, case):
     elif case == "unet_after_first_op":  # by more than the clocks' disagreement
         st = _stretch(early=[(10 - spans.CLOCK_US - 5, 2)])
     if case == "program_without_spans":  # the parent commit's profiling module
-        ctx = Context(stretch=st, config=CONFIG)
+        ctx = Context(stretch=st, span_counts=COUNTS)
         bare = types.SimpleNamespace(trace_us=profiling.trace_us)
         assert spans.split_of(ctx, bare) is None
         return

@@ -1,7 +1,7 @@
 """The frozen yardstick: the bounds of rows 1, 3 and 6 at L0 reproduce the
 kernel table's (PERF.md: 0.063, 0.204 and 2.070 ms), the call sites of a
-UNet forward, and the reduction of a device trace to busy time, idle gaps
-and kernel groups."""
+UNet forward as the base and interpolation stages walk them, and the
+reduction of a device trace to busy time, idle gaps and kernel groups."""
 
 from __future__ import annotations
 
@@ -23,12 +23,14 @@ def test_bounds_at_l0_reproduce_the_kernel_table():
 def test_call_sites_of_a_forward():
     data = BenchData()
     base, tsr = data.config("lavie-base"), data.config("lavie-interp")
-    levels = yardstick.transformer_levels(base["unet"], 320, 512)
+    t2v, interpolate = data.stage("t2v"), data.stage("interpolate")
+    levels = t2v.transformer_levels(base["unet"], 320, 512)
     assert levels == [(2560, 320, 5), (640, 640, 5), (160, 1280, 5), (40, 1280, 1)]
-    b = yardstick.forward_bounds(base, 2, 16)
+    b = t2v.bounds(base, data.workload("base-b1"))
     assert b["flash_sparse_causal"] == 0.0
     assert b["geglu"] * 1e3 == pytest.approx(15 * 0.2035 + 0.0509, rel=1e-2)
-    t = yardstick.forward_bounds(tsr, 2, 61)
+    t = interpolate.bounds(tsr, data.workload("interp-b1"))
+    assert t2v.bounds(base, data.workload("base-b4")) == t2v.forward_bounds(base, 8, 16)
     sparse, temporal = t["flash_sparse_causal"] * 1e3, t["temporal_attention"] * 1e3
     assert sparse == pytest.approx(5 * (2.070 + 0.259 + 0.060) + 0.015, rel=1e-2)
     # F = 61 with no RoPE or bias: the TSR rows of the kernel table

@@ -22,7 +22,7 @@ DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
 @dataclass
 class Stretch:
-    """What one profiled stretch of `forwards` UNet forwards read."""
+    """What one profiled stretch of `forwards` denoising steps read."""
     forwards: int
     host_s: float  # host clock from the profiler's start to its stop
     ops: List[tuple] = field(default_factory=list)  # (name, group, start_us, dur_us)

@@ -1,8 +1,9 @@
 """The benchmark's frozen yardstick: the H100's published peaks, the bound
 arithmetic, the kernel groups a device trace is sorted into, the filter of
-what the profiler records that is not device work, and the operations and
-bytes of each kernel the base and interpolation paths launch, counted from
-the shapes of its call sites in a configuration.
+what the profiler records that is not device work, and the bound of one
+call of each kernel that a cell measures, from the call's shapes. Each
+stage's module (stages/<stage>.py) walks its call sites and sums these
+bounds over one denoising step (`bounds`).
 
 Copied from the port's smoke script (`bound`, `KERNEL_GROUPS`,
 `device_kernels`' filter and the per-row byte and flop counts of its kernel
@@ -11,8 +12,6 @@ yardstick it is measured by.
 """
 
 from __future__ import annotations
-
-from typing import Dict, List, Tuple
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOPS = 989e12  # dense tensor-core bf16
@@ -88,24 +87,7 @@ def group_of(kernel_name: str) -> str:
     return next(g for g, subs in KERNEL_GROUPS if any(s in name for s in subs))
 
 
-# -- the kernels' call sites and their bounds -------------------------------------
-
-def transformer_levels(unet: dict, height: int, width: int) -> List[Tuple[int, int, int]]:
-    """(positions S, channels C, calls) of the Transformer3D blocks of one
-    UNet forward at each level: the cross-attention down blocks, the mid
-    block, the cross-attention up blocks."""
-    boc, n = unet["block_out_channels"], unet["layers_per_block"]
-    h, w = height // 8, width // 8
-    calls = [0] * len(boc)
-    for i, kind in enumerate(unet["down_block_types"]):
-        if kind.startswith("CrossAttn"):
-            calls[i] += n
-    calls[-1] += 1  # the mid block
-    for i, kind in enumerate(unet["up_block_types"]):
-        if kind.startswith("CrossAttn"):
-            calls[len(boc) - 1 - i] += n + 1
-    return [((h >> l) * (w >> l), boc[l], calls[l]) for l in range(len(boc)) if calls[l]]
-
+# -- the bound of one call of each kernel ---------------------------------------
 
 def temporal_attention_bound(b: int, f: int, s: int, heads: int, d: int, rope: int) -> float:
     """Row 1: q, k, v read and o written once, the bias and RoPE tables; QKᵀ
@@ -127,19 +109,3 @@ def sparse_causal_bound(rows: int, s: int, heads: int, d: int) -> float:
     and the frame before it); q, k, v read and o written once."""
     c = heads * d
     return bound_s(4 * rows * s * c * 2, ((4 * rows * heads * s * 2 * s * d, BF16_FLOPS),))
-
-
-def forward_bounds(config: dict, batch: int, frames: int) -> Dict[str, float]:
-    """Seconds of each kernel's bound summed over one UNet forward of `batch`
-    videos (the CFG-doubled batch) of `frames` frames."""
-    unet, heads = config["unet"], config["unet"]["num_attention_heads"]
-    rope = unet["rope_dim"] if unet["temporal_attention"] == "rope_relbias" else 0
-    out = {"temporal_attention": 0.0, "geglu": 0.0, "flash_sparse_causal": 0.0}
-    for s, c, calls in transformer_levels(unet, config["height"], config["width"]):
-        d = c // heads
-        out["temporal_attention"] += calls * temporal_attention_bound(
-            batch, frames, s, heads, d, min(rope, d))
-        out["geglu"] += calls * geglu_bound(batch * frames * s, c, 4 * c)
-        if unet["spatial_attention"] == "sparse_causal":
-            out["flash_sparse_causal"] += calls * sparse_causal_bound(batch * frames, s, heads, d)
-    return out
