@@ -17,6 +17,7 @@ JAX package does:
   - use_scale_shift: a zero-initialised 1×1 conv gives (scale, shift) and
     the output is (1 + scale)·x + shift (scale_shift_conv; the reference
     notes that it NaNs in training and defaults it off).
+A call records a `temporal_module` span (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from torch import nn
 from lavie_tpu_torch.nn.layers import InflatedConv
 from lavie_tpu_torch.nn.resnet import ResnetBlock3D, ResnetBlock3DCNN
 from lavie_tpu_torch.nn.versatile_attention import TemporalTransformer3D
+from lavie_tpu_torch.utils.profiling import span
 
 # the versatile branch's head dim is C / heads / ATTENTION_DIM_DIV
 # (reference: temporal_module.py:117-143), and its GroupNorm takes
@@ -76,6 +78,12 @@ class TemporalModule3D(nn.Module):
         """x (B, F, H, W, C); temb (B, temb_channels); timesteps (B,), the
         versatile branch's (zeros when not given); condition_video
         (B, F, H, W, 3), video_condition's frames."""
+        with span("temporal_module"):
+            return self._forward(x, temb, timesteps, condition_video)
+
+    def _forward(self, x: torch.Tensor, temb: Optional[torch.Tensor],
+                 timesteps: Optional[torch.Tensor],
+                 condition_video: Optional[torch.Tensor]) -> torch.Tensor:
         h = x
         if self.v_cond_conv is not None:
             if condition_video is None:

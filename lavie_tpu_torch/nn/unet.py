@@ -3,7 +3,8 @@ super-resolution (port of lavie_tpu.nn.unet, the blocks
 `UNetConfig.base_t2v()`, `.interpolation()` and `.vsr()` use). The VSR UNet
 adds a noise-level class embedding, a TemporalModule3D after every block,
 and `forward_prefix`: the text-independent leading blocks, run once per
-step and shared by the two CFG halves. `conv_quant` "int8" turns on the
+step and shared by the two CFG halves; `forward_split_cfg` runs a step's
+prefix and both halves under one `unet` span. `conv_quant` "int8" turns on the
 int8 turbo convs (nn/quant.py) in forward and forward_prefix alike.
 
 Frame sharding: after `set_mesh(mesh)`, forward(..., frames=F) takes this
@@ -348,6 +349,21 @@ class UNet3D(nn.Module):
         skips = [x]
         x = self._down(x, skips, emb, None, range(self.num_prefix_blocks), timesteps)
         return x, skips
+
+    def forward_split_cfg(self, sample: torch.Tensor, timesteps: torch.Tensor,
+                          encoder_hidden_states: torch.Tensor,
+                          class_labels: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One split-CFG step's UNet work, under one `unet` span: the prefix
+        of `sample` once, then the uncond and cond halves of
+        encoder_hidden_states (2B, L, D) [uncond; cond] on it. Returns the
+        halves' predictions, each what forward(..., prefix=) gives with the
+        text states of its half."""
+        with span("unet"):
+            prefix = self.forward_prefix(sample, timesteps, class_labels)
+            uncond, cond = (self._forward(sample, timesteps, states, class_labels, prefix)
+                            for states in encoder_hidden_states.chunk(2))
+            return uncond, cond
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 encoder_hidden_states: Optional[torch.Tensor] = None,

@@ -10,10 +10,13 @@ the upscaler's own scaled-linear schedule, the latents are drawn at the
 input resolution, and 50 v-prediction DDIM steps run with CFG 5.0: per step
 the text-independent UNet prefix runs once, then the uncond and cond halves
 one after the other (split CFG: half the activation memory of a doubled
-batch). The f4 VAE then decodes in two phases: every frame of the window
-through the latent-resolution mid block at once, then `decode_chunk` frames
-at a time through the ×4 upsampling half (reference:
-vsr/sample.py:100-119, vsr/models/pipeline_stable_diffusion_upscale_video_3d.py:491-780).
+batch), all in one call, `UNet3D.forward_split_cfg`. The f4 VAE then
+decodes in two phases: every frame of the window through the
+latent-resolution mid block at once, then `decode_chunk` frames at a time
+through the ×4 upsampling half (reference: vsr/sample.py:100-119,
+vsr/models/pipeline_stable_diffusion_upscale_video_3d.py:491-780). A call
+records the base pipeline's spans (utils/profiling.py): `request`,
+`text_encode`, `step` (`k`, `t`) in each window, `vae_decode`, `to_host`.
 
 Windows are independent: they go in groups of max(ranks, window_batch),
 ranks = dp·sp of the mesh (`pipe.mesh`, core/mesh.py; none: 1), and in a
@@ -43,6 +46,7 @@ from lavie_tpu_torch.diffusion.noise_aug import low_scale_schedule
 from lavie_tpu_torch.diffusion.samplers import add_noise, ddim_step, ddim_timesteps, prev_timesteps
 from lavie_tpu_torch.io.tokenizer import CLIPTokenizer
 from lavie_tpu_torch.pipelines.t2v import TextToVideoPipeline
+from lavie_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -131,24 +135,25 @@ class VideoSuperResolutionPipeline(TextToVideoPipeline):
         ts = ddim_timesteps(steps, cfg.num_train_timesteps)
         pts = prev_timesteps(ts, cfg.num_train_timesteps)
         final_ab = float(self.schedule.alphas_cumprod[0])
-        for t, pt in zip(ts.tolist(), pts.tolist()):
-            xin = torch.cat([x.to(self.dtype), image_c], dim=-1)  # 7 channels
-            tt = torch.full((1,), t, device=dev, dtype=torch.float32)
-            prefix = self.unet.forward_prefix(xin, tt, labels)
-            pred_u = self.unet(xin, tt, states[:1], labels, prefix=prefix).float()
-            pred_c = self.unet(xin, tt, states[1:], labels, prefix=prefix).float()
-            v = pred_u + guidance * (pred_c - pred_u)
-            x = ddim_step(self.schedule, x, v, t, pt, prediction_type="v_prediction",
-                          clip_sample=cfg.clip_sample, final_alpha_bar=final_ab)
+        for k, (t, pt) in enumerate(zip(ts.tolist(), pts.tolist())):
+            with span("step", k=k, t=t):
+                xin = torch.cat([x.to(self.dtype), image_c], dim=-1)  # 7 channels
+                tt = torch.full((1,), t, device=dev, dtype=torch.float32)
+                pred_u, pred_c = self.unet.forward_split_cfg(xin, tt, states, labels)
+                pred_u, pred_c = pred_u.float(), pred_c.float()
+                v = pred_u + guidance * (pred_c - pred_u)
+                x = ddim_step(self.schedule, x, v, t, pt, prediction_type="v_prediction",
+                              clip_sample=cfg.clip_sample, final_alpha_bar=final_ab)
 
-        z = (x / self.vae_config.scaling_factor).to(self.dtype).reshape(f, height, width, 4)
-        h_mid = self.vae.decode_mid(z)
-        out = []
-        for i in range(0, f, self.decode_chunk):
-            rgb = self.vae.decode_up(h_mid[i:i + self.decode_chunk]).float()
-            rgb = torch.clamp(torch.clamp(rgb, -1.0, 1.0) / 2 + 0.5, 0.0, 1.0)
-            out.append(torch.round(rgb * 255.0).to(torch.uint8))
-        return torch.cat(out)
+        with span("vae_decode"):
+            z = (x / self.vae_config.scaling_factor).to(self.dtype).reshape(f, height, width, 4)
+            h_mid = self.vae.decode_mid(z)
+            out = []
+            for i in range(0, f, self.decode_chunk):
+                rgb = self.vae.decode_up(h_mid[i:i + self.decode_chunk]).float()
+                rgb = torch.clamp(torch.clamp(rgb, -1.0, 1.0) / 2 + 0.5, 0.0, 1.0)
+                out.append(torch.round(rgb * 255.0).to(torch.uint8))
+            return torch.cat(out)
 
     @torch.no_grad()
     def __call__(
@@ -167,45 +172,50 @@ class VideoSuperResolutionPipeline(TextToVideoPipeline):
         """`text_states` (2, L, D) [uncond; cond], `latents` (1, F, H, W, 4)
         and `lr_noise` (1, F, H, W, 3) replace the text tower and the two
         random draws; they need all three and one window."""
-        cfg = self.sampling
-        steps = num_inference_steps or cfg.num_inference_steps
-        guidance = guidance_scale if guidance_scale is not None else cfg.guidance_scale
-        level = noise_level if noise_level is not None else self.noise_level
+        with span("request"):
+            cfg = self.sampling
+            steps = num_inference_steps or cfg.num_inference_steps
+            guidance = guidance_scale if guidance_scale is not None else cfg.guidance_scale
+            level = noise_level if noise_level is not None else self.noise_level
 
-        frames = np.asarray(video)
-        if frames.dtype == np.uint8:
-            frames = (frames.astype(np.float32) / 255.0 - 0.5) * 2.0
-        total = frames.shape[0]
-        injected = [a is not None for a in (text_states, latents, lr_noise)]
-        if any(injected):
-            if not all(injected):
-                raise ValueError("injection needs text_states, latents and lr_noise together")
-            if total > self.window:
-                raise ValueError("injected tensors cover one window only")
-            states = torch.as_tensor(np.asarray(text_states), device=self.device).to(self.dtype)
-        else:
-            states = self.encode_prompts([prompt], negative_prompt)
+            frames = np.asarray(video)
+            if frames.dtype == np.uint8:
+                frames = (frames.astype(np.float32) / 255.0 - 0.5) * 2.0
+            total = frames.shape[0]
+            injected = [a is not None for a in (text_states, latents, lr_noise)]
+            if any(injected):
+                if not all(injected):
+                    raise ValueError("injection needs text_states, latents and lr_noise together")
+                if total > self.window:
+                    raise ValueError("injected tensors cover one window only")
+                states = torch.as_tensor(np.asarray(text_states), device=self.device).to(self.dtype)
+            else:
+                with span("text_encode"):
+                    states = self.encode_prompts([prompt], negative_prompt)
 
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        win = min(self.window, total)
-        ranks, rank = 1, 0
-        if self.mesh is not None:
-            shape, coords = self.mesh.shape, self.mesh.coords
-            ranks, rank = shape["dp"] * shape["sp"], coords["dp"] * shape["sp"] + coords["sp"]
-        group = max(ranks, self.window_batch, 1)
-        spans = [(i, min(total, i + win)) for i in range(0, total, win)]
-        out = []
-        for g0 in range(0, len(spans), group):
-            chunks = [frames[a:b] for a, b in spans[g0:g0 + group]]
-            if group > 1:  # every window of a batched group at the full length
-                chunks = [np.concatenate([c, np.repeat(c[-1:], win - len(c), 0)]) for c in chunks]
-            draws = [self._draws(c, gen, lr_noise, latents) for c in chunks]
-            mine = [self._window(c, *d, states, steps, guidance, level)
-                    for j, (c, d) in enumerate(zip(chunks, draws)) if j % ranks == rank]
-            if ranks > 1:
-                mine = self._gather_windows(mine, len(chunks), ranks, rank, chunks[0].shape)
-            out += [v[:b - a].cpu().numpy() for v, (a, b) in zip(mine, spans[g0:g0 + group])]
-        return VSROutput(video=np.concatenate(out))
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            win = min(self.window, total)
+            ranks, rank = 1, 0
+            if self.mesh is not None:
+                shape, coords = self.mesh.shape, self.mesh.coords
+                ranks, rank = shape["dp"] * shape["sp"], coords["dp"] * shape["sp"] + coords["sp"]
+            group = max(ranks, self.window_batch, 1)
+            windows = [(i, min(total, i + win)) for i in range(0, total, win)]
+            out = []
+            for g0 in range(0, len(windows), group):
+                chunks = [frames[a:b] for a, b in windows[g0:g0 + group]]
+                if group > 1:  # every window of a batched group at the full length
+                    chunks = [np.concatenate([c, np.repeat(c[-1:], win - len(c), 0)])
+                              for c in chunks]
+                draws = [self._draws(c, gen, lr_noise, latents) for c in chunks]
+                mine = [self._window(c, *d, states, steps, guidance, level)
+                        for j, (c, d) in enumerate(zip(chunks, draws)) if j % ranks == rank]
+                if ranks > 1:
+                    mine = self._gather_windows(mine, len(chunks), ranks, rank, chunks[0].shape)
+                with span("to_host"):
+                    out += [v[:b - a].cpu().numpy()
+                            for v, (a, b) in zip(mine, windows[g0:g0 + group])]
+            return VSROutput(video=np.concatenate(out))
 
     def _gather_windows(self, mine: list, n: int, ranks: int, rank: int, low_res: tuple) -> list:
         """The group's n windows in order on every rank, from rank j's
