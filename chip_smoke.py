@@ -20,6 +20,12 @@ its result line:
                 version, timed beside it, the eager ops they replaced and
                 F.group_norm (a yardstick only), with their bound and device
                 ms by kernel; the profile phases count their calls a forward
+  2c. bias_residual  the residual kernel with the convs' biases
+                (csrc/bias_residual.cu) at the largest residual of each UNet
+                (BIAS_RESIDUAL_SHAPES) against its plain version bit for
+                bit, timed beside it and the parent's add_ + add, with its
+                bound and the device ms of both; the main and profile phases
+                count its launches
   3. kernels    each kernel at every base-path and TSR-path shape against its
                 plain PyTorch version in bf16 (tolerance relative to
                 max|plain|), timed with CUDA events beside the plain version
@@ -482,7 +488,7 @@ def phase_build() -> None:
     t0 = time.time()
     logs = _build.build(["temporal_fused", "geglu", "flash_attention", "temporal_resblock",
                          "cross_block", "cross_head", "transformer_tail", "cross_attention",
-                         "temporal_proj", "group_norm"])
+                         "temporal_proj", "group_norm", "bias_residual"])
     for name, text in logs.items():
         report = ptxas_report(text)
         entries, spill_lines = text.count("Compiling entry function"), text.count("spill stores")
@@ -715,6 +721,57 @@ def phase_group_norm() -> list:
     return rows
 
 
+# (where, frames, H, W, C): the largest residual of each UNet, x + h after
+# conv2 (and a 1x1 shortcut): the base L0 resnets (2 videos of 16 frames of
+# 40x64 latents), the TSR's L0 (2 videos of 61 frames) and the VSR temporal
+# module after up block 2 (8 frames of 320x512 at 512 channels)
+BIAS_RESIDUAL_SHAPES = [("base L0", 32, 40, 64, 320), ("TSR L0", 122, 40, 64, 320),
+                        ("VSR up 2", 8, 320, 512, 512)]
+
+
+def phase_bias_residual() -> list:
+    """The residual kernel (row 17) at the main path's largest residuals,
+    with conv2's bias and with and without the shortcut's, against its
+    plain version bit for bit, timed beside it and the parent's ops it
+    replaced (library_ms: ATen's add of each bias onto the conv's
+    channels-last output, then x + h; the same ops the plain version
+    runs, on other strides; out of place, so that every timed call reads
+    the same inputs, where the parent's add_ wrote the conv's output in
+    place: the same bytes), with its bound (x and h read, out written: 6
+    bytes an element) and the device ms of both (torch.profiler)."""
+    from lavie_tpu_torch.kernels import _build
+    from lavie_tpu_torch.kernels import bias_residual as br
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    rows = []
+    for where, f, hh, ww, c in BIAS_RESIDUAL_SHAPES:
+        x = torch.randn(f, hh, ww, c, generator=g, device="cuda").bfloat16()
+        h = (3 * torch.randn(f, hh, ww, c, generator=g, device="cuda")).bfloat16()
+        b_h = (0.5 * torch.randn(c, generator=g, device="cuda")).bfloat16()
+        b_x = (0.5 * torch.randn(c, generator=g, device="cuda")).bfloat16()
+        for shortcut in (False, True):  # the biases in bf16, as the UNet hands them
+            args = (x, h, b_x if shortcut else None, b_h)
+            out = br.bias_residual(*args)
+            ref = br.bias_residual_reference(*args)
+            # the parent's ops on NCHW views of channels-last copies
+            xc, hc = (t.clone().permute(0, 3, 1, 2) for t in (x, h))
+
+            def parent(xc=xc, hc=hc, shortcut=shortcut):
+                hb = hc + b_h.reshape(1, -1, 1, 1)
+                return (xc + b_x.reshape(1, -1, 1, 1) if shortcut else xc) + hb
+
+            fn = lambda args=args: br.bias_residual(*args)  # noqa: E731
+            rows.append(check_row(
+                "bias_residual", {"where": where, "rows": f * hh * ww, "C": c,
+                                  "shortcut": shortcut},
+                out, ref, 0.0, fn, lambda args=args: br.bias_residual_reference(*args), parent,
+                6 * f * hh * ww * c, (), device_ms=kernel_ms(fn), library_device_ms=kernel_ms(parent),
+                blocks=br.launch_plan(f * hh * ww, c, _build.sm_count(0))))
+            del xc, hc, out, ref
+        del x, h
+    return rows
+
+
 class plain_kernels:
     """Within the block the UNet and VAE modules call the plain versions of
     every kernel instead of the kernels."""
@@ -724,8 +781,10 @@ class plain_kernels:
         import lavie_tpu_torch.nn.attention as attn_mod
         import lavie_tpu_torch.nn.layers as layers_mod
         import lavie_tpu_torch.nn.resnet as res_mod
+        import lavie_tpu_torch.nn.temporal_module as tm_mod
         import lavie_tpu_torch.nn.transformer as tr_mod
         import lavie_tpu_torch.nn.vae as vae_mod
+        from lavie_tpu_torch.kernels import bias_residual as br
         from lavie_tpu_torch.kernels import cross_attention as ca
         from lavie_tpu_torch.kernels import cross_block as cb
         from lavie_tpu_torch.kernels import flash_attention as fa
@@ -751,6 +810,8 @@ class plain_kernels:
             (res_mod, "gn_silu_tconv", tr.gn_silu_tconv_reference),
             (layers_mod, "group_norm", gn.group_norm_reference),
             (layers_mod, "group_norm_affine", gn.affine_reference),
+            (res_mod, "bias_residual", br.bias_residual_reference),
+            (tm_mod, "bias_residual", br.bias_residual_reference),
         ]
 
     def __enter__(self):
@@ -877,22 +938,24 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
 
     x, ts, ctx, labels = unet_inputs(unet.config, batch, frames, h, w, ctx_dim, seed=4, t=500.0,
                                      keys=keys)
+    from lavie_tpu_torch.kernels.bias_residual import bias_residual
     from lavie_tpu_torch.kernels.group_norm import group_norm
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     gn_counts = lambda: (group_norm.launches, group_norm.silu_launches,  # noqa: E731
-                         group_norm.shift_launches)
+                         group_norm.shift_launches, group_norm.bias_in_launches)
     with torch.no_grad():
         unet(x, ts, ctx, labels)
         torch.cuda.synchronize()
-        gn_before = gn_counts()
+        gn_before, br_before = gn_counts(), bias_residual.launches
         with profile(activities=activities) as prof:
             t0 = time.time()
             unet(x, ts, ctx, labels)
             torch.cuda.synchronize()
             wall_ms = (time.time() - t0) * 1e3
-        gn_forward = dict(zip(("launches", "silu_launches", "shift_launches"),
+        gn_forward = dict(zip(("launches", "silu_launches", "shift_launches", "bias_in_launches"),
                               (a - b for a, b in zip(gn_counts(), gn_before))))
+        br_forward = bias_residual.launches - br_before
         with profile(activities=activities, record_shapes=True) as shaped:
             unet(x, ts, ctx, labels)
             torch.cuda.synchronize()
@@ -927,6 +990,7 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
         "device_ms": busy if busy > 0 else "not measured",
         "busy_share": busy / wall_ms if busy > 0 else "not measured",
         "device_launches": sum(n for _, _, n in top), "group_norm_calls": gn_forward,
+        "bias_residual_launches": br_forward,
         "groups_ms": groups,
         "top_kernels": [{"ms": ms, "name": k, "calls": n} for ms, k, n in top[:12]],
         "host_top": [{"ms": ms, "name": k, "calls": n} for ms, k, n in host[:10]],
@@ -1004,9 +1068,10 @@ def phase_main() -> tuple:
     videos = []
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
+    from lavie_tpu_torch.kernels.bias_residual import bias_residual
     from lavie_tpu_torch.kernels.group_norm import group_norm
 
-    gn_before = group_norm.launches
+    gn_before, br_before = group_norm.launches, bias_residual.launches
     for prompt in prompts:
         torch.cuda.synchronize()
         t0 = time.time()
@@ -1025,6 +1090,7 @@ def phase_main() -> tuple:
         videos.append(video[0])
     launches = read_launches()
     launches["group_norm"] = group_norm.launches - gn_before  # UNet and VAE, both prompts
+    launches["bias_residual"] = bias_residual.launches - br_before  # the UNet's 22 a forward
     log(json.dumps({"phase": "main", "launches": launches,
                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}))
     for name in ("temporal_attention", "geglu"):
@@ -3221,6 +3287,7 @@ def main() -> int:
     phase_build()
     mark("build")
     group_norm_rows = phase_group_norm()
+    bias_residual_rows = phase_bias_residual()
     temporal_rows = phase_temporal(16, rope=32)
     phase_temporal(TSR_FRAMES, rope=0)
     geglu_rows = phase_geglu(16)
@@ -3410,7 +3477,13 @@ def main() -> int:
         "launches_main": main_launches["group_norm"], **{k: gn_row[k] for k in BRANCH_ROW_KEYS},
         "eager_ms": gn_row["eager_ms"], "device_ms": gn_row["device_ms"],
         "shapes": [{k: r[k] for k in BRANCH_ROW_KEYS + ("eager_ms", "device_ms")}
-                   for r in group_norm_rows]}]}))
+                   for r in group_norm_rows]}, {
+        "name": "bias_residual", "route": "cuda", "source": "lavie_tpu_torch/csrc/bias_residual.cu",
+        "replaces": "no Pallas kernel: the JAX package leaves the convs' biases and the residual "
+                    "add to XLA; ATen's add_ of each conv's bias after cuDNN, then x + h",
+        "launches_main": main_launches["bias_residual"],
+        "shapes": [{k: r[k] for k in BRANCH_ROW_KEYS + ("device_ms", "library_device_ms")}
+                   for r in bias_residual_rows]}]}))
     log(f"[chip_smoke] {time.time() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

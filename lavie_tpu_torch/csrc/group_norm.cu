@@ -1,18 +1,20 @@
 // GroupNorm of the UNet, its transformers and the VAE over x (N, P, C),
 // channels last, bf16, with the SiLU that follows it and a per-(n, c) shift
-// added before it folded in:
+// and a per-channel bias added before it folded in:
 //   y = bf16(bf16(x * w[n,c]) + u[n,c])                      (silu off)
 //   y = bf16(t / (1 + e^-t)),  t = bf16(bf16(x * w) + u)       (silu on)
-//   w = gamma * rsqrt(var_g + eps),  u = beta - mean_g * w (+ shift * w)
+//   w = gamma * rsqrt(var_g + eps),  u = beta - mean_g * w (+ s * w)
+//   s = shift[n,c] + bias_in[c]  (fp32, either absent)
 // where g is channel c's group and the statistics of group g are taken over
-// the P rows of n and the group's C / G channels, of x + shift when a shift
-// is given. N is the videos (statistics over all frames) or the frames
-// (per-frame statistics). The two roundings of the normalisation are the
+// the P rows of n and the group's C / G channels, of x + s when a shift or a
+// bias is given (the bias: a convolution's, which ATen would add to its
+// output as a pass of its own). N is the videos (statistics over all
+// frames) or the frames (per-frame statistics). The two roundings of the normalisation are the
 // port's plain route's (x * w and + u as two bf16 ops), as is its SiLU
 // (F.silu: t / (1 + e^-t) in fp32, rounded once); given the same (w, u), y
 // is the plain route's bit for bit. With a shift the plain route rounds x +
-// shift to bf16 first; here the shift moves only the statistics and u (u +
-// shift * w), so that rounding drops out.
+// shift to bf16 first; here s moves only the statistics and u (u + s * w),
+// so that rounding drops out.
 //
 // Replaces no Pallas kernel: the JAX package leaves GroupNorm to XLA
 // (lavie_tpu/nn/layers.py, groupnorm_affine: per-channel fp32 moments
@@ -36,8 +38,8 @@
 //     that they stay accurate when |mean| >> std; the block adds its row
 //     lanes in order and writes the slab's per-channel (mean, M2). The last
 //     block of an (n, channel tile) to finish (a counter it resets) merges
-//     the slabs' partials in a fixed order by Chan's formula, adds the shift
-//     to each channel's mean (M2 does not move under a shift), folds the
+//     the slabs' partials in a fixed order by Chan's formula, adds s to
+//     each channel's mean (M2 does not move under a shift), folds the
 //     channels into their groups by the same formula and writes w and u in
 //     fp32 and bf16. No atomics go into the sums: the result is the same
 //     from run to run.
@@ -54,7 +56,7 @@ namespace {
 
 constexpr int APPLY_THREADS = 256;
 constexpr int MAX_STATS_THREADS = 512;
-constexpr int FLAG_SILU = 1, FLAG_PARAM_BF16 = 2, FLAG_SHIFT_BF16 = 4;
+constexpr int FLAG_SILU = 1, FLAG_PARAM_BF16 = 2, FLAG_SHIFT_BF16 = 4, FLAG_BIAS_IN_BF16 = 8;
 
 __device__ __forceinline__ float load_f(const void* p, size_t i, bool bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
@@ -117,6 +119,7 @@ struct StatsArgs {
   const void* gamma;     // (C), fp32 or bf16
   const void* beta;      // (C)
   const void* shift;     // (N, C) or null
+  const void* bias_in;   // (C) or null
   float* part;           // (2, N, slabs, C): per-slab mean, then M2
   float* wu;             // (2, N, C): w, then u
   __nv_bfloat16* wu_bf;  // (2, N, C)
@@ -124,6 +127,12 @@ struct StatsArgs {
   int N, P, C, G, tcv, rl, slabs, slab_rows, flags;
   float eps;
 };
+
+// s of (n, c): shift[n, c] + bias_in[c] in fp32, an absent term 0
+__device__ __forceinline__ float shift_at(const StatsArgs& a, int n, int c, bool sbf, bool bbf) {
+  const float s = a.shift ? load_f(a.shift, (size_t)n * a.C + c, sbf) : 0.f;
+  return a.bias_in ? __fadd_rn(s, load_f(a.bias_in, c, bbf)) : s;
+}
 
 // dynamic shared memory: 2 * 8 floats a thread
 __global__ void __launch_bounds__(MAX_STATS_THREADS, 2) gn_stats_kernel(const StatsArgs a) {
@@ -186,7 +195,8 @@ __global__ void __launch_bounds__(MAX_STATS_THREADS, 2) gn_stats_kernel(const St
   if (!last) return;
 
   const int cpg = a.C / a.G, width = 8 * a.tcv;
-  const bool pbf = a.flags & FLAG_PARAM_BF16, sbf = a.flags & FLAG_SHIFT_BF16;
+  const bool pbf = a.flags & FLAG_PARAM_BF16, sbf = a.flags & FLAG_SHIFT_BF16,
+             bbf = a.flags & FLAG_BIAS_IN_BF16, shifted = a.shift || a.bias_in;
   float ma[8], m2a[8], na = 0.f;
 #pragma unroll
   for (int j = 0; j < 8; ++j) ma[j] = m2a[j] = 0.f;
@@ -209,14 +219,14 @@ __global__ void __launch_bounds__(MAX_STATS_THREADS, 2) gn_stats_kernel(const St
     red1[tid * 8 + j] = ma[j];
     red2[tid * 8 + j] = m2a[j];
   }
-  // this thread's first channel of the fold below: gamma, beta, shift read
+  // this thread's first channel of the fold below: gamma, beta, s read
   // now, while the lanes merge
   const int cf = ct * width + tid;
   float gam = 0.f, bet = 0.f, sh = 0.f;
   if (tid < width) {
     gam = load_f(a.gamma, cf, pbf);
     bet = load_f(a.beta, cf, pbf);
-    if (a.shift) sh = load_f(a.shift, (size_t)n * a.C + cf, sbf);
+    if (shifted) sh = shift_at(a, n, cf, sbf, bbf);
   }
   __syncthreads();
   if (y == 0) {  // lane l's rows: the slabs s = l, l + rl, ...
@@ -238,10 +248,9 @@ __global__ void __launch_bounds__(MAX_STATS_THREADS, 2) gn_stats_kernel(const St
     }
   }
   __syncthreads();
-  // each channel's mean moves by its shift (M2 does not)
+  // each channel's mean moves by its s (M2 does not)
   for (int i = tid; i < width; i += nthreads)
-    red1[i] += i == tid ? sh
-                        : (a.shift ? load_f(a.shift, (size_t)n * a.C + ct * width + i, sbf) : 0.f);
+    red1[i] += i == tid ? sh : (shifted ? shift_at(a, n, ct * width + i, sbf, bbf) : 0.f);
   __syncthreads();
   // fold each channel's group: mean_g = the channels' mean (equal counts),
   // M2_g = sum of M2_c + P (mean_c - mean_g)^2, every thread of a group in
@@ -260,8 +269,7 @@ __global__ void __launch_bounds__(MAX_STATS_THREADS, 2) gn_stats_kernel(const St
     const bool first = i == tid;
     const float w = __fmul_rn(inv, first ? gam : load_f(a.gamma, c, pbf));
     float u = __fsub_rn(first ? bet : load_f(a.beta, c, pbf), __fmul_rn(mg, w));
-    if (a.shift)
-      u = __fadd_rn(u, __fmul_rn(first ? sh : load_f(a.shift, (size_t)n * a.C + c, sbf), w));
+    if (shifted) u = __fadd_rn(u, __fmul_rn(first ? sh : shift_at(a, n, c, sbf, bbf), w));
     const size_t o = (size_t)n * a.C + c, nc = (size_t)a.N * a.C;
     a.wu[o] = w;
     a.wu[nc + o] = u;
@@ -334,16 +342,17 @@ __global__ void __launch_bounds__(APPLY_THREADS) gn_apply_kernel(
 }  // namespace
 
 // One GroupNorm: the statistics into wu (fp32) and wu_bf (bf16), (2, N, C)
-// each, then, when y is not null, the normalisation of x into y. part: (2,
-// N, slabs, C) fp32 scratch; counters: N * (C / 8 / tcv) ints, zero (each
-// call leaves them zero). flags: 1 SiLU, 2 gamma and beta bf16 (else fp32),
-// 4 shift bf16 (else fp32). The plan (tcv, rl, slabs, slab_rows,
+// each, then, when y is not null, the normalisation of x into y. shift (N,
+// C) and bias_in (C) may be null. part: (2, N, slabs, C) fp32 scratch;
+// counters: N * (C / 8 / tcv) ints, zero (each call leaves them zero).
+// flags: 1 SiLU, 2 gamma and beta bf16 (else fp32), 4 shift bf16 (else
+// fp32), 8 bias_in bf16 (else fp32). The plan (tcv, rl, slabs, slab_rows,
 // apply_blocks) is kernels/group_norm.py::launch_plan's.
 extern "C" int group_norm_bf16(const void* x, const void* gamma, const void* beta,
-                               const void* shift, void* y, void* wu, void* wu_bf, void* part,
-                               void* counters, int N, int P, int C, int G, int tcv, int rl,
-                               int slabs, int slab_rows, int apply_blocks, int flags, float eps,
-                               void* stream) {
+                               const void* shift, const void* bias_in, void* y, void* wu,
+                               void* wu_bf, void* part, void* counters, int N, int P, int C,
+                               int G, int tcv, int rl, int slabs, int slab_rows, int apply_blocks,
+                               int flags, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cvs = C / 8;
   if (N < 1 || P < 1 || C < 8 || C % 8 || G < 1 || C % G || tcv < 1 || cvs % tcv || rl < 1 ||
@@ -351,7 +360,8 @@ extern "C" int group_norm_bf16(const void* x, const void* gamma, const void* bet
       (long long)(slabs - 1) * slab_rows >= P || (long long)slabs * slab_rows < P ||
       apply_blocks < 1 || (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16)
     return (int)cudaErrorInvalidValue;
-  const StatsArgs a{static_cast<const uint4*>(x), gamma, beta, shift, static_cast<float*>(part),
+  const StatsArgs a{static_cast<const uint4*>(x), gamma, beta, shift, bias_in,
+                    static_cast<float*>(part),
                     static_cast<float*>(wu), static_cast<__nv_bfloat16*>(wu_bf),
                     static_cast<int*>(counters), N, P, C, G, tcv, rl, slabs, slab_rows, flags, eps};
   const int threads = tcv * rl;

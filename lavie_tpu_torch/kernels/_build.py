@@ -122,6 +122,16 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+def current_stream(index: int) -> int:
+    """Device `index`'s current stream handle: torch's raw getter where the
+    build has it (torch.cuda.current_stream() builds a Stream object, ~7 µs
+    a call on the card's host), else that object's."""
+    import torch
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
 def sass_op_counts(path) -> Dict[str, Dict[str, int]]:
     """Instruction counts per kernel in the SASS of a built library
     (`cuobjdump -sass`, from nvcc's toolkit): {mangled kernel name: {opcode

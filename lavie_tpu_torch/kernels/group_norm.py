@@ -1,27 +1,28 @@
 """GroupNorm over channels-last activations, with the SiLU after it and a
-per-(n, c) shift before it folded in:
+per-(n, c) shift and a per-channel bias before it folded in:
 
-    y = silu?( GroupNorm(x + shift) ) = silu?( x·w + u )
-    w = γ · rsqrt(var_g + ε),  u = β − mean_g · w + shift · w
+    y = silu?( GroupNorm(x + s) ) = silu?( x·w + u ),  s = shift + bias_in
+    w = γ · rsqrt(var_g + ε),  u = β − mean_g · w + s · w
 
 x is (N, ..., C): the statistics of n are over every axis but N and C and
 the C / G channels of a group (N = B videos for statistics over all frames,
 B·F frames for per-frame ones). The statistics are fp32 per-channel moments
 folded into the per-(N, C) affine (lavie_tpu.nn.layers.groupnorm_affine's
 route); x·w and + u are two bf16 ops, each rounded, as the port's plain
-GroupNorm computes them, and the SiLU is F.silu's (rounded once). A shift
-(the time embedding before a resnet's norm2) moves only the channel means
-and u, so the bf16 rounding of x + shift that the plain route makes drops
-out.
+GroupNorm computes them, and the SiLU is F.silu's (rounded once). s (the
+time embedding before a resnet's norm2, plus conv1's bias, which ATen would
+add to the convolution's output as a pass of its own) moves only the
+channel means and u, in fp32, so the bf16 roundings of x + bias_in and of +
+shift that the plain route makes drop out.
 
   group_norm            the wrapper: two CUDA kernels (csrc/group_norm.cu:
                         gn_stats_kernel, then gn_apply_kernel) for a CUDA
                         tensor, the plain version for a CPU tensor; under
                         autograd the kernels' forward with the plain
                         version's backward (_autograd.KernelWithPlainBackward).
-                        `launches` counts the kernel calls, `silu_launches`
-                        and `shift_launches` those with the SiLU and with a
-                        shift
+                        `launches` counts the kernel calls, `silu_launches`,
+                        `shift_launches` and `bias_in_launches` those with
+                        the SiLU, with a shift and with a bias
   group_norm_affine     the statistics alone: the fp32 (w, u), (N, C) each,
                         for kernels that apply the normalisation themselves
   affine_reference      the plain version of gn_stats_kernel
@@ -29,8 +30,8 @@ out.
   group_norm_reference  the two together
   kernel_takes          whether a call can go to the kernels: a CUDA tensor
                         whose layout they read (layout_takes: bf16,
-                        contiguous channels-last, C % 8 == 0, and parameters
-                        and shift in fp32 or bf16)
+                        contiguous channels-last, C % 8 == 0, and parameters,
+                        shift and bias in fp32 or bf16)
   launch_plan           both kernels' launch plan for one call, computed here
                         so that the CPU tests can hold it against the card's
                         limits
@@ -56,7 +57,7 @@ APPLY_THREADS = 256
 APPLY_BLOCKS_PER_SM = 8  # normalisation blocks the grid aims at, per SM
 APPLY_MIN_VECTORS = 4 * APPLY_THREADS  # 16-byte vectors a normalisation block takes at least
 MAX_CHANNELS = 8 * STATS_THREADS
-FLAG_SILU, FLAG_PARAM_BF16, FLAG_SHIFT_BF16 = 1, 2, 4
+FLAG_SILU, FLAG_PARAM_BF16, FLAG_SHIFT_BF16, FLAG_BIAS_IN_BF16 = 1, 2, 4, 8
 
 
 @dataclass(frozen=True)
@@ -103,17 +104,20 @@ def launch_plan(n: int, p: int, c: int, groups: int, sm_count: int) -> LaunchPla
 
 
 def kernel_takes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
-                 shift: Optional[torch.Tensor] = None) -> bool:
+                 shift: Optional[torch.Tensor] = None,
+                 bias_in: Optional[torch.Tensor] = None) -> bool:
     """The kernels take the call: x a CUDA tensor whose layout and
     parameters they read (layout_takes)."""
-    return x.is_cuda and layout_takes(x, weight, bias, groups, shift)
+    return x.is_cuda and layout_takes(x, weight, bias, groups, shift, bias_in)
 
 
 def layout_takes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
-                 shift: Optional[torch.Tensor] = None) -> bool:
+                 shift: Optional[torch.Tensor] = None,
+                 bias_in: Optional[torch.Tensor] = None) -> bool:
     """x a bf16 tensor (N, ..., C), contiguous (C last), 16-byte aligned, C
     % 8 == 0 within MAX_CHANNELS, in `groups` groups; γ and β (C) in one
-    dtype, fp32 or bf16; the shift (N, C), fp32 or bf16; all on x's device."""
+    dtype, fp32 or bf16; the shift (N, C) and bias_in (C), each fp32 or
+    bf16; all on x's device."""
     if not (x.dtype == torch.bfloat16 and x.dim() >= 2):
         return False
     n, c = x.shape[0], x.shape[-1]
@@ -123,32 +127,44 @@ def layout_takes(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, grou
           and bias.shape == (c,) and weight.dtype == bias.dtype
           and weight.dtype in (torch.float32, torch.bfloat16) and weight.is_contiguous()
           and bias.is_contiguous() and weight.get_device() == dev and bias.get_device() == dev)
-    if shift is not None:
-        ok = ok and (shift.shape == (n, c) and shift.dtype in (torch.float32, torch.bfloat16)
-                     and shift.is_contiguous() and shift.get_device() == dev)
+    for t, shape in ((shift, (n, c)), (bias_in, (c,))):
+        ok = ok and (t is None or (t.shape == shape and t.dtype in (torch.float32, torch.bfloat16)
+                                   and t.is_contiguous() and t.get_device() == dev))
     return ok
 
 
+def total_shift(shift: Optional[torch.Tensor], bias_in: Optional[torch.Tensor]):
+    """s = shift + bias_in in fp32 ((N, C), or (1, C) of the bias alone), or
+    None: gn_stats_kernel's sum."""
+    if bias_in is None:
+        return None if shift is None else shift.float()
+    b = bias_in.float()[None]
+    return b if shift is None else shift.float() + b
+
+
 def affine_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
-                     eps: float, shift: Optional[torch.Tensor] = None):
-    """GroupNorm's fp32 (w, u), (N, C) each, of x + shift: per-channel fp32
-    moments of x (var_mean over the rows), the shift added to the channel
-    means, the channels folded into their groups (mean_g the channels'
-    mean, var_g the mean of var_c + (mean_c − mean_g)²), then w = γ·inv and
-    u = β − mean_g·w (+ shift·w), each op rounded in fp32."""
+                     eps: float, shift: Optional[torch.Tensor] = None,
+                     bias_in: Optional[torch.Tensor] = None):
+    """GroupNorm's fp32 (w, u), (N, C) each, of x + s (s = total_shift of
+    shift and bias_in): per-channel fp32 moments of x (var_mean over the
+    rows), s added to the channel means, the channels folded into their
+    groups (mean_g the channels' mean, var_g the mean of var_c + (mean_c −
+    mean_g)²), then w = γ·inv and u = β − mean_g·w (+ s·w), each op rounded
+    in fp32."""
     n, c = x.shape[0], x.shape[-1]
     per = c // groups
     var_c, mean_c = torch.var_mean(x.reshape(n, -1, c).float(), dim=1, unbiased=False)
-    if shift is not None:
-        mean_c = mean_c + shift.float()
+    s = total_shift(shift, bias_in)
+    if s is not None:
+        mean_c = mean_c + s
     m = mean_c.view(n, groups, per)
     mean_g = m.mean(-1)
     var_g = (var_c.view(n, groups, per) + (m - mean_g[..., None]).square()).mean(-1)
     inv = torch.rsqrt(var_g + eps).repeat_interleave(per, dim=1)
     w = inv * weight.float()
     u = bias.float() - mean_g.repeat_interleave(per, dim=1) * w
-    if shift is not None:
-        u = u + shift.float() * w
+    if s is not None:
+        u = u + s * w
     return w, u
 
 
@@ -162,41 +178,45 @@ def apply_reference(x: torch.Tensor, w: torch.Tensor, u: torch.Tensor, silu: boo
 
 
 def group_norm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int,
-                         eps: float, *, silu: bool = False,
-                         shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         eps: float, *, silu: bool = False, shift: Optional[torch.Tensor] = None,
+                         bias_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of both kernels."""
-    return apply_reference(x, *affine_reference(x, weight, bias, groups, eps, shift), silu)
+    return apply_reference(x, *affine_reference(x, weight, bias, groups, eps, shift, bias_in),
+                           silu)
 
 
 def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, groups: int, eps: float,
-               *, silu: bool = False, shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+               *, silu: bool = False, shift: Optional[torch.Tensor] = None,
+               bias_in: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GroupNorm of x (N, ..., C) in `groups` groups with γ = weight, β =
-    bias, of x + shift[:, None, ..., :] when a shift (N, C) is given, then
-    the SiLU when `silu`. On a CUDA tensor this launches the kernels, or
-    raises for what they do not take (kernel_takes). When grad mode is on
-    and an input requires grad, the backward recomputes group_norm_reference
-    from the saved inputs."""
+    bias, of x + bias_in + shift[:, None, ..., :] when a bias (C) or a shift
+    (N, C) is given, then the SiLU when `silu`. On a CUDA tensor this
+    launches the kernels, or raises for what they do not take
+    (kernel_takes). When grad mode is on and an input requires grad, the
+    backward recomputes group_norm_reference from the saved inputs."""
     if x.device.type == "cpu":
-        return group_norm_reference(x, weight, bias, groups, eps, silu=silu, shift=shift)
-    return _on_kernels(x, weight, bias, groups, eps, silu, shift)
+        return group_norm_reference(x, weight, bias, groups, eps, silu=silu, shift=shift,
+                                    bias_in=bias_in)
+    return _on_kernels(x, weight, bias, groups, eps, silu, shift, bias_in)
 
 
 def _on_kernels(x, weight, bias, groups: int, eps: float, silu: bool,
-                shift: Optional[torch.Tensor]) -> torch.Tensor:
+                shift: Optional[torch.Tensor], bias_in: Optional[torch.Tensor]) -> torch.Tensor:
     """group_norm's kernel route, counted in its launch counters."""
-    if not kernel_takes(x, weight, bias, groups, shift):
+    if not kernel_takes(x, weight, bias, groups, shift, bias_in):
         raise ValueError(f"group_norm kernel: x {tuple(x.shape)} {x.dtype} on {x.device}, "
                          f"{groups} groups, γ {weight.dtype}, shift "
-                         f"{None if shift is None else (tuple(shift.shape), shift.dtype)}")
+                         f"{None if shift is None else (tuple(shift.shape), shift.dtype)}, bias "
+                         f"{None if bias_in is None else (tuple(bias_in.shape), bias_in.dtype)}")
     plan = _plan(x, groups)
-    tensors = (x, weight, bias, shift)
+    tensors = (x, weight, bias, shift, bias_in)
 
     def launch(*t):
         return _launch(*t, groups, eps, silu, plan, True)
 
     if needs_grad(tensors):
-        def reference(x_, w_, b_, s_):
-            return group_norm_reference(x_, w_, b_, groups, eps, silu=silu, shift=s_)
+        def reference(x_, w_, b_, s_, bi_):
+            return group_norm_reference(x_, w_, b_, groups, eps, silu=silu, shift=s_, bias_in=bi_)
 
         y = KernelWithPlainBackward.apply(launch, reference, *tensors)
     else:
@@ -204,6 +224,7 @@ def _on_kernels(x, weight, bias, groups: int, eps: float, silu: bool,
     group_norm.launches += 1
     group_norm.silu_launches += int(silu)
     group_norm.shift_launches += int(shift is not None)
+    group_norm.bias_in_launches += int(bias_in is not None)
     return y
 
 
@@ -219,21 +240,13 @@ def group_norm_affine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if not kernel_takes(x, weight, bias, groups):
         raise ValueError(f"group_norm_affine kernel: x {tuple(x.shape)} {x.dtype} on {x.device}, "
                          f"{groups} groups, γ {weight.dtype}")
-    wu = _launch(x, weight, bias, None, groups, eps, False, _plan(x, groups), False)
+    wu = _launch(x, weight, bias, None, None, groups, eps, False, _plan(x, groups), False)
     return wu[0], wu[1]
 
 
 def _plan(x: torch.Tensor, groups: int) -> LaunchPlan:
     n, c = x.shape[0], x.shape[-1]
     return launch_plan(n, x.numel() // (n * c), c, groups, _build.sm_count(x.get_device()))
-
-
-def _stream(index: int) -> int:
-    """Device `index`'s current stream handle: torch's raw getter where the
-    build has it (torch.cuda.current_stream() builds a Stream object, ~7 µs
-    a call on the card's host), else that object's."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
 
 
 _counters = {}  # device index -> int32 counters, zero between calls
@@ -247,8 +260,8 @@ def _zeroed_counters(x: torch.Tensor, size: int) -> torch.Tensor:
     return have
 
 
-def _launch(x, weight, bias, shift, groups: int, eps: float, silu: bool, plan: LaunchPlan,
-            apply: bool):
+def _launch(x, weight, bias, shift, bias_in, groups: int, eps: float, silu: bool,
+            plan: LaunchPlan, apply: bool):
     """Both kernels of one call on the current stream (`apply` False: the
     statistics alone); returns y, or the fp32 (w, u) as one (2, N, C)
     tensor. Each torch op costs the card's host several µs, so the scratch
@@ -260,13 +273,15 @@ def _launch(x, weight, bias, shift, groups: int, eps: float, silu: bool, plan: L
     base = scratch.data_ptr()
     y = torch.empty_like(x) if apply else None
     flags = ((FLAG_SILU if silu else 0) | (FLAG_PARAM_BF16 if weight.dtype == torch.bfloat16 else 0)
-             | (FLAG_SHIFT_BF16 if shift is not None and shift.dtype == torch.bfloat16 else 0))
-    fn = _build.function("group_norm", "group_norm_bf16", 9, 10, 1)
+             | (FLAG_SHIFT_BF16 if shift is not None and shift.dtype == torch.bfloat16 else 0)
+             | (FLAG_BIAS_IN_BF16 if bias_in is not None and bias_in.dtype == torch.bfloat16 else 0))
+    fn = _build.function("group_norm", "group_norm_bf16", 10, 10, 1)
     err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-             None if shift is None else shift.data_ptr(), None if y is None else y.data_ptr(),
+             None if shift is None else shift.data_ptr(),
+             None if bias_in is None else bias_in.data_ptr(), None if y is None else y.data_ptr(),
              base, base + 8 * nc, base + 12 * nc, _zeroed_counters(x, n * plan.ctiles).data_ptr(),
              n, x.numel() // nc, c, groups, plan.tcv, plan.rl, plan.slabs, plan.slab_rows,
-             plan.apply_blocks, flags, eps, _stream(x.get_device()))
+             plan.apply_blocks, flags, eps, _build.current_stream(x.get_device()))
     _build.check(err, "group_norm")
     return y if apply else scratch[:2 * nc].view(2, n, c)
 
@@ -274,3 +289,4 @@ def _launch(x, weight, bias, shift, groups: int, eps: float, silu: bool, plan: L
 group_norm.launches = 0
 group_norm.silu_launches = 0
 group_norm.shift_launches = 0
+group_norm.bias_in_launches = 0

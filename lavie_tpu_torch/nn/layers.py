@@ -26,14 +26,16 @@ class GroupNorm(nn.Module):
     over every axis but N and C, in fp32; the normalisation is then applied
     as one per-(N, C) multiply-add in the input dtype (lavie_tpu's
     groupnorm_affine). Consecutive channels form a group, as in torch.
-    `forward(x, shift=, silu=)` normalises x + shift[:, None, ..., :] (shift
-    (N, C), the time embedding before a resnet's norm2) and applies the SiLU
-    after it when `silu`.
+    `forward(x, shift=, silu=, bias_in=)` normalises x + bias_in + shift[:,
+    None, ..., :] (shift (N, C), the time embedding before a resnet's norm2;
+    bias_in (C), the bias of the convolution that made x, which
+    InflatedConv.split_bias handed back) and applies the SiLU after it when
+    `silu`.
 
     A CUDA bf16 x that kernels/group_norm.py's kernels take (contiguous, C %
     8 == 0) runs on them: the statistics from per-channel fp32 moments, the
-    shift folded into them and into the affine, the SiLU in the normalising
-    pass. Every other call runs the ops below: a CPU tensor, a width the
+    shift and the bias folded into them and into the affine in fp32, the
+    SiLU in the normalising pass. Every other call runs the ops below: a CPU tensor, a width the
     kernels do not take (the VSR v_cond_conv's 3 channels), a frame-sharded
     call.
 
@@ -54,9 +56,10 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_channels))
         self.frame_shard: Optional[FrameShard] = None
 
-    def _kernels_take(self, x: torch.Tensor, shift: Optional[torch.Tensor] = None) -> bool:
+    def _kernels_take(self, x: torch.Tensor, shift: Optional[torch.Tensor] = None,
+                      bias_in: Optional[torch.Tensor] = None) -> bool:
         return self.frame_shard is None and kernel_takes(x, self.weight, self.bias,
-                                                         self.num_groups, shift)
+                                                         self.num_groups, shift, bias_in)
 
     def affine(self, x: torch.Tensor):
         """The fp32 per-(N, C) (w, u) with GroupNorm(x) = x·w + u, for
@@ -81,12 +84,14 @@ class GroupNorm(nn.Module):
         return w, self.bias.float() - mean_c * w
 
     def forward(self, x: torch.Tensor, shift: Optional[torch.Tensor] = None,
-                silu: bool = False) -> torch.Tensor:
-        if self._kernels_take(x, shift):
+                silu: bool = False, bias_in: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self._kernels_take(x, shift, bias_in):
             return group_norm(x, self.weight, self.bias, self.num_groups, self.eps, silu=silu,
-                              shift=shift)
+                              shift=shift, bias_in=bias_in)
         n, c = x.shape[0], x.shape[-1]
         shape = (n,) + (1,) * (x.ndim - 2) + (c,)
+        if bias_in is not None:  # as ATen adds a convolution's bias
+            x = x + bias_in
         if shift is not None:
             x = x + shift.view(shape)
         w, u = self.affine(x)
@@ -114,6 +119,14 @@ def groupnorm_affine_from_moments(mean_c: torch.Tensor, meansq_c: torch.Tensor,
     return w, bias.float()[None] - mc * inv_c * scale.float()[None]
 
 
+def bias_added_apart(x: torch.Tensor) -> bool:
+    """A convolution of x runs on cuDNN, to which ATen hands no bias: it adds
+    the bias after the convolution as a pass of its own (`output.add_` of
+    ConvUtils.h's `reshape_bias`), so a caller that adds it in another pass,
+    in the same order, changes no bit."""
+    return x.is_cuda and torch.backends.cudnn.enabled
+
+
 class InflatedConv(nn.Conv2d):
     """Per-frame 2D convolution over (B, F, H, W, C) video, or (N, H, W, C)
     images. Parameters are nn.Conv2d's (weight (O, I, kh, kw), bias).
@@ -121,21 +134,43 @@ class InflatedConv(nn.Conv2d):
     In int8 turbo mode (`conv_quant`, set with the exclude patterns and the
     conv's JAX module path by nn/quant.py::configure) an eligible conv runs
     int8_conv2d instead, frames folded into the sample axis so that each
-    frame has its own activation scale."""
+    frame has its own activation scale.
+
+    `split_bias(x)` hands the bias back instead of adding it, for a caller
+    that adds it in a pass that reads the output anyway (GroupNorm's
+    bias_in, kernels/bias_residual.py)."""
 
     conv_quant = "none"
     quant_path = None
     quant_exclude = ()
 
+    def _int8(self, x: torch.Tensor) -> bool:
+        return quant.quant_eligible(self.kernel_size, x.shape[-1], self.out_channels, x.dtype,
+                                    self.quant_path, mode=self.conv_quant,
+                                    exclude=self.quant_exclude)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv(x, self.bias)
+
+    def split_bias(self, x: torch.Tensor):
+        """(y, b) with forward(x) = y + b: on cuDNN's route
+        (bias_added_apart, no int8), y is the convolution without its bias
+        and b the bias parameter itself (in its dtype: a copy in fp32 would
+        be a launch of its own; under autograd its gradient flows through
+        the consumer); elsewhere y = forward(x) and b = None (int8_conv2d
+        adds its bias inside, in the JAX package's order)."""
+        if self.bias is None or not bias_added_apart(x) or self._int8(x):
+            return self(x), None
+        return self._conv(x, None), self.bias
+
+    def _conv(self, x: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
         lead = x.shape[:-3]
         x = x.reshape((-1,) + x.shape[-3:])
-        if quant.quant_eligible(self.kernel_size, x.shape[-1], self.out_channels, x.dtype,
-                                self.quant_path, mode=self.conv_quant, exclude=self.quant_exclude):
+        if self._int8(x):
             (ph, pw), (sh, sw) = self.padding, self.stride
-            y = quant.int8_conv2d(x, self.weight, self.bias, (sh, sw), ((ph, ph), (pw, pw)))
+            y = quant.int8_conv2d(x, self.weight, bias, (sh, sw), ((ph, ph), (pw, pw)))
         else:  # cuDNN on an NCHW view of channels_last memory
-            y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight, self.bias)
+            y = self._conv_forward(x.permute(0, 3, 1, 2), self.weight, bias)
             y = y.permute(0, 2, 3, 1)
         return y.reshape(lead + y.shape[1:])
 

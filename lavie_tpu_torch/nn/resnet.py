@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from lavie_tpu_torch.kernels.bias_residual import bias_residual
 from lavie_tpu_torch.kernels.temporal_resblock import gn_silu_tconv, resblock_conv_supported
 from lavie_tpu_torch.nn import quant
 from lavie_tpu_torch.nn.layers import (
@@ -28,7 +29,14 @@ class ResnetBlock3D(nn.Module):
     their statistics over all frames of a video, (F, H, W), and apply the
     SiLU after them (GroupNorm's `silu`); norm2 takes the time embedding as
     its `shift`, so the add runs inside it. norm2 has `groups_out` groups
-    when given (the VSR v_cond_conv: 3 on its RGB input, 32 after)."""
+    when given (the VSR v_cond_conv: 3 on its RGB input, 32 after).
+
+    Where a conv hands its bias back (InflatedConv.split_bias: cuDNN's
+    route), the bias joins a pass that reads the conv's output anyway:
+    conv1's is norm2's bias_in (folded into its fp32 statistics where it
+    takes its kernels, added as cuDNN's route adds it elsewhere); conv2's
+    and the shortcut's go into the residual add (kernels/bias_residual.py),
+    in the order of the ops it replaces."""
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
                  temb_channels: Optional[int] = 1280, groups: int = 32, eps: float = 1e-6,
@@ -48,14 +56,15 @@ class ResnetBlock3D(nn.Module):
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
         """x (B, F, H, W, C); temb (B, temb_channels)."""
         with span("resnet"):
-            h = self.conv1(self.norm1(x, silu=True))
+            h, b1 = self.conv1.split_bias(self.norm1(x, silu=True))
             shift = None
             if temb is not None and self.time_emb_proj is not None:
-                shift = self.time_emb_proj(F.silu(temb))  # norm2 of h + temb
-            h = self.conv2(self.norm2(h, shift=shift, silu=True))
+                shift = self.time_emb_proj(F.silu(temb))  # norm2 of h + b1 + temb
+            h, b2 = self.conv2.split_bias(self.norm2(h, shift=shift, silu=True, bias_in=b1))
+            bx = None
             if self.conv_shortcut is not None:
-                x = self.conv_shortcut(x)
-            out = x + h
+                x, bx = self.conv_shortcut.split_bias(x)
+            out = bias_residual(x, h, bx, b2)
             if self.output_scale_factor != 1.0:
                 out = out / self.output_scale_factor
             return out

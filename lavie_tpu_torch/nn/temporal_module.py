@@ -17,6 +17,8 @@ JAX package does:
   - use_scale_shift: a zero-initialised 1×1 conv gives (scale, shift) and
     the output is (1 + scale)·x + shift (scale_shift_conv; the reference
     notes that it NaNs in training and defaults it off).
+Without it the shift conv's bias joins the residual add
+(kernels/bias_residual.py), as in ResnetBlock3D.
 A call records a `temporal_module` span (utils/profiling.py).
 """
 
@@ -27,6 +29,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lavie_tpu_torch.kernels.bias_residual import bias_residual
 from lavie_tpu_torch.nn.layers import InflatedConv
 from lavie_tpu_torch.nn.resnet import ResnetBlock3D, ResnetBlock3DCNN
 from lavie_tpu_torch.nn.versatile_attention import TemporalTransformer3D
@@ -99,4 +102,5 @@ class TemporalModule3D(nn.Module):
         if self.use_scale_shift:
             scale, shift = self.scale_shift_conv(h).chunk(2, dim=-1)
             return (1 + scale) * x + shift
-        return x + self.shift_conv(h)
+        y, b = self.shift_conv.split_bias(h)
+        return bias_residual(x, y, None, b)

@@ -184,18 +184,19 @@ def _as_on_card(monkeypatch):
     the plain versions; returns the calls the route saw."""
     calls = []
 
-    def admit(x, weight, bias, groups, shift=None):
+    def admit(x, weight, bias, groups, shift=None, bias_in=None):
         x = x.detach().to(torch.bfloat16) if x.dtype == torch.float32 else x
-        return gn.layout_takes(x, weight, bias, groups, shift)
+        return gn.layout_takes(x, weight, bias, groups, shift, bias_in)
 
-    def launch(x, weight, bias, shift, groups, eps, silu, plan, apply):
+    def launch(x, weight, bias, shift, bias_in, groups, eps, silu, plan, apply):
         calls.append((x.shape, silu, shift is not None, apply))
         if apply:
-            return gn.group_norm_reference(x, weight, bias, groups, eps, silu=silu, shift=shift)
+            return gn.group_norm_reference(x, weight, bias, groups, eps, silu=silu, shift=shift,
+                                           bias_in=bias_in)
         return torch.stack(gn.affine_reference(x, weight, bias, groups, eps))
 
-    def on_kernels(x, weight, bias, groups, eps, *, silu=False, shift=None):
-        return gn._on_kernels(x, weight, bias, groups, eps, silu, shift)
+    def on_kernels(x, weight, bias, groups, eps, *, silu=False, shift=None, bias_in=None):
+        return gn._on_kernels(x, weight, bias, groups, eps, silu, shift, bias_in)
 
     monkeypatch.setattr(gn, "kernel_takes", admit)
     monkeypatch.setattr(layers, "kernel_takes", admit)
