@@ -32,16 +32,14 @@ its result line:
                 and, where one PyTorch call computes the same function,
                 F.scaled_dot_product_attention (a yardstick only: the port
                 never calls it); the explicit-kv flash entry runs here only.
-                Rows of the redesigned bodies also print the time of the
-                bodies they replaced (prev_ms). Then what a frame shard
-                calls anew (phase_mesh_kernels): flash_sparse_causal with
-                its anchor and halo operands on frames [31, 61) of two
-                61-frame videos (against its plain version, and its rows
-                bit for bit the whole video call's), and the temporal
-                attention at half the positions (sp = 2), base and TSR;
-                and what a tp = 2 rank of the training step calls: the
-                temporal attention at H = 4 and GEGLU at I = 2C with its
-                fp32 partial (no b2), at the base levels for batch 1
+                Then what a frame shard calls anew (phase_mesh_kernels):
+                flash_sparse_causal with its anchor and halo operands on
+                frames [31, 61) of two 61-frame videos (against its plain
+                version, and its rows bit for bit the whole video call's),
+                and the temporal attention at half the positions (sp = 2),
+                base and TSR; and what a tp = 2 rank of the training step
+                calls: the temporal attention at H = 4 and GEGLU at I = 2C
+                with its fp32 partial (no b2), at the base levels for batch 1
   4. model      one full-width base UNet3D forward (2x16x40x64 latents, every
                 parameter random, temporal out-projections included) with the
                 kernels and with the plain versions; relative error
@@ -222,10 +220,10 @@ import time
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-BF16_FLOPS = 989e12  # dense tensor-core bf16
+from port_bench.yardstick import (BF16_FLOPS, FP32_FLOPS, HBM_BYTES_PER_S, KERNEL_GROUPS,
+                                  NOT_DEVICE_WORK, bound_s, group_of)
+
 INT8_OPS = 1979e12  # dense tensor-core int8
-FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 
 # (S, head_dim) at B=2, H=8; F=16 on the base path, 61 on the TSR path
 ATTENTION_LEVELS = [(2560, 40), (640, 80), (160, 160), (40, 160)]
@@ -291,116 +289,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def bound(n_bytes: float, ops):
-    """(least ms the card could take, what bounds it); ops: (flops, peak
-    rate for their operands' type) pairs, whose times add."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, sum(n / rate for n, rate in ops)
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-# the times of the redesigned kernels before their redesign (chip_smoke.py on
-# an NVIDIA H100 80GB HBM3 at 700 W), printed beside each new time as prev_ms
-PREV_MS = {
-    ("temporal_attention", 2, 16, 2560, 40): 0.262, ("temporal_attention", 2, 16, 640, 80): 0.194,
-    ("temporal_attention", 2, 16, 160, 160): 0.163, ("temporal_attention", 2, 16, 40, 160): 0.070,
-    ("temporal_attention", 2, 61, 2560, 40): 2.655, ("temporal_attention", 2, 61, 640, 80): 1.410,
-    ("temporal_attention", 2, 61, 160, 160): 1.221, ("temporal_attention", 2, 61, 40, 160): 0.359,
-    ("temporal_attention", 1, 8, 40960, 64): 1.334, ("temporal_attention", 1, 8, 10240, 64): 0.354,
-    ("temporal_attention", 1, 8, 2560, 128): 0.292,
-    ("temporal_attention_folded", 2, 16, 2560, 40): 0.223,
-    ("temporal_attention_folded", 2, 16, 640, 80): 0.177,
-    ("temporal_attention_folded", 2, 16, 160, 160): 0.156,
-    ("temporal_attention_folded", 2, 16, 40, 160): 0.066,
-    ("temporal_attention_folded", 1, 8, 40960, 64): 1.118,
-    ("temporal_attention_folded", 1, 8, 10240, 64): 0.317,
-    ("temporal_attention_folded", 1, 8, 2560, 128): 0.276,
-    ("flash_sparse_causal", 122, 61, 2560, 40): 12.232, ("flash_sparse_causal", 122, 61, 640, 80): 1.189,
-    ("flash_sparse_causal", 122, 61, 160, 160): 0.241, ("flash_sparse_causal", 122, 61, 40, 160): 0.040,
-    ("flash_attention_kv", 122, 2560, 5120, 40): 12.420, ("flash_attention", 8, 2560, 128): 0.928,
-    # GEGLU (one wmma kernel) and the short-kv cross attention before their
-    # redesign to wgmma GEMMs and a persistent TMA-fed kernel
-    ("geglu", 81920, 320, 1280): 3.610, ("geglu", 20480, 640, 2560): 3.475,
-    ("geglu", 5120, 1280, 5120): 4.666, ("geglu", 1280, 1280, 5120): 1.563,
-    ("geglu", 312320, 320, 1280): 13.026, ("geglu", 78080, 640, 2560): 13.081,
-    ("geglu", 19520, 1280, 5120): 15.401, ("geglu", 4880, 1280, 5120): 4.748,
-    ("geglu", 81920, 512, 2048): 9.858, ("geglu", 20480, 1024, 4096): 11.440,
-    # the short-kv cross attention before its probabilities were divided by
-    # their sum instead of multiplied by its reciprocal (PERF.md, row 13)
-    ("cross_attention", "base", 2, 40960, 40, 77): 0.087,
-    ("cross_attention", "base", 2, 10240, 80, 77): 0.046,
-    ("cross_attention", "base", 2, 2560, 160, 77): 0.047,
-    ("cross_attention", "base", 2, 640, 160, 77): 0.033,
-    ("cross_attention", "VSR L3", 1, 20480, 128, 77): 0.036,
-    # the image path's 154 keys on cross_long_kernel (mma.sync, 256 score
-    # columns a row) before they moved to the 160-key wgmma body
-    ("cross_attention", "base", 2, 40960, 40, 154): 0.713,
-    ("cross_attention", "base", 2, 10240, 80, 154): 0.214,
-    ("cross_attention", "base", 2, 2560, 160, 154): 0.085,
-    ("cross_attention", "base", 2, 640, 160, 154): 0.040,
-    # the VSR transformer tail (mma.sync, weights streamed per 32 rows) and
-    # the float GN·SiLU·temporal conv (mma.sync, the activation recomputed
-    # per tap and output tile) before their redesign to wgmma GEMMs fed by TMA
-    ("transformer_tail", 327680, 512, 2048): 27.418, ("transformer_tail", 81920, 512, 2048): 7.080,
-    ("gn_silu_tconv", 1, 8, 163840, 256, 256, 5, False): 7.381,
-    ("gn_silu_tconv", 1, 8, 163840, 256, 256, 3, True): 5.070,
-    ("gn_silu_tconv", 1, 8, 40960, 512, 512, 5, False): 7.324,
-    ("gn_silu_tconv", 1, 8, 40960, 512, 512, 3, True): 4.883,
-    ("gn_silu_tconv", 1, 8, 10240, 512, 512, 5, False): 1.825,
-    ("gn_silu_tconv", 1, 8, 10240, 512, 512, 3, True): 1.221,
-    ("gn_silu_tconv", 1, 8, 2560, 1024, 1024, 5, False): 1.828,
-    ("gn_silu_tconv", 1, 8, 2560, 1024, 1024, 3, True): 1.232,
-    ("gn_silu_tconv (emit_stats)", 1, 8, 163840, 256, 256, 5): 7.517,
-    ("gn_silu_tconv (emit_stats)", 1, 8, 40960, 512, 512, 5): 7.359,
-    ("gn_silu_tconv (emit_stats)", 1, 8, 10240, 512, 512, 5): 1.861,
-    ("gn_silu_tconv (emit_stats)", 1, 8, 2560, 1024, 1024, 5): 1.876,
-    ("gn_silu_tconv (activation none)", 1, 8, 10240, 512, 512, 3, True): 0.552,
-    # the VSR only-cross head (mma.sync, the five weights streamed per 64
-    # rows through a cp.async ring) and the d=512 flash body (mma.sync, two
-    # warps a 16-query band, K and V re-read by every 64-query block) before
-    # their redesign to wgmma fed by TMA
-    ("cross_attention_head", 1, 327680, 512, 8, 77): 8.327,
-    ("cross_attention_head", 1, 81920, 512, 8, 77): 2.194,
-    ("flash_attention", 8, 163840, 512): 2631.6,
-    # ln_qkv (mma.sync, all 3·E·C weights streamed through a cp.async ring
-    # per 64-token block, stored from registers) before its redesign to a
-    # LayerNorm pass and a staged wgmma GEMM fed by TMA
-    ("ln_qkv", "base", 2, 16, 2560, 320, 320): 0.856, ("ln_qkv", "base", 2, 16, 640, 640, 640): 0.672,
-    ("ln_qkv", "base", 2, 16, 160, 1280, 1280): 0.777, ("ln_qkv", "base", 2, 16, 40, 1280, 1280): 0.762,
-    ("ln_qkv", "TSR L0", 2, 61, 2560, 320, 320): 2.874,
-    # the fused attn2 (both projections on mma.sync, weights streamed per
-    # 32-64 tokens through a cp.async ring, K padded and V transposed a
-    # call) and out_proj_residual (mma.sync, weights streamed per 64 tokens,
-    # stored from registers) before their redesign to the staged wgmma GEMM,
-    # the LayerNorm pass and the TMA-fed cross attention body
-    ("fused_ln_cross_attention", "base", 2, 40960, 320, 8, 77): 0.825,
-    ("fused_ln_cross_attention", "base", 2, 10240, 640, 8, 77): 0.596,
-    ("fused_ln_cross_attention", "base", 2, 2560, 1280, 8, 77): 0.738,
-    ("fused_ln_cross_attention", "base", 2, 640, 1280, 8, 77): 0.354,
-    ("fused_ln_cross_attention", "TSR L0", 2, 156160, 320, 8, 77): 2.617,
-    ("fused_ln_cross_attention", "VSR L3", 1, 20480, 1024, 8, 77): 1.292,
-}
-PREV_MS.update({("out_proj_residual", where, b, f, s, c, c, c): ms for (where, b, f, s, c), ms in {
-    ("base", 2, 16, 2560, 320): 0.656, ("base", 2, 16, 640, 640): 0.236,
-    ("base", 2, 16, 160, 1280): 0.240, ("base", 2, 16, 40, 1280): 0.223,
-    ("TSR L0", 2, 61, 2560, 320): 2.407, ("TSR L1", 2, 61, 640, 640): 0.624,
-    ("TSR L2", 2, 61, 160, 1280): 0.734, ("TSR L3", 2, 61, 40, 1280): 0.236,
-    ("VSR L1", 1, 8, 40960, 512): 1.343, ("VSR L2", 1, 8, 10240, 512): 0.370,
-    ("VSR L3", 1, 8, 2560, 1024): 0.475}.items()})
-# the int8 GN·SiLU·temporal conv (mma.sync, its input activated and quantised
-# on the fly per tap and output tile) before its redesign to s8 wgmma fed by
-# TMA, at each turbo site (S, C): F=8 k=5, F=8 k=3 + residual, F=5 k=5 with
-# statistics; the scale block is the JAX package's choice there
-PREV_MS.update({
-    ("gn_silu_tconv (int8)", 1, f, s, c, c, k, res, stats, 512 if c == 256 else 256): ms
-    for (s, c), times in {(163840, 512): (26.688, 18.334, 15.434), (163840, 256): (7.506, 5.385, 4.376),
-                          (40960, 512): (7.204, 5.037, 4.217), (40960, 256): (2.340, 1.845, 1.430),
-                          (10240, 512): (2.348, 1.777, 1.430), (2560, 512): (1.128, 0.971, 0.728)}.items()
-    for (f, k, res, stats), ms in zip(((8, 5, False, False), (8, 3, True, False), (5, 5, False, True)),
-                                      times)})
-
-
-def prev_ms(kernel: str, shape: dict):
-    key = (kernel, *(v for k, v in shape.items() if k != "H"))
-    return PREV_MS.get(key)
+    """(yardstick.bound_s in ms, what bounds it: "bytes" or "operations")."""
+    t = bound_s(n_bytes, ops)
+    return t * 1e3, "bytes" if n_bytes / HBM_BYTES_PER_S == t else "operations"
 
 
 def check_row(kernel: str, shape: dict, out, ref, tol: float, fn, plain, library,
@@ -422,8 +313,6 @@ def check_row(kernel: str, shape: dict, out, ref, tol: float, fn, plain, library
         "library_ms": time_ms(library, iters, warm) if library is not None else None,
         "bound_ms": bound_ms, "bound_by": bound_by, **extra,
     }
-    if prev_ms(kernel, shape) is not None:
-        row["prev_ms"] = prev_ms(kernel, shape)
     log(json.dumps(row))
     if not (finite and err <= tol * scale):
         raise AssertionError(f"{kernel} {shape}: err {err} > {tol}·{scale} or not finite")
@@ -865,26 +754,6 @@ def phase_model(phase: str, cfg, frames: int, batch: int = 2, h: int = 40, w: in
     torch.cuda.empty_cache()
 
 
-KERNEL_GROUPS = (  # (group, substrings of CUDA kernel names), first match wins
-    ("temporal_attention", ("temporal_attention_kernel",)),
-    ("geglu", ("geglu_pingpong_kernel<", "geglu_coop_kernel<")),
-    ("cross_attention (attn2=cross)", ("cross_kernel<", "cross_long_kernel<")),
-    ("gn_silu_tconv", ("tconv_", "colsum_kernel", "act_absmax_kernel", "act_scale_kernel",
-                       "act_quant_kernel")),
-    ("temporal_proj", ("ln_qkv_", "out_proj_gemm_kernel<")),
-    ("fused_ln_cross_attention (attn2=fused)", ("fused_ln_kernel<", "fused_gemm_kernel<",
-                                                "fused_attn_kernel<")),
-    ("cross_attention_head", ("head_ln_kernel<", "head_gemm_kernel<", "head_attn_kernel")),
-    ("transformer_tail", ("tail_gemm_", "tail_ln_kernel<")),
-    ("flash d=512", ("flash_d512_kernel",)),
-    ("flash d<=160 (sparse-causal, explicit kv, VSR L3)", ("flash_kernel<",)),
-    ("attention (SDPA)", ("flash", "fmha", "attention", "softmax")),
-    ("convolution", ("conv", "implicit", "winograd", "dgrad", "wgrad", "nhwc", "nchw")),
-    ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma", "sm90", "cublas", "splitk")),
-    ("norm and elementwise", ("",)),
-)
-
-
 def device_kernels(prof):
     """(event, device µs) of every device kernel a torch.profiler run
     recorded, by name."""
@@ -892,11 +761,7 @@ def device_kernels(prof):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0.0)
-        # "Command Buffer Full" is the profiler's record of a stalled launch
-        # queue, not device work: counting it put the busy share above 1;
-        # "Activity Buffer Request" is the tracer's own
-        if us <= 0 or e.key.startswith(("aten::", "cuda", "Memcpy", "Memset", "Command Buffer Full",
-                                        "Activity Buffer Request")):
+        if us <= 0 or e.key.startswith(("aten::", "cuda", "Memcpy", "Memset") + NOT_DEVICE_WORK):
             continue
         yield e, us
 
@@ -963,9 +828,7 @@ def phase_profile(phase: str, unet, frames: int, batch: int = 2, h: int = 40, w:
     top = []
     for e, us in device_kernels(prof):
         top.append((us / 1e3, e.key[:80], e.count))
-        name = e.key.lower()
-        group = next(g_ for g_, subs in KERNEL_GROUPS if any(s_ in name for s_ in subs))
-        groups[group] += us / 1e3
+        groups[group_of(e.key)] += us / 1e3
     busy = sum(groups.values())
     top.sort(reverse=True)
     # the host side of the same forward: the ops with the most self time, and
@@ -1806,6 +1669,7 @@ def phase_cross_kernels() -> dict:
     rows = {"cross_attention": [], "fused_ln_cross_attention": []}
     h, lkv = 8, 77
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
     for where, b, n, d in levels:
         c, scale = h * d, d ** -0.5
         q, k, v = bf(b, n, h, d), bf(b, lkv, h, d), bf(b, lkv, h, d)
@@ -1820,7 +1684,7 @@ def phase_cross_kernels() -> dict:
             lambda: ca.cross_attention(*args), lambda: ca.cross_attention_reference(*args),
             lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
             (2 * b * n * c + 2 * b * lkv * c) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),),
-            launch_ms=time_ms(lambda: ca._launch(*args, plan))))
+            launch_ms=time_ms(lambda: ca._launch(*args, plan, stream))))
         del q, ql, kl, vl, args
         x = bf(b, n, c)
         p = (f32(c, m=1.0), f32(c), bf(c, c, sd=c ** -0.5), bf(c, c, sd=c ** -0.5), f32(c),
@@ -1843,7 +1707,7 @@ def phase_cross_kernels() -> dict:
             CROSS_TOL, lambda: cb.fused_ln_cross_attention(*fargs),
             lambda: cb.fused_ln_cross_attention_reference(*fargs), None, n_bytes, ops,
             unfused_ms=time_ms(unfused),
-            launch_ms=time_ms(lambda: cb._launch_fused(x, p, scale, 1e-5, fplan)),
+            launch_ms=time_ms(lambda: cb._launch_fused(x, p, scale, 1e-5, fplan, stream)),
             bound_with_round_trips_ms=bound(n_bytes + 6 * b * n * c * 2, ops)[0],
             kernels_ms=kernel_ms(lambda: cb.fused_ln_cross_attention(*fargs))))
         del x, p, fargs, k, v, kt, vt
@@ -1861,7 +1725,7 @@ def phase_cross_kernels() -> dict:
             lambda: ca.cross_attention(*args), lambda: ca.cross_attention_reference(*args),
             lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
             (2 * b * n * c + 2 * b * lkv * c) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),),
-            launch_ms=time_ms(lambda: ca._launch(*args, plan))))
+            launch_ms=time_ms(lambda: ca._launch(*args, plan, stream))))
         del q, k, v, ql, kl, vl, args
     # the most keys the kernel takes, on no path: the 256-key wgmma body at
     # d = 128 and cross_long_kernel at d = 160, at base L2's queries
@@ -1878,7 +1742,7 @@ def phase_cross_kernels() -> dict:
             lambda: ca.cross_attention(*args), lambda: ca.cross_attention_reference(*args),
             lambda: F.scaled_dot_product_attention(ql, kl, vl, scale=scale),
             (2 * b * n * h * d + 2 * b * lkv * h * d) * 2, ((4 * b * h * n * lkv * d, BF16_FLOPS),),
-            threads=plan.threads, launch_ms=time_ms(lambda: ca._launch(*args, plan))))
+            threads=plan.threads, launch_ms=time_ms(lambda: ca._launch(*args, plan, stream))))
         del q, k, v, ql, kl, vl, args
     torch.cuda.empty_cache()
     return rows
@@ -2674,7 +2538,7 @@ MESH_STEPS = {"base": 3, "tsr": 2, "vsr": 2}
 MESH_TIMEOUT = 600  # seconds the two ranks may take, and a collective may wait
 MESH_FRAMES = 16  # a training clip's frames in the mesh phase (the train phase's)
 # a sharded run against the one-process run of the same seed (SDPA held to
-# backends that answer alike in every process, chip_repro.py): bf16 at other
+# backends that answer alike in every process): bf16 at other
 # shapes (cuDNN's convs and cuBLAS at half the frames or samples, GroupNorm
 # sums in another order) moves the UNet as the kernels move it against their
 # plain versions (the first mesh run read 0.0142 of max, the kernels 0.014),
@@ -2871,7 +2735,8 @@ def _mesh_rank(rank: int, world: int, folder: str) -> None:
     PyTorch's attention operator is held to its FlashAttention and
     memory-efficient backends here: its default on the card, cuDNN's,
     answers the same inputs differently from one process to the next
-    (chip_repro.py), which would hide what sharding changes."""
+    (module outputs hashed in pairs of fresh processes), which would hide
+    what sharding changes."""
     import datetime
 
     import torch.distributed as dist

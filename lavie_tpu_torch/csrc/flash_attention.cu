@@ -502,7 +502,7 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const Borrowed
 // (frame, head) run as one thread-block cluster: the CTA of rank r loads
 // 8/W_CLUSTER of each tile's eight 64-column slabs and multicasts them to
 // every CTA of the cluster, so each L2 read serves W_CLUSTER blocks (4
-// timed alike on the H100: chip_ab.py's --cluster4 variant). A K slot is
+// timed alike on the H100, in a copy built with W_CLUSTER = 4). A K slot is
 // refilled once both consumers of every CTA of the cluster passed their
 // exchange (one remote mbarrier arrival per CTA), a V slot once each
 // consumer of every CTA finished its P V (one arrival per consumer); a CTA

@@ -1,7 +1,8 @@
 """Gradients through the hand-written kernels.
 
-The kernels compute forwards only. Two of them lie on the training path (the
-temporal attention and GEGLU): their wrappers run under
+The kernels compute forwards only. Four of them lie on the training path:
+the temporal attention (row 1), GEGLU (row 3), GroupNorm (row 16) and the
+bias-plus-residual add (row 17). Their wrappers run under
 `KernelWithPlainBackward`, whose forward launches the kernel and whose
 backward recomputes the kernel's plain PyTorch version from the saved inputs
 and takes its vector-Jacobian product. The JAX package has no backward

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent.parent / "build"
@@ -122,14 +122,17 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def current_stream(index: int) -> int:
-    """Device `index`'s current stream handle: torch's raw getter where the
-    build has it (torch.cuda.current_stream() builds a Stream object, ~7 µs
-    a call on the card's host), else that object's."""
+def launch_device(x) -> Tuple[int, int]:
+    """(SM count, current stream handle) of CUDA tensor x's card: what a
+    launch plans for and launches on. The handle comes from torch's raw
+    getter where the build has it (torch.cuda.current_stream() builds a
+    Stream object, ~7 µs a call on the card's host), else from that object."""
     import torch
 
+    index = x.get_device()
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+    stream = raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+    return sm_count(index), stream
 
 
 def sass_op_counts(path) -> Dict[str, Dict[str, int]]:

@@ -115,15 +115,16 @@ def _on_kernel(x, h, b_x, b_h) -> torch.Tensor:
 
 def _launch(x, h, b_x, b_h) -> torch.Tensor:
     """The kernel on the current stream; returns out (x's shape)."""
-    c, dev = x.shape[-1], x.get_device()
+    c = x.shape[-1]
     rows = x.numel() // c
+    sms, stream = _build.launch_device(x)
     out = torch.empty_like(x)
     flags = ((FLAG_BX_BF16 if b_x is not None and b_x.dtype == torch.bfloat16 else 0)
              | (FLAG_BH_BF16 if b_h is not None and b_h.dtype == torch.bfloat16 else 0))
     fn = _build.function("bias_residual", "bias_residual_bf16", 5, 4, 0)
     err = fn(x.data_ptr(), h.data_ptr(), None if b_x is None else b_x.data_ptr(),
              None if b_h is None else b_h.data_ptr(), out.data_ptr(), rows, c,
-             launch_plan(rows, c, _build.sm_count(dev)), flags, _build.current_stream(dev))
+             launch_plan(rows, c, sms), flags, stream)
     _build.check(err, "bias_residual")
     return out
 

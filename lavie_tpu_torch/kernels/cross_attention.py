@@ -28,18 +28,15 @@ from dataclasses import dataclass
 
 import torch
 
-from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels import _build, _hopper
 from lavie_tpu_torch.kernels._autograd import refuse_grad
 
 MAX_KV = 256
 MAX_HEAD_DIM = 160
-SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
-MAX_STAGES = 8
 TILE = 64  # queries a work item
-SLAB_BYTES = 128  # a 64-column row of a 128-byte swizzled TMA box
-# the kernel's shared memory besides its tiles: 1 KB to align them to the
-# swizzle atom, and the mbarriers
-RESERVED = 1024 + 16 * (MAX_STAGES + 1)
+# the kernel's shared memory besides its tiles: the ring's barrier slots and
+# one more for K and V
+RESERVED = _hopper.reserved(_hopper.MAX_STAGES + 1)
 KEY_WIDTHS = (80, 160, 256)  # the wgmma body's score tiles: the narrowest with L <= width
 WIDE_MAX_D = 128  # head dims the 256-key tile takes; above, the mma.sync kernel past 160 keys
 # threads of the wgmma body: a producer warpgroup and two consumer
@@ -91,9 +88,9 @@ def launch_plan(b: int, s: int, heads: int, d: int, lkv: int, sm_count: int) -> 
     key_regs = next(n for n in KEY_WIDTHS if lkv <= n)
     wgmma = key_regs < MAX_KV or d <= WIDE_MAX_D
     kv_rows = key_regs if wgmma else -(-lkv // 16) * 16
-    kv_bytes = 2 * slabs * kv_rows * SLAB_BYTES
-    stage = slabs * TILE * SLAB_BYTES
-    stages = min(MAX_STAGES, (SMEM_MAX - RESERVED - kv_bytes) // stage)
+    kv_bytes = 2 * slabs * kv_rows * _hopper.SLAB_BYTES
+    stage = slabs * TILE * _hopper.SLAB_BYTES
+    stages = min(_hopper.MAX_STAGES, (_hopper.SMEM_MAX - RESERVED - kv_bytes) // stage)
     if stages < (4 if wgmma else 1):
         raise ValueError(f"cross attention kernel: {kv_bytes + stage + RESERVED} shared bytes")
     items = b * heads * -(-s // TILE)
@@ -136,20 +133,19 @@ def cross_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         raise ValueError(f"{name} kernel: head dim {d}, {lkv} keys, {s} queries")
     if any(t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError(f"{name} kernel takes contiguous, 16-byte aligned q/k/v on one device")
-    sms = _build.sm_count(q.device.index if q.device.index is not None else torch.cuda.current_device())
-    out = _launch(q, k, v, scale, launch_plan(b, s, h, d, lkv, sms))
+    sms, stream = _build.launch_device(q)
+    out = _launch(q, k, v, scale, launch_plan(b, s, h, d, lkv, sms), stream)
     cross_attention.launches += 1
     return out
 
 
-def _launch(q, k, v, scale: float, plan: LaunchPlan) -> torch.Tensor:
-    """One kernel launch on the current stream, under `plan`."""
+def _launch(q, k, v, scale: float, plan: LaunchPlan, stream: int) -> torch.Tensor:
+    """One kernel launch on `stream`, under `plan`."""
     b, s, h, d = q.shape
     fn = _build.function("cross_attention", "cross_attention_bf16", 4, 5, 1, n_int_after=4)
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, h, d, k.shape[1],
-             float(scale), plan.tile, plan.stages, plan.grid, plan.smem_bytes,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             float(scale), plan.tile, plan.stages, plan.grid, plan.smem_bytes, stream)
     _build.check(err, "cross_attention")
     return out
 

@@ -145,12 +145,10 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: 
 
 
 def _launch(entry: str, q, k, v, ints, scale: float) -> torch.Tensor:
-    fn = getattr(_build.load("flash_attention"), entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    fn = _build.function("flash_attention", entry, 4, 5, 1)
     out = torch.empty_like(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *ints, float(scale),
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _build.launch_device(q)[1])
     _build.check(err, entry)
     return out
 
@@ -211,7 +209,7 @@ def flash_sparse_causal(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, frame
     out = torch.empty_like(q)
     err = _sparse_entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, out.data_ptr(), bf,
                           frames, s, heads, d, strides[0], strides[2], float(scale),
-                          torch.cuda.current_stream(q.device).cuda_stream)
+                          _build.launch_device(q)[1])
     _build.check(err, "flash_sparse_causal_bf16")
     flash_sparse_causal.launches += 1
     return out

@@ -27,34 +27,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels import _build, _hopper
 from lavie_tpu_torch.kernels._autograd import KernelWithPlainBackward, needs_grad
+from lavie_tpu_torch.kernels._hopper import GemmPlan
 
 KERNEL_WIDTHS = (128, 256, 320, 512, 640, 1024, 1280)
-SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
-TILE_ROWS = 128  # rows of a tile
 GATE_COLS = 64  # act columns of a gate tile: 64 hidden and 64 gate rows of W0, m64n128 products
-OUT_WIDTHS = (256, 160, 128)  # the out GEMM's tile widths, widest first
-SLAB = 64  # K columns a ring stage: one 128-byte swizzled box row
-SLAB_BYTES = 128
-MAX_STAGES = 8  # the kernel's barrier slots
-# the kernels' shared memory besides the ring: 1 KB to align it to the
-# swizzle atom, and the mbarriers
-RESERVED = 1024 + 16 * MAX_STAGES
 # the gate GEMM's staging boxes for its act tiles, one a consumer warpgroup
-GATE_STAGING = 2 * TILE_ROWS * SLAB_BYTES
-
-
-@dataclass(frozen=True)
-class GemmPlan:
-    """One of the two GEMMs: `width` B rows a stage (the wgmma width),
-    `k_blocks` 64-column slabs of K, a ring of `stages` stages of an A and a
-    B slab, `col_tiles` output tiles across a row tile."""
-    width: int
-    k_blocks: int
-    stages: int
-    col_tiles: int
-    smem_bytes: int
+GATE_STAGING = 2 * _hopper.TILE_ROWS * _hopper.SLAB_BYTES
 
 
 @dataclass(frozen=True)
@@ -64,13 +44,6 @@ class LaunchPlan:
     gate: GemmPlan
     out: GemmPlan
     grid: int
-
-
-def _gemm(width: int, k: int, col_tiles: int, max_stages: int, extra: int = 0) -> GemmPlan:
-    stage = (TILE_ROWS + width) * SLAB_BYTES
-    stages = min(max_stages, (SMEM_MAX - RESERVED - extra) // stage)
-    return GemmPlan(width=width, k_blocks=k // SLAB, stages=stages, col_tiles=col_tiles,
-                    smem_bytes=RESERVED + stages * stage + extra)
 
 
 @functools.lru_cache(maxsize=256)
@@ -84,14 +57,13 @@ def launch_plan(n: int, c: int, inner: int, sm_count: int) -> LaunchPlan:
     on a tile, the narrower ones take turns); up to five stages, over K = I.
     The act scratch (bf16, N x I) holds all rows. Raises for what the
     kernels cannot take."""
-    if c not in KERNEL_WIDTHS or n < 1 or sm_count < 1 or inner < SLAB or inner % SLAB:
+    if (c not in KERNEL_WIDTHS or n < 1 or sm_count < 1 or inner < _hopper.SLAB
+            or inner % _hopper.SLAB):
         raise ValueError(f"geglu kernel: width {c}, inner {inner}, {n} rows")
-    row_tiles = -(-n // TILE_ROWS)
-    widths = [w for w in OUT_WIDTHS if c % w == 0]
-    width = next((w for w in widths if row_tiles * (c // w) >= sm_count), widths[-1])
+    width = _hopper.tile_width(n, c, 1, sm_count)
     return LaunchPlan(
-        gate=_gemm(2 * GATE_COLS, c, inner // GATE_COLS, 6, GATE_STAGING),
-        out=_gemm(width, inner, c // width, 5), grid=sm_count)
+        gate=_hopper.gemm_plan(2 * GATE_COLS, c, inner // GATE_COLS, 6, GATE_STAGING),
+        out=_hopper.gemm_plan(width, inner, c // width, 5), grid=sm_count)
 
 
 def geglu_reference(
@@ -127,7 +99,7 @@ def geglu(
     tensors = (x, w0, b0, w2, b2)
     if any(t is not None and t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError("geglu kernel takes bf16 x and weights")
-    if c not in KERNEL_WIDTHS or inner < SLAB or inner % SLAB:
+    if c not in KERNEL_WIDTHS or inner < _hopper.SLAB or inner % _hopper.SLAB:
         raise ValueError(f"geglu kernel: width {c}, inner {inner} not supported")
     if (w0.shape != (2 * inner, c) or b0.shape != (2 * inner,) or w2.shape != (c, inner)
             or (b2 is not None and b2.shape != (c,))):
@@ -136,11 +108,11 @@ def geglu(
         raise ValueError("geglu kernel takes contiguous, 32-byte aligned tensors")
 
     n = x.numel() // c
-    sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    sms, stream = _build.launch_device(x)
     plan = launch_plan(n, c, inner, sms)
 
     def launch(*t):
-        return _launch(*t, plan)
+        return _launch(*t, plan, stream)
 
     if needs_grad(tensors):
         out = KernelWithPlainBackward.apply(launch, geglu_reference, *tensors)
@@ -150,8 +122,8 @@ def geglu(
     return out
 
 
-def _launch(x, w0, b0, w2, b2, plan: LaunchPlan) -> torch.Tensor:
-    """Both GEMMs of one call on the current stream, under `plan`; b2 None:
+def _launch(x, w0, b0, w2, b2, plan: LaunchPlan, stream: int) -> torch.Tensor:
+    """Both GEMMs of one call on `stream`, under `plan`; b2 None:
     the out GEMM stores its fp32 products (the entry's null bias)."""
     c = x.shape[-1]
     inner = w2.shape[1]
@@ -162,8 +134,7 @@ def _launch(x, w0, b0, w2, b2, plan: LaunchPlan) -> torch.Tensor:
     err = fn(
         x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w2.data_ptr(),
         0 if b2 is None else b2.data_ptr(), out.data_ptr(), act.data_ptr(), n, c, inner,
-        plan.gate.stages, plan.out.width, plan.out.stages, plan.grid,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        plan.gate.stages, plan.out.width, plan.out.stages, plan.grid, stream,
     )
     _build.check(err, "geglu")
     return out

@@ -246,7 +246,7 @@ def group_norm_affine(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 def _plan(x: torch.Tensor, groups: int) -> LaunchPlan:
     n, c = x.shape[0], x.shape[-1]
-    return launch_plan(n, x.numel() // (n * c), c, groups, _build.sm_count(x.get_device()))
+    return launch_plan(n, x.numel() // (n * c), c, groups, _build.launch_device(x)[0])
 
 
 _counters = {}  # device index -> int32 counters, zero between calls
@@ -281,7 +281,7 @@ def _launch(x, weight, bias, shift, bias_in, groups: int, eps: float, silu: bool
              None if bias_in is None else bias_in.data_ptr(), None if y is None else y.data_ptr(),
              base, base + 8 * nc, base + 12 * nc, _zeroed_counters(x, n * plan.ctiles).data_ptr(),
              n, x.numel() // nc, c, groups, plan.tcv, plan.rl, plan.slabs, plan.slab_rows,
-             plan.apply_blocks, flags, eps, _build.current_stream(x.get_device()))
+             plan.apply_blocks, flags, eps, _build.launch_device(x)[1])
     _build.check(err, "group_norm")
     return y if apply else scratch[:2 * nc].view(2, n, c)
 

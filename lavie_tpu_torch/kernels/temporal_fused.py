@@ -33,20 +33,17 @@ and its channel-major (C, B, F, S) re-layout are both gone.
 
 from __future__ import annotations
 
-import ctypes
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 
-from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels import _build, _hopper
 from lavie_tpu_torch.kernels._autograd import KernelWithPlainBackward, needs_grad, refuse_grad
 from lavie_tpu_torch.nn.embeddings import apply_rope_half
 
-SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
-SMEM_PER_SM = 233_472  # an SM's shared memory, each block reserving 1 KB of it
 MAX_WARPS = 8
-MAX_STAGES = 4
+STAGES_MAX = 4  # the deepest ring (csrc/temporal_fused.cu's MAX_STAGES)
 
 
 @dataclass(frozen=True)
@@ -86,20 +83,20 @@ def launch_plan(b: int, f: int, s: int, heads: int, d: int, sm_count: int) -> La
     units = min(units, -(-s // unit))
     while units > 1 and b * heads * -(-s // (units * unit)) < sm_count:
         units -= 1
-    while units > 1 and 3 * units * unit * pos_bytes > SMEM_MAX:
+    while units > 1 and 3 * units * unit * pos_bytes > _hopper.SMEM_MAX:
         units -= 1
     tile_s = units * unit
     stage = tile_s * pos_bytes
     # two blocks an SM where two rings of two stages fit, else one deeper ring
-    half = SMEM_PER_SM // 2 - 1024
-    stages = min(MAX_STAGES, (half if 2 * stage <= half else SMEM_MAX) // stage)
+    half = _hopper.SMEM_PER_SM // 2 - 1024
+    stages = min(STAGES_MAX, (half if 2 * stage <= half else _hopper.SMEM_MAX) // stage)
     if stages < 1:
         raise ValueError(f"temporal attention kernel: frames={f}, head_dim={d} need {stage} "
-                         f"shared bytes a position, above {SMEM_MAX}")
+                         f"shared bytes a position, above {_hopper.SMEM_MAX}")
     warps = min(MAX_WARPS, units * tiles_per_unit)
     smem = stages * stage
     tiles = b * heads * -(-s // tile_s)
-    blocks_per_sm = max(1, min(SMEM_PER_SM // (smem + 1024), 2048 // (32 * warps)))
+    blocks_per_sm = max(1, min(_hopper.SMEM_PER_SM // (smem + 1024), 2048 // (32 * warps)))
     return LaunchPlan(tile_s=tile_s, frames_pad=fr, row_elems=row_elems, stages=stages,
                       threads=32 * warps, tiles=tiles, grid=min(tiles, sm_count * blocks_per_sm),
                       smem_bytes=smem, blocks_per_sm=blocks_per_sm)
@@ -220,13 +217,9 @@ def _launch(name, q, k, v, bias, cos, sin, scale, rope_dim, heads) -> torch.Tens
                     or not t.is_contiguous() or t.device != q.device):
                 raise ValueError(f"{name} kernel takes contiguous fp32 (F, rope_dim/2) tables")
 
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sms, stream = _build.launch_device(q)
     plan = launch_plan(b, f, s, heads, d, sms)
-    lib = _build.load("temporal_fused")
-    fn = lib.temporal_attention_bf16
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn = _build.function("temporal_fused", "temporal_attention_bf16", 7, 6, 1, n_int_after=6)
     out = torch.empty_like(q)
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -235,7 +228,7 @@ def _launch(name, q, k, v, bias, cos, sin, scale, rope_dim, heads) -> torch.Tens
         sin.data_ptr() if rope_dim else None,
         b, f, s, heads, d, rope_dim // 2, float(scale),
         plan.tile_s, plan.frames_pad, plan.stages, plan.threads, plan.grid, plan.smem_bytes,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        stream,
     )
     _build.check(err, name)
     return out

@@ -35,8 +35,8 @@ from typing import Tuple
 import torch
 
 from lavie_tpu_torch.kernels import _build
-from lavie_tpu_torch.kernels import geglu as _geglu
-from lavie_tpu_torch.kernels.cross_block import _check, _layer_norm, _linear32, staged_gemm_plan
+from lavie_tpu_torch.kernels._hopper import (GemmPlan, check_operands, layer_norm, linear32,
+                                             staged_gemm_plan)
 
 KERNEL_WIDTHS = (320, 512, 640, 1024, 1280)  # C and E of ln_qkv, E and O of out_proj_residual
 PROJECTIONS = 3  # q, k, v: the ln_qkv GEMM's column groups
@@ -48,14 +48,14 @@ class ProjPlan:
     csrc/wgmma_gemm.cuh's staged cooperative GEMM (`gemm`: tile width, K
     slabs, ring stages, column tiles over all its outputs, shared bytes) on
     at most `grid` persistent blocks."""
-    gemm: _geglu.GemmPlan
+    gemm: GemmPlan
     grid: int
 
 
 @functools.lru_cache(maxsize=256)
 def ln_qkv_launch_plan(n: int, c: int, e: int, sm_count: int) -> ProjPlan:
     """The plan of one call over x (N, C) with (E, C) weights on a card of
-    `sm_count` SMs: cross_block.staged_gemm_plan over the three projections'
+    `sm_count` SMs: _hopper.staged_gemm_plan over the three projections'
     E columns each (3E / width tiles a row tile). Raises for what the
     kernels cannot take (C or E outside KERNEL_WIDTHS, N < 1)."""
     if c not in KERNEL_WIDTHS or e not in KERNEL_WIDTHS or n < 1 or sm_count < 1:
@@ -66,7 +66,7 @@ def ln_qkv_launch_plan(n: int, c: int, e: int, sm_count: int) -> ProjPlan:
 @functools.lru_cache(maxsize=256)
 def out_proj_launch_plan(n: int, e: int, o: int, sm_count: int) -> ProjPlan:
     """The plan of one call over o (N, E) with (O, E) weights on a card of
-    `sm_count` SMs: cross_block.staged_gemm_plan over the O output columns
+    `sm_count` SMs: _hopper.staged_gemm_plan over the O output columns
     (160 wide at O = 320, and at 640 and 1280 where it fills the card).
     Raises for what the kernel cannot take (E or O outside KERNEL_WIDTHS,
     N < 1)."""
@@ -78,13 +78,13 @@ def out_proj_launch_plan(n: int, e: int, o: int, sm_count: int) -> ProjPlan:
 def ln_qkv_reference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, wq: torch.Tensor,
                      wk: torch.Tensor, wv: torch.Tensor,
                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    xn = _layer_norm(x, gamma, beta, eps)
-    return tuple(_linear32(xn, w).to(x.dtype) for w in (wq, wk, wv))
+    xn = layer_norm(x, gamma, beta, eps)
+    return tuple(linear32(xn, w).to(x.dtype) for w in (wq, wk, wv))
 
 
 def out_proj_residual_reference(o: torch.Tensor, residual: torch.Tensor, wo: torch.Tensor,
                                 bo: torch.Tensor) -> torch.Tensor:
-    return _linear32(o, wo, bo).to(residual.dtype) + residual
+    return linear32(o, wo, bo).to(residual.dtype) + residual
 
 
 def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, wq: torch.Tensor,
@@ -101,9 +101,9 @@ def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, wq: torch.T
     if (c not in KERNEL_WIDTHS or e not in KERNEL_WIDTHS
             or any(w.shape != (e, c) for w in (wq, wk, wv))):
         raise ValueError(f"{name} kernel: x {tuple(x.shape)}, weights {tuple(wq.shape)}")
-    _check(name, x, [x, wq, wk, wv], [gamma, beta])
+    check_operands(name, x, [x, wq, wk, wv], [gamma, beta])
     n = x.numel() // c
-    sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
+    sms, stream = _build.launch_device(x)
     plan = ln_qkv_launch_plan(n, c, e, sms)
     # q, k, v and the LayerNorm's output, scratch of this call
     q, k, v = (x.new_empty(*x.shape[:-1], e) for _ in range(3))
@@ -111,8 +111,7 @@ def ln_qkv(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, wq: torch.T
     fn = _build.function("temporal_proj", "ln_qkv_bf16", 10, 6, 1)
     err = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), wq.data_ptr(), wk.data_ptr(),
              wv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), xn.data_ptr(), n, c, e,
-             plan.gemm.width, plan.gemm.stages, plan.grid, float(eps),
-             torch.cuda.current_stream(x.device).cuda_stream)
+             plan.gemm.width, plan.gemm.stages, plan.grid, float(eps), stream)
     _build.check(err, name)
     ln_qkv.launches += 1
     return q, k, v
@@ -132,15 +131,14 @@ def out_proj_residual(o: torch.Tensor, residual: torch.Tensor, wo: torch.Tensor,
             or residual.shape != (*o.shape[:-1], n_out) or bo.shape != (n_out,)):
         raise ValueError(f"{name} kernel: o {tuple(o.shape)}, residual {tuple(residual.shape)}, "
                          f"wo {tuple(wo.shape)}")
-    _check(name, o, [o, residual, wo], [bo])
+    check_operands(name, o, [o, residual, wo], [bo])
     n = o.numel() // e
-    sms = _build.sm_count(o.device.index if o.device.index is not None else torch.cuda.current_device())
+    sms, stream = _build.launch_device(o)
     plan = out_proj_launch_plan(n, e, n_out, sms)
     y = torch.empty_like(residual)
     fn = _build.function("temporal_proj", "out_proj_residual_bf16", 5, 6, 0)
     err = fn(o.data_ptr(), residual.data_ptr(), wo.data_ptr(), bo.data_ptr(), y.data_ptr(), n, e,
-             n_out, plan.gemm.width, plan.gemm.stages, plan.grid,
-             torch.cuda.current_stream(o.device).cuda_stream)
+             n_out, plan.gemm.width, plan.gemm.stages, plan.grid, stream)
     _build.check(err, name)
     out_proj_residual.launches += 1
     return y

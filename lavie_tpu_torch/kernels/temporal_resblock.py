@@ -68,7 +68,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from lavie_tpu_torch.kernels import _build
+from lavie_tpu_torch.kernels import _build, _hopper
 from lavie_tpu_torch.kernels._autograd import refuse_grad
 from lavie_tpu_torch.nn.quant import quantize
 
@@ -101,27 +101,23 @@ def _pick_block(s: int, frames: int, cin: int, cout: int, ktaps: int, with_res: 
     return 0
 
 
-SMEM_MAX = 232_448  # dynamic shared bytes a block may take on the H100
-TILE_ROWS = 128  # positions of an output tile
-SLAB = 64  # channels a ring stage: one 128-byte swizzled box row
-INT8_SLAB = 128  # int8 channels a ring stage: the same 128-byte row
-SLAB_BYTES = 128
+INT8_SLAB = 128  # int8 channels a ring stage: the same 128-byte row as 64 bf16
 WIDTHS = (256, 128)  # output channels of a tile, widest first
-MAX_STAGES = 8  # the kernel's barrier slots
 STAGES_MAX = 6  # the deepest ring the plan takes
 STAGING_ROWS = 64  # a consumer warpgroup's rows of an output tile
-# the kernel's shared memory besides the ring: 1 KB to align it to the
-# swizzle atom, the ring's mbarriers and the two residual mbarriers
-RESERVED = 1024 + 16 * MAX_STAGES + 16
+# the kernel's shared memory besides the ring: the ring's barrier slots and
+# one more for the two residual mbarriers
+RESERVED = _hopper.reserved(_hopper.MAX_STAGES + 1)
 
 
 @dataclass(frozen=True)
 class LaunchPlan:
     """How csrc/temporal_resblock.cu's float GEMM runs one call: output
-    tiles of TILE_ROWS positions × `width` channels, `c_blocks` 64-channel
-    slabs of C a tap, a ring of `stages` stages (an A slab of TILE_ROWS rows
-    and a B slab of `width` rows), two staging boxes of `staging_bytes`
-    together, `tiles` tiles walked by `grid` persistent blocks."""
+    tiles of _hopper.TILE_ROWS positions × `width` channels, `c_blocks`
+    64-channel slabs of C a tap, a ring of `stages` stages (an A slab of
+    TILE_ROWS rows and a B slab of `width` rows), two staging boxes of
+    `staging_bytes` together, `tiles` tiles walked by `grid` persistent
+    blocks."""
     width: int
     c_blocks: int
     stages: int
@@ -140,7 +136,7 @@ def launch_plan(b: int, f: int, s: int, c: int, o: int, k: int, sm_count: int) -
     128; as many ring stages (up to six) as fit beside the staging boxes;
     a persistent grid no larger than the tiles. Raises for what the kernel
     cannot take."""
-    return _gemm_plan(b, f, s, c, o, k, sm_count, SLAB)
+    return _gemm_plan(b, f, s, c, o, k, sm_count, _hopper.SLAB)
 
 
 def _gemm_plan(b: int, f: int, s: int, c: int, o: int, k: int, sm_count: int,
@@ -150,10 +146,10 @@ def _gemm_plan(b: int, f: int, s: int, c: int, o: int, k: int, sm_count: int,
             or o % 128 or k < 1 or k % 2 == 0 or k > 7):
         raise ValueError(f"gn_silu_tconv kernel: B={b}, F={f}, S={s}, C={c}, O={o}, k={k}")
     width = next(w for w in WIDTHS if o % w == 0)
-    stage = (TILE_ROWS + width) * SLAB_BYTES
+    stage = _hopper.stage_bytes(width)
     staging = 2 * STAGING_ROWS * width * 2
-    stages = min(STAGES_MAX, (SMEM_MAX - RESERVED - staging) // stage)
-    s_tiles = -(-s // TILE_ROWS)
+    stages = min(STAGES_MAX, (_hopper.SMEM_MAX - RESERVED - staging) // stage)
+    s_tiles = -(-s // _hopper.TILE_ROWS)
     tiles = b * s_tiles * f * (o // width)
     if tiles >= 2**31:
         raise ValueError(f"gn_silu_tconv kernel: {tiles} tiles")
@@ -337,10 +333,9 @@ def gn_silu_tconv(x: torch.Tensor, w: Optional[torch.Tensor], u: Optional[torch.
         ws = torch.empty(size(b, f, s, o), device=x.device, dtype=torch.float32)
         s1, s2 = (torch.empty((b, o), device=x.device, dtype=torch.float32) for _ in range(2))
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    sms, stream = _build.launch_device(x)
     head = (x.data_ptr(), ptr(w) if silu else None, ptr(u) if silu else None)
     dims = (b, f, s, c, o, k, int(silu))
-    sms = _build.sm_count(x.device.index if x.device.index is not None else torch.cuda.current_device())
     if int8:
         plan8 = int8_launch_plan(b, f, s, c, o, k, _scale_block(block, x, o, k, residual is not None),
                                  sms)

@@ -11,18 +11,16 @@ The CUDA entries only check the plans. These tests need no card.
 import numpy as np
 import pytest
 
+from torch_port_plans import (H100_SMS, assert_ring_fits, cross_smem, cross_walk, gemm_walk,
+                              legal_wgmma_width)
+
+from lavie_tpu_torch.kernels import _hopper as hp
 from lavie_tpu_torch.kernels import cross_attention as ca
 from lavie_tpu_torch.kernels import geglu as gg
-
-H100_SMS = 132
 
 # N of every call the port makes (base, TSR and VSR levels at CFG batch 2,
 # one VSR half) and ragged edges
 GEGLU_ROWS = [1, 77, 127, 1000, 1280, 4880, 5120, 19520, 20480, 78080, 81920, 312320]
-
-
-def _legal_wgmma_width(n):
-    return n % 8 == 0 and 8 <= n <= 256
 
 
 @pytest.mark.parametrize("n", GEGLU_ROWS)
@@ -31,35 +29,15 @@ def test_geglu_plan_fits_the_card(c, n):
     p = gg.launch_plan(n, c, 4 * c, H100_SMS)
     inner = 4 * c
     # the gate GEMM: 64 hidden and the same 64 gate columns, m64n128 products
-    assert p.gate.width == 2 * gg.GATE_COLS and _legal_wgmma_width(p.gate.width)
-    assert p.gate.col_tiles * gg.GATE_COLS == inner and p.gate.k_blocks * gg.SLAB == c
+    assert p.gate.width == 2 * gg.GATE_COLS and legal_wgmma_width(p.gate.width)
+    assert p.gate.col_tiles * gg.GATE_COLS == inner and p.gate.k_blocks * hp.SLAB == c
     # the out GEMM: a legal width that divides C, over K = I
-    assert p.out.width in gg.OUT_WIDTHS and _legal_wgmma_width(p.out.width)
-    assert p.out.col_tiles * p.out.width == c and p.out.k_blocks * gg.SLAB == inner
+    assert p.out.width in hp.GEMM_WIDTHS and legal_wgmma_width(p.out.width)
+    assert p.out.col_tiles * p.out.width == c and p.out.k_blocks * hp.SLAB == inner
+    # the gate GEMM stages its act tiles after the ring
     for gemm, extra in ((p.gate, gg.GATE_STAGING), (p.out, 0)):
-        stage = (gg.TILE_ROWS + gemm.width) * gg.SLAB_BYTES
-        # each TMA box is at most 256 rows; stages and the gate GEMM's act
-        # staging boxes start on 1 KB swizzle atoms
-        assert gemm.width <= 256 and stage % 1024 == 0 and extra % 1024 == 0
-        assert 2 <= gemm.stages <= gg.MAX_STAGES
-        assert gemm.smem_bytes == gg.RESERVED + gemm.stages * stage + extra <= gg.SMEM_MAX
+        assert_ring_fits(gemm, extra)
     assert p.grid == H100_SMS
-
-
-def _geglu_walk(gemm, grid, n, cols, tile_cols):
-    """Per output element, the times the persistent blocks write it, walked
-    as csrc/geglu.cu walks its tiles: a grid of min(grid, tiles) blocks,
-    block i taking tiles i, i + grid, ..., tile t at row tile t // col_tiles
-    and column tile t % col_tiles; rows past N are not stored."""
-    row_tiles = -(-n // gg.TILE_ROWS)
-    tiles = row_tiles * gemm.col_tiles
-    grid = min(grid, tiles)
-    count = np.zeros((row_tiles * gg.TILE_ROWS, cols), np.int32)
-    for i in range(grid):
-        for t in range(i, tiles, grid):
-            r0, c0 = (t // gemm.col_tiles) * gg.TILE_ROWS, (t % gemm.col_tiles) * tile_cols
-            count[r0:r0 + gg.TILE_ROWS, c0:c0 + tile_cols] += 1
-    return count[:n]
 
 
 @pytest.mark.parametrize("c", gg.KERNEL_WIDTHS)
@@ -69,8 +47,8 @@ def test_geglu_plan_tiles_cover_every_output_once(c):
     128-row tile and against the grid."""
     for n in (1, 77, 1000, 5120):
         p = gg.launch_plan(n, c, 4 * c, H100_SMS)
-        assert (_geglu_walk(p.gate, p.grid, n, 4 * c, gg.GATE_COLS) == 1).all()
-        assert (_geglu_walk(p.out, p.grid, n, c, p.out.width) == 1).all()
+        assert (gemm_walk(p.gate, p.grid, n, 4 * c, gg.GATE_COLS) == 1).all()
+        assert (gemm_walk(p.out, p.grid, n, c, p.out.width) == 1).all()
 
 
 def test_geglu_plan_gives_every_sm_an_out_tile_where_it_can():
@@ -115,12 +93,12 @@ def test_cross_plan_fits_the_card(d, lkv):
         assert p.kv_rows % 16 == 0 and lkv <= p.kv_rows <= p.key_regs
         assert p.kv_rows == (width if wgmma else -(-lkv // 16) * 16)
         assert p.slabs * 64 >= d and (p.slabs - 1) * 64 < d
-        assert 1 <= p.stages <= ca.MAX_STAGES
-        kv = 2 * p.slabs * p.kv_rows * ca.SLAB_BYTES
-        stage = p.slabs * p.tile * ca.SLAB_BYTES
+        assert 1 <= p.stages <= hp.MAX_STAGES
+        kv = 2 * p.slabs * p.kv_rows * hp.SLAB_BYTES
+        stage = p.slabs * p.tile * hp.SLAB_BYTES
         # every box starts on a 1 KB swizzle atom
         assert kv % 1024 == 0 and stage % 1024 == 0
-        assert p.smem_bytes == ca.RESERVED + kv + p.stages * stage <= ca.SMEM_MAX == 232_448
+        assert p.smem_bytes == cross_smem(p) <= hp.SMEM_MAX == 232_448
         assert 1 <= p.grid <= min(p.items, H100_SMS)
 
 
@@ -132,25 +110,7 @@ def test_cross_plan_at_the_image_path_keys():
         p = ca.launch_plan(2, 640, 8, d, 154, H100_SMS)
         assert (p.key_regs, p.kv_rows, p.threads, p.stages) == (160, 160, 384, stages)
     p = ca.launch_plan(2, 640, 8, 160, 154, H100_SMS)
-    assert p.smem_bytes == ca.RESERVED + 122_880 + 4 * 24_576
-
-
-def _walk(p, b, s, h):
-    """(batch, head, query) counts of the queries the persistent blocks
-    store, walked as the kernel walks them: block i takes items i, i + grid,
-    ...; item w is head w % H, query tile (w // H) % tiles, batch
-    w // (H·tiles); a tile's rows past S are not stored."""
-    tiles = -(-s // p.tile)
-    assert p.items == b * h * tiles and tiles * p.tile - s < p.tile
-    count = np.zeros((b, h, s), np.int32)
-    for i in range(p.grid):
-        w = np.arange(i, p.items, p.grid)
-        hh, qt, bb = w % h, (w // h) % tiles, w // (h * tiles)
-        for j in range(p.tile):
-            q = qt * p.tile + j
-            keep = q < s
-            np.add.at(count, (bb[keep], hh[keep], q[keep]), 1)
-    return count
+    assert p.smem_bytes == 1024 + 16 * (hp.MAX_STAGES + 1) + 122_880 + 4 * 24_576
 
 
 @pytest.mark.parametrize("s", [1, 37, 64, 129, 1000, 20480])
@@ -159,7 +119,7 @@ def _walk(p, b, s, h):
 def test_cross_plan_covers_every_query_once(d, lkv, s):
     for b, h in ((2, 8), (3, 1)):
         p = ca.launch_plan(b, s, h, d, lkv, H100_SMS)
-        assert (_walk(p, b, s, h) == 1).all()
+        assert (cross_walk(p, b, s, h) == 1).all()
 
 
 def test_cross_plan_fills_the_card_where_the_work_allows():
@@ -169,7 +129,7 @@ def test_cross_plan_fills_the_card_where_the_work_allows():
     p = ca.launch_plan(2, 640, 8, 160, 77, H100_SMS)
     assert p.items == 160 and p.grid == 128
     p = ca.launch_plan(1, 20480, 8, 128, 77, H100_SMS)
-    assert p.grid == 128 and p.stages == ca.MAX_STAGES
+    assert p.grid == 128 and p.stages == hp.MAX_STAGES
     assert ca.launch_plan(1, 10, 3, 64, 77, H100_SMS).grid == 3
 
 

@@ -134,3 +134,75 @@ def test_native_codec_builds_beside_the_kernels():
     assert mjpeg.BUILD == _build.BUILD == ROOT / "build"
     assert mjpeg.library_path().parent == ROOT / "build"
     assert mjpeg.SRC == ROOT / "csrc" / "mjpeg_avi.c"
+
+
+KERNELS = ROOT / "lavie_tpu_torch" / "kernels"
+OWNERS = ("__init__", "_autograd", "_build", "_hopper")
+WRAPPERS = sorted(p for p in KERNELS.glob("*.py") if p.stem not in OWNERS)
+
+
+def _top_level_names(tree):
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            yield node.name
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            for target in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                yield from (n.id for n in ast.walk(target) if isinstance(n, ast.Name))
+
+
+@pytest.mark.parametrize("path", WRAPPERS, ids=lambda p: p.stem)
+def test_kernel_wrappers_take_what_they_share_from_one_owner(path):
+    """What the Hopper wrappers share is defined once, in kernels/_hopper.py
+    (the card's shared memory, the staged GEMM's constants and plans, the
+    LayerNorm-and-GEMM kernels' checks and plain pieces), and a launch
+    reads its card's SM count and stream through _build.launch_device: no
+    wrapper defines a name of _hopper's, writes out the shared-memory
+    budget, asks torch.cuda for the stream, device or SM count, or imports
+    an underscore name from another wrapper."""
+    from lavie_tpu_torch.kernels import _hopper
+
+    assert len(WRAPPERS) == 10
+    shared = set(_top_level_names(ast.parse((KERNELS / "_hopper.py").read_text())))
+    tree = ast.parse(path.read_text())
+    assert not set(_top_level_names(tree)) & shared
+    budgets = {_hopper.SMEM_MAX, _hopper.SMEM_PER_SM}
+    assert not [n.value for n in ast.walk(tree) if isinstance(n, ast.Constant) and n.value in budgets]
+    asked = [n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+             and n.attr in ("current_stream", "current_device", "get_device_properties")
+             and isinstance(n.value, ast.Attribute) and n.value.attr == "cuda"]
+    assert not asked, asked
+    stems = {p.stem for p in WRAPPERS}
+    aliases, private = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("lavie_tpu_torch.kernels"):
+            if node.module.rsplit(".", 1)[-1] in stems:
+                private += [a.name for a in node.names if a.name.startswith("_")]
+            elif node.module == "lavie_tpu_torch.kernels":
+                aliases |= {a.asname or a.name for a in node.names if a.name in stems}
+        elif isinstance(node, ast.Import):
+            aliases |= {a.asname for a in node.names if a.asname
+                        and a.name.rsplit(".", 1)[-1] in stems}
+    private += [n.attr for n in ast.walk(tree) if isinstance(n, ast.Attribute)
+                and isinstance(n.value, ast.Name) and n.value.id in aliases
+                and n.attr.startswith("_")]
+    assert not private, private
+
+
+def test_smoke_script_reads_the_benchmarks_yardstick():
+    """chip_smoke.py groups kernels and bounds them with port_bench's frozen
+    yardstick itself, so the two cannot drift apart: the same peaks and
+    groups, and its bound the yardstick's in ms with what bounds it."""
+    import chip_smoke
+    from port_bench import yardstick
+
+    assert chip_smoke.KERNEL_GROUPS is yardstick.KERNEL_GROUPS
+    assert chip_smoke.group_of is yardstick.group_of
+    for name in ("HBM_BYTES_PER_S", "BF16_FLOPS", "FP32_FLOPS"):
+        assert getattr(chip_smoke, name) is getattr(yardstick, name)
+    for n_bytes, ops in ((1e9, ((1e12, yardstick.BF16_FLOPS),)),
+                         (1e12, ((1e9, yardstick.BF16_FLOPS), (1e9, yardstick.FP32_FLOPS))),
+                         (2e9, ((1e12, chip_smoke.INT8_OPS),)), (0.0, ())):
+        ms, by = chip_smoke.bound(n_bytes, ops)
+        assert ms == yardstick.bound_s(n_bytes, ops) * 1e3
+        t_ops = sum(n / rate for n, rate in ops)
+        assert by == ("bytes" if n_bytes / yardstick.HBM_BYTES_PER_S >= t_ops else "operations")

@@ -14,10 +14,11 @@ import pytest
 import torch
 
 import chip_smoke
-from lavie_tpu_torch.core.config import UNetConfig
-from lavie_tpu_torch.kernels import temporal_resblock as tr
+from torch_port_plans import H100_SMS, gemm_stage, ring_smem, tconv_walk
 
-H100_SMS = 132
+from lavie_tpu_torch.core.config import UNetConfig
+from lavie_tpu_torch.kernels import _hopper as hp
+from lavie_tpu_torch.kernels import temporal_resblock as tr
 
 
 def _turbo_shapes():
@@ -58,10 +59,11 @@ def test_int8_plan_fits_the_card(shape):
     # 128-channel (128-byte) slabs of C, the last one zero-filled past C
     assert g.c_blocks * tr.INT8_SLAB >= c > (g.c_blocks - 1) * tr.INT8_SLAB
     # the ring (an A slab of 128 rows and a B slab of `width` rows of 128
-    # bytes a stage) beside the staging boxes, in one block's shared memory
-    stage = (tr.TILE_ROWS + g.width) * tr.SLAB_BYTES
+    # bytes a stage) beside the staging boxes and their two residual
+    # barriers, in one block's shared memory
+    stage = gemm_stage(g.width)
     assert stage % 1024 == 0 and 2 <= g.stages <= tr.STAGES_MAX
-    assert g.smem_bytes == tr.RESERVED + g.stages * stage + g.staging_bytes <= tr.SMEM_MAX
+    assert g.smem_bytes == ring_smem(g.stages, stage, g.staging_bytes + 16) <= hp.SMEM_MAX
     assert 1 <= g.grid <= min(H100_SMS, g.tiles)
     # the scale pass: pieces inside one scale block, at least two blocks an SM
     assert p.block == blk and p.scale_blocks == -(-s // blk)
@@ -72,34 +74,13 @@ def test_int8_plan_fits_the_card(shape):
     assert all(b * f * p.scale_blocks * -(-blk // r) < 2 * H100_SMS for r in wider)
 
 
-def _gemm_walk(p, b, f, s, o):
-    """(outputs, partial rows) written by the GEMM's persistent blocks, as
-    csrc/temporal_resblock.cu walks them: block i takes tiles i, i + grid,
-    ...; tile t is output-channel tile t % o_tiles, then frame, then
-    position tile, then batch; each consumer warpgroup stores its 64
-    positions inside S and writes one partial row per (b, f, 64 positions)."""
-    out = np.zeros((b, f, s, o), np.int32)
-    parts = np.zeros((b, f * 2 * p.s_tiles, o), np.int32)
-    for i in range(p.grid):
-        for t in range(i, p.tiles, p.grid):
-            n0 = (t % p.o_tiles) * p.width
-            r = t // p.o_tiles
-            ff, r = r % f, r // f
-            st, bb = r % p.s_tiles, r // p.s_tiles
-            for c in range(2):
-                r0 = st * tr.TILE_ROWS + c * tr.STAGING_ROWS
-                out[bb, ff, r0:min(s, r0 + tr.STAGING_ROWS), n0:n0 + p.width] += 1
-                parts[bb, (ff * p.s_tiles + st) * 2 + c, n0:n0 + p.width] += 1
-    return out, parts
-
-
 @pytest.mark.parametrize("shape", [t for t in TURBO if t[2] <= 10240]
                          + [(1, 8, 1, 64, 128, 5, False), (2, 5, 1000, 192, 256, 3, True),
                             (1, 2, 129, 576, 384, 7, False)], ids=_ids)
 def test_int8_gemm_walk_writes_every_output_once(shape):
     b, f, s, c, o, k, res = shape
     p = tr.int8_launch_plan(b, f, s, c, o, k, 128, H100_SMS).gemm
-    out, parts = _gemm_walk(p, b, f, s, o)
+    out, parts = tconv_walk(p, b, f, s, o, tr.STAGING_ROWS)
     assert (out == 1).all() and (parts == 1).all()
 
 
@@ -139,13 +120,13 @@ def test_gemm_looks_each_positions_scale_up(s, blk):
     a_scale = torch.arange(1, -(-s // blk) + 1, dtype=torch.float32)[None]  # (1, nblk)
     plain = a_scale.repeat_interleave(blk, dim=1)[0, :s]
     kernel = torch.zeros(s)
-    for s0 in range(0, s, tr.TILE_ROWS):
-        for row in range(tr.TILE_ROWS):
+    for s0 in range(0, s, hp.TILE_ROWS):
+        for row in range(hp.TILE_ROWS):
             if s0 + row < s:
                 kernel[s0 + row] = a_scale[0, (s0 + row) // blk]
     assert torch.equal(kernel, plain)
-    assert blk % tr.TILE_ROWS == 0 or any(
-        (s0 // blk) != (min(s, s0 + tr.TILE_ROWS) - 1) // blk for s0 in range(0, s, tr.TILE_ROWS))
+    assert blk % hp.TILE_ROWS == 0 or any(
+        (s0 // blk) != (min(s, s0 + hp.TILE_ROWS) - 1) // blk for s0 in range(0, s, hp.TILE_ROWS))
 
 
 @pytest.mark.parametrize("b,f,s,c,o,k,blk", [

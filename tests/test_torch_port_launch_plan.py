@@ -10,9 +10,11 @@ only checks the plan. These tests need no card.
 import numpy as np
 import pytest
 
-from lavie_tpu_torch.kernels.temporal_fused import SMEM_MAX, SMEM_PER_SM, launch_plan
+from torch_port_plans import H100_SMS
 
-H100_SMS = 132
+from lavie_tpu_torch.kernels._hopper import SMEM_MAX, SMEM_PER_SM
+from lavie_tpu_torch.kernels.temporal_fused import launch_plan
+
 HEADS = 8
 BASE_LEVELS = [(2560, 40), (640, 80), (160, 160), (40, 160)]  # (S, head_dim) at 320x512
 VSR_LEVELS = [(163840, 32), (40960, 64), (10240, 64), (2560, 128)]  # one 8-frame window

@@ -12,15 +12,13 @@ plans. The walks below are the kernels' (csrc/wgmma_gemm.cuh's tile walk,
 csrc/cross_attn.cuh's items). These tests need no card.
 """
 
-import numpy as np
 import pytest
 
-from lavie_tpu_torch.kernels import cross_attention as ca
-from lavie_tpu_torch.kernels import cross_block as cb
-from lavie_tpu_torch.kernels import geglu as gg
-from lavie_tpu_torch.kernels import temporal_proj as tp
+from torch_port_plans import H100_SMS, check_staged_gemm, cross_smem, cross_walk, staged_walk
 
-H100_SMS = 132
+from lavie_tpu_torch.kernels import _hopper as hp
+from lavie_tpu_torch.kernels import cross_block as cb
+from lavie_tpu_torch.kernels import temporal_proj as tp
 # N = B·F·S of the temporal out-projection's calls: base (B 2, F 16), TSR
 # (B 2, F 61) and VSR (one CFG half, F 8) levels, and ragged edges
 BASE_ROWS = [2 * 16 * s for s in (2560, 640, 160, 40)]
@@ -34,31 +32,11 @@ FUSED_CALLS = ([(2, 16 * s) for s in (2560, 640, 160, 40)]
                + [(2, 61 * 2560), (1, 8 * 2560), (1, 1), (1, 77), (1, 100), (2, 1000), (2, 61 * 40)])
 
 
-def _check_gemm(g, rows, k, cols, groups=1):
-    """A staged GEMM plan over `rows` rows of K = k into `groups` outputs of
-    `cols` columns: a tile width the kernels have an instance for, dividing
-    cols; the ring beside the two warpgroups' staging boxes (64 rows of the
-    tile's width each) and their barriers, in 227 KB; the width by the rule
-    (the widest whose tiles give every SM one, else the narrowest)."""
-    assert g.width in cb.STAGED_WIDTHS and cols % g.width == 0
-    assert g.col_tiles == groups * cols // g.width and g.k_blocks * gg.SLAB == k
-    stage = (gg.TILE_ROWS + g.width) * gg.SLAB_BYTES
-    staging = 2 * 64 * g.width * 2
-    assert cb.head_staging_bytes(g.width) == staging + 16
-    assert stage % 1024 == 0 and staging % 1024 == 0 and 3 <= g.stages <= 6
-    assert g.smem_bytes == gg.RESERVED + g.stages * stage + staging + 16 <= gg.SMEM_MAX
-    assert g.smem_bytes + stage > gg.SMEM_MAX or g.stages == 6
-    assert g.width // 2 + 64 <= 232  # one m64nWIDTH fp32 accumulator within setmaxnreg's 232
-    row_tiles = -(-rows // gg.TILE_ROWS)
-    fits = [w for w in cb.STAGED_WIDTHS if cols % w == 0 and row_tiles * groups * (cols // w) >= H100_SMS]
-    assert g.width == (fits[0] if fits else [w for w in cb.STAGED_WIDTHS if cols % w == 0][-1])
-
-
 @pytest.mark.parametrize("n", ROWS)
 @pytest.mark.parametrize("c", tp.KERNEL_WIDTHS)
 def test_out_proj_plan_fits_the_card(c, n):
     p = tp.out_proj_launch_plan(n, c, c, H100_SMS)
-    _check_gemm(p.gemm, n, c, c)
+    check_staged_gemm(p.gemm, n, c, c)
     assert p.grid == H100_SMS
 
 
@@ -66,14 +44,13 @@ def test_out_proj_plan_fits_the_card(c, n):
 @pytest.mark.parametrize("c,d", cb.FUSED_SHAPES)
 def test_fused_plan_fits_the_card(c, d, b, n):
     p = cb.fused_launch_plan(b, n, c, d, 77, H100_SMS)
-    _check_gemm(p.gemm, b * n, c, c)
+    check_staged_gemm(p.gemm, b * n, c, c)
     a = p.attn
     # the attention's K and V 80 rows deep (zero-filled past L) and a ring
     # of at least two query tiles a consumer warpgroup, in 227 KB, at most
     # one block an SM and never more blocks than items
     assert a.key_regs == a.kv_rows == cb.MAX_KV and a.slabs == -(-d // 64) and a.stages >= 4
-    assert a.smem_bytes == ca.RESERVED + 2 * a.slabs * 80 * 128 + a.stages * a.slabs * 64 * 128
-    assert a.smem_bytes <= ca.SMEM_MAX
+    assert a.smem_bytes == cross_smem(a) <= hp.SMEM_MAX
     assert a.items == b * cb.FUSED_HEADS * -(-n // 64) and 1 <= a.grid <= min(a.items, H100_SMS)
     assert p.grid == H100_SMS
 
@@ -87,49 +64,28 @@ def test_widths_320_and_640_take_dense_160_column_boxes(c):
         assert tp.out_proj_launch_plan(rows, c, c, H100_SMS).gemm.width == 160
     d = dict(cb.FUSED_SHAPES)[c]
     assert cb.fused_launch_plan(2, 16 * 2560, c, d, 77, H100_SMS).gemm.width == 160
-    assert 160 % gg.SLAB != 0 and (64 * 160 * 2) % 1024 == 0
-
-
-def _walk_gemm(g, grid, rows, cols):
-    """How often each (64-row band, output column tile) is stored: block i
-    takes tiles i, i + grid, ...; tile t is row tile t // col_tiles and
-    column tile t % col_tiles; each consumer warpgroup stores its 64 rows,
-    TMA clipping them at `rows` (a band wholly past the end stores none)."""
-    bands = -(-rows // 64)
-    out = np.zeros((bands, g.col_tiles), np.int32)
-    tiles = -(-rows // gg.TILE_ROWS) * g.col_tiles
-    for i in range(min(grid, tiles)):
-        for t in range(i, tiles, grid):
-            row0, ct = (t // g.col_tiles) * gg.TILE_ROWS, t % g.col_tiles
-            for c in range(2):
-                if row0 + 64 * c < rows:
-                    out[(row0 + 64 * c) // 64, ct] += 1
-    assert g.col_tiles * g.width == cols
-    return out
+    assert 160 % hp.SLAB != 0 and (64 * 160 * 2) % 1024 == 0
 
 
 @pytest.mark.parametrize("n", RAGGED + [BASE_ROWS[0], TSR_ROWS[0], VSR_ROWS[0]])
 @pytest.mark.parametrize("c", tp.KERNEL_WIDTHS)
 def test_out_proj_walk_writes_each_output_once(c, n):
     p = tp.out_proj_launch_plan(n, c, c, H100_SMS)
-    assert (_walk_gemm(p.gemm, p.grid, n, c) == 1).all()
+    assert p.gemm.col_tiles * p.gemm.width == c
+    assert (staged_walk(p.gemm, p.grid, n) == 1).all()
 
 
 @pytest.mark.parametrize("b,n", FUSED_CALLS)
 @pytest.mark.parametrize("c,d", cb.FUSED_SHAPES)
 def test_fused_walks_write_each_output_once(c, d, b, n):
     """Both GEMMs store every row of every column once; the attention
-    computes every (video, head, 64-query tile) once: block i takes items i,
-    i + grid, ..., item w is head w % H, query tile (w / H) % tiles, video
+    stores every (video, head, query) once: block i takes items i, i +
+    grid, ..., item w is head w % H, query tile (w / H) % tiles, video
     w / (H · tiles)."""
     p = cb.fused_launch_plan(b, n, c, d, 77, H100_SMS)
-    assert (_walk_gemm(p.gemm, p.grid, b * n, c) == 1).all()
-    heads, qtiles = cb.FUSED_HEADS, -(-n // 64)
-    seen = np.zeros((b, qtiles, heads), np.int32)
-    for i in range(p.attn.grid):
-        for w in range(i, p.attn.items, p.attn.grid):
-            seen[w // (heads * qtiles), (w // heads) % qtiles, w % heads] += 1
-    assert (seen == 1).all()
+    assert p.gemm.col_tiles * p.gemm.width == c
+    assert (staged_walk(p.gemm, p.grid, b * n) == 1).all()
+    assert (cross_walk(p.attn, b, n, cb.FUSED_HEADS) == 1).all()
 
 
 @pytest.mark.parametrize("n,e,o", [(0, 320, 320), (10, 256, 256), (10, 320, 256), (10, 1536, 1536),

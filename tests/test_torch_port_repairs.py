@@ -93,7 +93,8 @@ def test_the_two_silu_orders_agree_once_rounded_to_bf16():
     """Over every finite bf16 input t, t / (1 + e^-t) and t · (1 / (1 +
     e^-t)) differ in fp32 for about 2% of t but not once rounded to bf16:
     the activation the int8 conv quantises is bf16, so its outputs kept
-    their bits through the SiLU repair (as chip_ab.py found on the card)."""
+    their bits through the SiLU repair (as the card's int8 outputs before
+    and after it showed, bit for bit)."""
     t = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).float()
     t = t[torch.isfinite(t)]
     d = 1.0 + torch.exp(-t)

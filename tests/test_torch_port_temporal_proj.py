@@ -29,7 +29,7 @@ from lavie_tpu.nn.transformer import BasicTransformerBlock as JBlock
 
 import lavie_tpu_torch.nn.transformer as tr_mod
 from lavie_tpu_torch.io.from_jax import load_jax_params
-from lavie_tpu_torch.kernels import cross_block as cb
+from lavie_tpu_torch.kernels import _hopper
 from lavie_tpu_torch.kernels import temporal_proj as tp
 from lavie_tpu_torch.nn.transformer import BasicTransformerBlock
 
@@ -73,7 +73,7 @@ def test_layer_norm_roundings_match_jax_in_bf16():
     x, gamma, beta, _, _ = _proj_inputs(303)
     x = 3.0 * x + 0.5
     want = np.array(jax_ln(J(x, jnp.bfloat16), J(gamma), J(beta), 1e-5).astype(jnp.float32))
-    got = cb._layer_norm(t(x).bfloat16(), t(gamma), t(beta), 1e-5).float()
+    got = _hopper.layer_norm(t(x).bfloat16(), t(gamma), t(beta), 1e-5).float()
     assert torch.equal(got, t(want))
 
 

@@ -14,8 +14,8 @@ import pytest
 import torch
 from jax.sharding import PartitionSpec as P
 
-from test_torch_port_hopper_plan import H100_SMS, _geglu_walk
 from test_torch_port_util import graft_tp_param_spec
+from torch_port_plans import H100_SMS, assert_ring_fits, gemm_walk
 
 from lavie_tpu.core.config import UNetConfig as JUNetConfig
 from lavie_tpu.nn.unet import UNet3D as JUNet3D
@@ -25,6 +25,7 @@ from lavie_tpu_torch.core.config import UNetConfig
 from lavie_tpu_torch.core.mesh import Mesh
 from lavie_tpu_torch.diffusion.schedule import NoiseSchedule
 from lavie_tpu_torch.io.from_jax import flax_path_to_torch_key
+from lavie_tpu_torch.kernels import _hopper as hp
 from lavie_tpu_torch.kernels import geglu as gg
 from lavie_tpu_torch.nn.unet import UNet3D
 from lavie_tpu_torch.pipelines.t2v import random_init_
@@ -127,15 +128,13 @@ def test_geglu_plan_at_a_tp_shards_width_fits_the_card(tp, c, n):
     element written once."""
     inner = 4 * c // tp
     p = gg.launch_plan(n, c, inner, H100_SMS)
-    assert p.gate.col_tiles * gg.GATE_COLS == inner and p.gate.k_blocks * gg.SLAB == c
-    assert p.out.col_tiles * p.out.width == c and p.out.k_blocks * gg.SLAB == inner
+    assert p.gate.col_tiles * gg.GATE_COLS == inner and p.gate.k_blocks * hp.SLAB == c
+    assert p.out.col_tiles * p.out.width == c and p.out.k_blocks * hp.SLAB == inner
     for gemm, extra in ((p.gate, gg.GATE_STAGING), (p.out, 0)):
-        stage = (gg.TILE_ROWS + gemm.width) * gg.SLAB_BYTES
-        assert 2 <= gemm.stages <= gg.MAX_STAGES
-        assert gemm.smem_bytes == gg.RESERVED + gemm.stages * stage + extra <= gg.SMEM_MAX
+        assert_ring_fits(gemm, extra)
     if n <= 1000:
-        assert (_geglu_walk(p.gate, p.grid, n, inner, gg.GATE_COLS) == 1).all()
-        assert (_geglu_walk(p.out, p.grid, n, c, p.out.width) == 1).all()
+        assert (gemm_walk(p.gate, p.grid, n, inner, gg.GATE_COLS) == 1).all()
+        assert (gemm_walk(p.out, p.grid, n, c, p.out.width) == 1).all()
 
 
 @pytest.mark.parametrize("inner", [0, 32, 96, 1000])

@@ -17,19 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_plans import (H100_SMS, assert_ring_fits, check_staged_gemm, cross_smem,
+                              gemm_stage, gemm_walk, legal_wgmma_width, ring_smem, tconv_walk)
+
+from lavie_tpu_torch.kernels import _hopper as hp
 from lavie_tpu_torch.kernels import cross_attention as ca
 from lavie_tpu_torch.kernels import cross_block as cb
 from lavie_tpu_torch.kernels import geglu as gg
 from lavie_tpu_torch.kernels import temporal_resblock as tr
 
-H100_SMS = 132
-
 # N of the tail's calls (one VSR half: L1, L2) and ragged edges
 TAIL_ROWS = [1, 77, 127, 1000, 81920, 327680]
-
-
-def _legal_wgmma_width(n):
-    return n % 8 == 0 and 8 <= n <= 256
 
 
 @pytest.mark.parametrize("n", TAIL_ROWS)
@@ -38,36 +36,17 @@ def test_tail_plan_fits_the_card(c, n):
     p = cb.tail_launch_plan(n, c, H100_SMS)
     inner = 4 * c
     # the gate GEMM: GEGLU's, 64 hidden and 64 gate columns a tile over K = C
-    assert p.gate.width == 2 * gg.GATE_COLS and p.gate.k_blocks * gg.SLAB == c
+    assert p.gate.width == 2 * gg.GATE_COLS and p.gate.k_blocks * hp.SLAB == c
     assert p.gate.col_tiles * gg.GATE_COLS == inner
     # the out GEMMs: one width dividing C, that the entry takes (128
     # ping-pong, 256 cooperative), over K = 4C (W2) and K = C (Wpo)
     assert p.out.width in (128, 256) and p.proj.width == p.out.width
-    assert _legal_wgmma_width(p.out.width) and c % p.out.width == 0
+    assert legal_wgmma_width(p.out.width) and c % p.out.width == 0
     assert p.out.col_tiles * p.out.width == c == p.proj.col_tiles * p.proj.width
-    assert p.out.k_blocks * gg.SLAB == inner and p.proj.k_blocks * gg.SLAB == c
+    assert p.out.k_blocks * hp.SLAB == inner and p.proj.k_blocks * hp.SLAB == c
     for gemm, extra in ((p.gate, gg.GATE_STAGING), (p.out, 0), (p.proj, 0)):
-        stage = (gg.TILE_ROWS + gemm.width) * gg.SLAB_BYTES
-        assert stage % 1024 == 0 and extra % 1024 == 0
-        assert 2 <= gemm.stages <= gg.MAX_STAGES
-        assert gemm.smem_bytes == gg.RESERVED + gemm.stages * stage + extra <= gg.SMEM_MAX
+        assert_ring_fits(gemm, extra)
     assert p.grid == H100_SMS
-
-
-def _gemm_walk(gemm, grid, n, cols, tile_cols):
-    """Per output element, the times the persistent blocks write it, walked
-    as csrc/wgmma_gemm.cuh walks its tiles: a grid of min(grid, tiles)
-    blocks, block i taking tiles i, i + grid, ..., tile t at row tile
-    t // col_tiles and column tile t % col_tiles; rows past N not stored."""
-    row_tiles = -(-n // gg.TILE_ROWS)
-    tiles = row_tiles * gemm.col_tiles
-    grid = min(grid, tiles)
-    count = np.zeros((row_tiles * gg.TILE_ROWS, cols), np.int32)
-    for i in range(grid):
-        for t in range(i, tiles, grid):
-            r0, c0 = (t // gemm.col_tiles) * gg.TILE_ROWS, (t % gemm.col_tiles) * tile_cols
-            count[r0:r0 + gg.TILE_ROWS, c0:c0 + tile_cols] += 1
-    return count[:n]
 
 
 @pytest.mark.parametrize("n", [1, 77, 1000, 5120])
@@ -76,9 +55,9 @@ def test_tail_plan_tiles_cover_every_output_once(c, n):
     """act (N, 4C), y (N, C) and the output (N, C): every element written
     once, N ragged against the 128-row tiles and against the grid."""
     p = cb.tail_launch_plan(n, c, H100_SMS)
-    assert (_gemm_walk(p.gate, p.grid, n, 4 * c, gg.GATE_COLS) == 1).all()
-    assert (_gemm_walk(p.out, p.grid, n, c, p.out.width) == 1).all()
-    assert (_gemm_walk(p.proj, p.grid, n, c, p.proj.width) == 1).all()
+    assert (gemm_walk(p.gate, p.grid, n, 4 * c, gg.GATE_COLS) == 1).all()
+    assert (gemm_walk(p.out, p.grid, n, c, p.out.width) == 1).all()
+    assert (gemm_walk(p.proj, p.grid, n, c, p.proj.width) == 1).all()
 
 
 def test_tail_plan_keeps_geglus_gemms():
@@ -117,44 +96,23 @@ def test_tconv_plan_fits_the_card(shape):
     p = tr.launch_plan(b, f, s, c, o, k, H100_SMS)
     # the widest tile the output channels allow, a legal wgmma width that
     # one TMA box (at most 256 rows) of the taps holds
-    assert p.width == (256 if o % 256 == 0 else 128) and _legal_wgmma_width(p.width)
+    assert p.width == (256 if o % 256 == 0 else 128) and legal_wgmma_width(p.width)
     assert p.o_tiles * p.width == o
     # 64-channel slabs of C, the last one zero-filled past C
-    assert p.c_blocks * tr.SLAB >= c > (p.c_blocks - 1) * tr.SLAB
+    assert p.c_blocks * hp.SLAB >= c > (p.c_blocks - 1) * hp.SLAB
     # ring stages and the two staging boxes start on 1 KB swizzle atoms and
-    # fit in one block's shared memory
-    stage = (tr.TILE_ROWS + p.width) * tr.SLAB_BYTES
+    # fit in one block's shared memory (temporal_resblock.cu::conv_smem:
+    # the boxes and their two residual barriers after the ring)
+    stage = gemm_stage(p.width)
     assert stage % 1024 == 0 and p.staging_bytes % 1024 == 0
     assert p.staging_bytes == 2 * tr.STAGING_ROWS * p.width * 2
-    assert 2 <= p.stages <= tr.STAGES_MAX <= tr.MAX_STAGES
-    assert p.smem_bytes == tr.RESERVED + p.stages * stage + p.staging_bytes <= tr.SMEM_MAX
+    assert 2 <= p.stages <= tr.STAGES_MAX <= hp.MAX_STAGES
+    assert p.smem_bytes == ring_smem(p.stages, stage, p.staging_bytes + 16) <= hp.SMEM_MAX
     # one m64nWIDTH fp32 accumulator a consumer thread within setmaxnreg's 232
     assert p.width // 2 + 64 <= 232
-    assert p.s_tiles == -(-s // tr.TILE_ROWS)
+    assert p.s_tiles == -(-s // hp.TILE_ROWS)
     assert p.tiles == b * p.s_tiles * f * p.o_tiles
     assert 1 <= p.grid <= min(H100_SMS, p.tiles)
-
-
-def _tconv_walk(p, b, f, s, o):
-    """(outputs, partial rows) written by the persistent blocks, walked as
-    csrc/temporal_resblock.cu walks them: block i takes tiles i, i + grid,
-    ...; tile t is output-channel tile t % o_tiles, then frame, then
-    position tile, then batch; each consumer warpgroup stores its 64
-    positions inside S and writes one row of column partials per (b, f, 64
-    positions)."""
-    out = np.zeros((b, f, s, o), np.int32)
-    parts = np.zeros((b, f * 2 * p.s_tiles, o), np.int32)
-    for i in range(p.grid):
-        for t in range(i, p.tiles, p.grid):
-            n0 = (t % p.o_tiles) * p.width
-            r = t // p.o_tiles
-            ff, r = r % f, r // f
-            st, bb = r % p.s_tiles, r // p.s_tiles
-            for c in range(2):
-                r0 = st * tr.TILE_ROWS + c * tr.STAGING_ROWS
-                out[bb, ff, r0:min(s, r0 + tr.STAGING_ROWS), n0:n0 + p.width] += 1
-                parts[bb, (ff * p.s_tiles + st) * 2 + c, n0:n0 + p.width] += 1
-    return out, parts
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1, 32, 128, 1), (2, 5, 127, 64, 384, 3),
@@ -167,7 +125,7 @@ def test_tconv_walk_writes_every_output_once(shape):
     written once per column, so the column sums see each stored value once."""
     b, f, s, c, o, k = shape
     p = tr.launch_plan(b, f, s, c, o, k, H100_SMS)
-    out, parts = _tconv_walk(p, b, f, s, o)
+    out, parts = tconv_walk(p, b, f, s, o, tr.STAGING_ROWS)
     assert (out == 1).all()
     assert (parts == 1).all()
 
@@ -225,32 +183,19 @@ HEAD_ROWS = [327680, 81920, 1024]
 def test_head_plan_fits_the_card(c, n, b, lkv, sms):
     p = cb.head_launch_plan(n, c, b, lkv, sms)
     # the five GEMMs over K = C: one width dividing C that the entry takes
-    # (128 ping-pong, 256 cooperative), K in whole 64-column slabs
-    assert p.gemm.width in (128, 256) and c % p.gemm.width == 0
-    assert p.gemm.col_tiles * p.gemm.width == c
-    assert p.gemm.k_blocks * gg.SLAB == c and c % gg.SLAB == 0
-    # the ring beside the two warpgroups' staging boxes (64 rows of the
-    # tile's width each) and their residual barriers, in 227 KB
-    stage = (gg.TILE_ROWS + p.gemm.width) * gg.SLAB_BYTES
-    staging = 2 * 64 * p.gemm.width * 2
-    assert cb.head_staging_bytes(p.gemm.width) == staging + 16 and staging % 1024 == 0
-    assert stage % 1024 == 0 and 3 <= p.gemm.stages <= 6
-    assert p.gemm.smem_bytes == gg.RESERVED + p.gemm.stages * stage + staging + 16 <= gg.SMEM_MAX
-    assert p.gemm.smem_bytes + stage > gg.SMEM_MAX or p.gemm.stages == 6
-    # 256 only where its tiles give every SM one
-    rows = -(-b * n // gg.TILE_ROWS)
-    if p.gemm.width == 256:
-        assert rows * (c // 256) >= sms
-    elif c % 256 == 0:
-        assert rows * (c // 256) < sms
+    # (128 ping-pong, 256 cooperative), K in whole 64-column slabs; the ring
+    # beside the two warpgroups' staging boxes (64 rows of the tile's width
+    # each) and their residual barriers, in 227 KB; 256 only where its
+    # tiles give every SM one
+    assert p.gemm.width in (128, 256) and c % hp.SLAB == 0
+    check_staged_gemm(p.gemm, b * n, c, c, sms=sms)
     assert p.grid == sms
     # the attention: the text cross attention's wgmma kernel at head dim 64,
     # K and V 80 rows deep, its ring of query tiles beside them in 227 KB
     a = p.attn
     assert a.key_regs == ca.KEY_WIDTHS[0] == a.kv_rows == 80 and a.slabs == 1 and a.tile == 64
-    assert a.threads == 384 and 4 <= a.stages <= ca.MAX_STAGES
-    assert a.smem_bytes == ca.RESERVED + 2 * 80 * ca.SLAB_BYTES + a.stages * 64 * ca.SLAB_BYTES
-    assert a.smem_bytes <= ca.SMEM_MAX
+    assert a.threads == 384 and 4 <= a.stages <= hp.MAX_STAGES
+    assert a.smem_bytes == cross_smem(a) <= hp.SMEM_MAX
     heads = c // 64
     assert a.items == b * heads * (n // 64)
     assert 1 <= a.grid <= min(sms, a.items) and a.grid % heads == 0
@@ -261,7 +206,7 @@ def test_head_gemms_write_every_output_once(n, c, b):
     """xp, q, x1 and x2 (B·N, C): the GEMMs' persistent walk writes every
     element once, B·N ragged against the grid."""
     p = cb.head_launch_plan(n, c, b, 77, H100_SMS)
-    assert (_gemm_walk(p.gemm, p.grid, b * n, c, p.gemm.width) == 1).all()
+    assert (gemm_walk(p.gemm, p.grid, b * n, c, p.gemm.width) == 1).all()
 
 
 @pytest.mark.parametrize("n,c,b,lkv", [
